@@ -1,0 +1,498 @@
+"""Smoke run of the PyTorch port on one CUDA card.
+
+    python3 chip_smoke.py
+
+Builds the fused FSGLD update kernel from ``src/repro_torch/kernels/csrc``,
+holds both of its entries against their plain PyTorch versions on the
+card, drives the sampling path through the ``repro_torch.api`` facade —
+the paper's Table-1 Bayesian MLP at full size (10 clients x 20,000
+points, P = 854) on the packed and per-leaf executors, and the multi-leaf
+MLP of ``benchmarks/bench_chains.py`` — checks that each path launched the
+kernel once per step (per leaf, for per-leaf), and times the kernel beside
+its bound and its plain version. Exits non-zero, printing no result, when
+anything fails or no CUDA card is present. The last line is
+``{"ok": true, "device": {...}}``; the line before it lists the kernels.
+"""
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+import torch  # noqa: E402
+
+# H100 SXM data-sheet peaks (dense, at the 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+
+# Kernel vs plain version on the card: the same float32 expression, but
+# nvcc contracts a*b+c into FMAs (an ulp) and CUDA's logf/cosf and torch's
+# log/cos may differ in the last ulp (x sqrt(h*tau) in the update).
+ATOL = RTOL = 1e-5
+BF16_REL = 2.0 ** -7  # one bf16 ulp: a 1e-6 shift can cross a rounding edge
+
+DEVICE = "cuda"
+
+# Table 1 (benchmarks/table1_bnn.py): S x n clients, minibatch, step size
+T1_S, T1_N, T1_M, T1_H, T1_T = 10, 20_000, 50, 1e-5, 40
+T1_CHAINS, T1_ROUNDS = 4, 5
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_sync() -> None:
+    torch.cuda.synchronize()
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# kernel vs plain version
+# ---------------------------------------------------------------------------
+
+def _first(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _err(a, b, bf16_rows=None):
+    """Largest |kernel - plain|, checked against the stated tolerance."""
+    worst = 0.0
+    for x, y in zip(_first(a), _first(b)):
+        d = (x - y).abs()
+        bound = ATOL + RTOL * y.abs()
+        if bf16_rows is not None:
+            bound[bf16_rows] = torch.maximum(
+                bound[bf16_rows], BF16_REL * y[bf16_rows].abs())
+        if not bool(torch.isfinite(x).all()) or bool((d > bound).any()):
+            raise AssertionError(f"kernel disagrees with its plain version:"
+                                 f" max |diff| {float(d.max()):.3e}")
+        worst = max(worst, float(d.max()))
+    return worst
+
+
+def _packed_operands(gen, layout, C, variant, dynamics):
+    dev = gen.device
+    rows, shared = C * layout.rows_total, layout.rows_total
+    rn = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
+    ops = {}
+    if variant != "plain":
+        ops.update(mu_g=rn(shared, 128), mu_s=rn(rows, 128))
+    if variant == "diag":
+        ops.update(lam_g=rn(shared, 128).abs() + 0.1,
+                   lam_s=rn(rows, 128).abs() + 0.1)
+    if dynamics == "sghmc":
+        ops["r2d"] = rn(rows, 128)
+    L = layout.num_leaves
+    seeds = torch.randint(0, 2**31 - 1, (C, L), generator=gen, device=dev)
+    sc = rn(C, L, 9).abs() * 0.1 + 0.05
+    return rn(rows, 128), rn(rows, 128) * 50, seeds, sc, ops
+
+
+def check_kernels(gen, main_shapes, leaf_shapes):
+    """Both entries, all 6 variant x dynamics cells: a ragged 4-leaf layout
+    with a bf16 leaf (through quantize) at C = 3, and the main paths' own
+    shapes (``main_shapes`` packed, ``leaf_shapes`` (C, rows per chain,
+    block rows) per-leaf). Returns the worst |diff| per entry at the main
+    paths' shapes (float32 throughout)."""
+    from repro_torch.kernels import fsgld_update as fk
+    from repro_torch.kernels import ops as kops
+    ragged = kops.make_packed_layout({
+        "a": torch.zeros(1500), "b": torch.zeros(7, 11),
+        "c": torch.zeros(2100, dtype=torch.bfloat16), "d": torch.zeros(3)})
+    bf16 = ragged.dtypes.index(torch.bfloat16)
+    off, r = ragged.row_offsets[bf16], ragged.rows[bf16]
+    worst = {"fsgld_update_packed": 0.0, "fsgld_update_2d": 0.0}
+    for variant in fk.VARIANTS:
+        for dynamics in fk.DYNAMICS:
+            cells = []
+            for name, layout, C in [("ragged4", ragged, 3)] + main_shapes:
+                th, g, seeds, sc, ops = _packed_operands(
+                    gen, layout, C, variant, dynamics)
+                sl, sb = layout.tables(th.device)
+                kw = dict(variant=variant, dynamics=dynamics, seg_leaf=sl,
+                          seg_base=sb, block_rows=layout.block_rows,
+                          chains=C, **ops)
+                out = fk.fsgld_update_packed(th, g, seeds, sc, **kw)
+                ref = fk.fsgld_update_packed_plain(th, g, seeds, sc, **kw)
+                rows = None
+                if not layout.all_fp32:
+                    out = tuple(layout.quantize(o) for o in _first(out))
+                    ref = tuple(layout.quantize(o) for o in _first(ref))
+                    rows = torch.zeros(C, layout.rows_total,
+                                       dtype=torch.bool, device=th.device)
+                    rows[:, off:off + r] = True
+                    rows = rows.reshape(-1)
+                cuda_sync()
+                e = _err(out, ref, rows)
+                if rows is None:
+                    worst["fsgld_update_packed"] = max(
+                        worst["fsgld_update_packed"], e)
+                cells.append(f"packed/{name} {e:.3e}")
+            # the per-leaf entry, chain-batched: 2 blocks of 256 rows at
+            # C = 3, then the per-leaf path's own shapes
+            for C, rows_c, br in [(3, 512, 256)] + leaf_shapes:
+                th, g, seeds, sc, ops = _packed_operands(
+                    gen, kops.make_packed_layout(torch.zeros(rows_c * 128),
+                                                 block_rows=rows_c), C,
+                    variant, dynamics)
+                kw = dict(variant=variant, dynamics=dynamics, chains=C,
+                          **ops)
+                out = fk.fsgld_update_2d(th, g, seeds[:, 0], sc[:, 0],
+                                         block_rows=br, **kw)
+                ref = fk.fsgld_update_2d_plain(th, g, seeds[:, 0],
+                                               sc[:, 0], **kw)
+                cuda_sync()
+                e = _err(out, ref)
+                if (C, rows_c, br) in leaf_shapes:
+                    worst["fsgld_update_2d"] = max(worst["fsgld_update_2d"],
+                                                   e)
+                cells.append(f"2d/C={C}x{rows_c} {e:.3e}")
+            log(f"  {variant:6s} {dynamics:8s} max|kernel-plain|: "
+                + ", ".join(cells))
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# timing
+# ---------------------------------------------------------------------------
+
+def call_ms(fn, reps: int = 25, warmup: int = 3) -> float:
+    """Median of ``reps`` CUDA-event-timed eager calls after ``warmup``:
+    at small shapes this is the host's time through the wrapper, the
+    device idling between the events."""
+    for _ in range(warmup):
+        fn()
+    cuda_sync()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def device_ms(fn, calls: int, replays: int = 20) -> float:
+    """Device time per call: ``calls`` calls captured in one CUDA graph,
+    the graph replayed ``replays`` times between CUDA events after a
+    warm-up; the median replay over ``calls``. Host dispatch is out of
+    the measurement."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    cuda_sync()
+    times = []
+    for _ in range(replays):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    return statistics.median(times)
+
+
+# operations per element (integer and float, transcendental = 1): the
+# noise hash 22, uniforms 6, Box-Muller 6, drift 3 (+8 for a surrogate
+# variant), Langevin update 7 / SGHMC 10
+def ops_per_element(variant: str, dynamics: str) -> int:
+    return 34 + 3 + (0 if variant == "plain" else 8) \
+        + (7 if dynamics == "langevin" else 10)
+
+
+def bound_ms(variant, dynamics, C, n, L):
+    """Least time on an H100 for the update of ``n`` live parameters per
+    chain (pad excluded): bytes each input read once + each output written
+    once, over the memory rate; operations over the fp32 rate. The inputs
+    are theta, g, mu_s, lam_s (and r) per chain, mu_g and lam_g once, and
+    a seed and 9-float scalar row per (chain, leaf)."""
+    per_chain = 2 + {"plain": 0, "scalar": 1, "diag": 2}[variant] \
+        + (2 if dynamics == "sghmc" else 0) + 1          # ins + theta'
+    shared = {"plain": 0, "scalar": 1, "diag": 2}[variant]
+    nbytes = 4 * (per_chain * C * n + shared * n) + C * L * 4 * 10
+    ops = ops_per_element(variant, dynamics) * C * n
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations"), nbytes
+
+
+def time_kernels(gen, shapes):
+    """(kernel ms, plain ms, bound ms, bound_by, bytes) per named shape."""
+    from repro_torch.kernels import fsgld_update as fk
+    rows = {}
+    for name, entry, layout, C, calls in shapes:
+        th, g, seeds, sc, ops = _packed_operands(gen, layout, C, "diag",
+                                                 "langevin")
+        if entry == "fsgld_update_packed":
+            sl, sb = layout.tables(th.device)
+            kw = dict(variant="diag", seg_leaf=sl, seg_base=sb,
+                      block_rows=layout.block_rows, chains=C, **ops)
+            kern = lambda: fk.fsgld_update_packed(  # noqa: E731
+                th, g, seeds, sc, **kw)
+            plain = lambda: fk.fsgld_update_packed_plain(  # noqa: E731
+                th, g, seeds, sc, dynamics="langevin", **kw)
+            L = layout.num_leaves
+        else:
+            # one leaf, 8-row blocks as the per-leaf executor pads it
+            kw = dict(variant="diag", chains=C, **ops)
+            kern = lambda: fk.fsgld_update_2d(  # noqa: E731
+                th, g, seeds[:, 0], sc[:, 0],
+                block_rows=layout.block_rows, **kw)
+            plain = lambda: fk.fsgld_update_2d_plain(  # noqa: E731
+                th, g, seeds[:, 0], sc[:, 0], dynamics="langevin", **kw)
+            L = 1
+        ms = device_ms(kern, calls=calls)
+        plain_ms = device_ms(plain, calls=max(1, calls // 4),
+                             replays=20 if calls > 1 else 5)
+        wrap_ms = call_ms(kern)
+        n_live = sum(layout.sizes)
+        b_ms, b_by, nbytes = bound_ms("diag", "langevin", C, n_live, L)
+        rows[name] = (ms, plain_ms, b_ms, b_by, nbytes)
+        log(f"  {name}: {entry} diag/langevin C={C} "
+            f"rows/chain={layout.rows_total} live/chain={n_live}: "
+            f"kernel {ms:.4f} ms on the device ({wrap_ms:.4f} ms per eager "
+            f"call through the wrapper), plain {plain_ms:.4f} ms, bound "
+            f"{b_ms:.7f} ms ({b_by}; {nbytes} live bytes), "
+            f"{100 * b_ms / ms:.2f}% of bound")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# the sampling paths
+# ---------------------------------------------------------------------------
+
+def table1_setup(dev):
+    """Table-1 data and a Fisher bank fitted on the card at
+    table1_bnn.py's settings (non-IID Beta(0.5, 0.5) labels)."""
+    from repro_torch.core import fit_bank_fisher, sample_local_likelihood
+    from repro_torch.data import susy_shards, susy_test_set
+    from repro_torch.workloads import TABLE1_P, table1_log_lik
+    g = torch.Generator(device=dev).manual_seed(0)
+    shards, _ = susy_shards(g, num_shards=T1_S, shard_size=T1_N,
+                            beta_a=0.5)
+    test = susy_test_set(torch.Generator(device=dev).manual_seed(7),
+                         size=4000)
+    theta0 = 0.1 * torch.randn(TABLE1_P, generator=g, device=dev)
+    t0 = time.perf_counter()
+    samples = sample_local_likelihood(
+        table1_log_lik, shards, theta0, g, minibatch=T1_M, step_size=T1_H,
+        num_steps=400, burn_in=200, thin=2, prior_precision=1.0)
+    bank = fit_bank_fisher(table1_log_lik, shards, samples.mean(1),
+                           batch=2000)
+    cuda_sync()
+    log(f"  surrogate fit on the card (400 local SGLD steps x {T1_S} "
+        f"clients + Fisher over {T1_S * T1_N} points): "
+        f"{time.perf_counter() - t0:.2f} s")
+    return shards, test, theta0, bank
+
+
+def run_path(name, sampler, gen, theta0, expect):
+    """Drive one path with the launch counts set to 0 just before it and
+    read just after; ``expect`` maps entry -> launches it must make."""
+    from repro_torch.kernels import fsgld_update as fk
+    cuda_sync()
+    fk.reset_launches()
+    t0 = time.perf_counter()
+    out = sampler.sample(gen, theta0)
+    cuda_sync()
+    dt = time.perf_counter() - t0
+    counts = dict(fk.LAUNCHES)
+    for entry, want in expect.items():
+        if counts[entry] != want:
+            raise AssertionError(f"{name}: {entry} launched "
+                                 f"{counts[entry]} times, expected {want}")
+    from repro_torch import tree as tu
+    if not all(bool(torch.isfinite(v).all()) for v in tu.leaves(out)):
+        raise AssertionError(f"{name}: non-finite state")
+    sched = sampler.schedule
+    steps = sched.rounds * sched.local_steps * sched.n_chains
+    log(f"  {name}: launches {counts}, {dt:.3f} s, "
+        f"{steps / dt:.1f} chain-steps/s")
+    return out, counts
+
+
+def profile_round(sampler, gen, theta0) -> None:
+    """Where one round's time goes: the top operators by host time, the
+    kernels by device time, and the device's busy share of the wall time
+    (measured under the profiler, which slows the host)."""
+    from torch.profiler import ProfilerActivity, profile
+    sampler.sample(gen, theta0, rounds=1)  # warm
+    cuda_sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sampler.sample(gen, theta0, rounds=1)
+        cuda_sync()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    ev = prof.key_averages()
+    dev_us = sum(getattr(e, "self_device_time_total", 0.0) for e in ev)
+    log(ev.table(sort_by="self_cpu_time_total", row_limit=12,
+                 max_name_column_width=48))
+    busy = [(getattr(e, "self_device_time_total", 0.0), e.key) for e in ev]
+    top = sorted(busy, reverse=True)[:6]
+    log("  device time by kernel (us): " + ", ".join(
+        f"{k[:40]} {t:.0f}" for t, k in top if t > 0))
+    busy_pct = 100 * dev_us / wall_us
+    log(f"  round wall {wall_us / 1e3:.2f} ms ({wall_us / 40 / 1e3:.3f} ms "
+        f"per step), device busy {dev_us / 1e3:.2f} ms = {busy_pct:.1f}% "
+        f"(idle {100 - busy_pct:.1f}%)")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 2
+    log(card_line())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("float32 matmul/cudnn TF32 disabled (full float32 throughout)")
+    from repro_torch import api
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ops as kops
+    from repro_torch.workloads import (TABLE1_P, avg_loglik, mlp_log_lik,
+                                       mlp_problem, table1_log_lik)
+    dev = torch.device(DEVICE)
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+
+    t0 = time.perf_counter()
+    _build.load()
+    log(f"[build] nvcc {' '.join(_build.FLAGS)}: "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    t1_layout = kops.make_packed_layout(torch.zeros(TABLE1_P))
+    mlp_gen = torch.Generator(device=dev).manual_seed(99)
+    mlp_data, mlp_bank, mlp_theta0 = mlp_problem(mlp_gen, S=4, n=256,
+                                                 din=64, hid=256, dout=32)
+    mlp_layout = kops.make_packed_layout(mlp_theta0)
+    log("[kernels] kernel vs plain version on the card "
+        f"(tolerance {ATOL:g} + {RTOL:g}|x|; bf16 leaf one bf16 ulp)")
+    worst = check_kernels(gen, [("table1", t1_layout, T1_CHAINS),
+                                ("mlp4", mlp_layout, 8)],
+                          [(T1_CHAINS, t1_layout.rows_total,
+                            t1_layout.block_rows)])
+
+    log(f"[table1] Bayesian MLP, P={TABLE1_P}, {T1_S} x {T1_N} clients")
+    shards, test, theta0, bank = table1_setup(dev)
+
+    def t1(executor):
+        return api.FSGLD(
+            api.Posterior(table1_log_lik, prior_precision=1.0), shards,
+            minibatch=T1_M, step_size=T1_H,
+            surrogate=api.SurrogateSpec(kind="diag", bank=bank),
+            schedule=api.Schedule(rounds=T1_ROUNDS, local_steps=T1_T,
+                                  n_chains=T1_CHAINS, thin=20),
+            execution=api.Execution(device=dev, executor=executor))
+
+    steps = T1_ROUNDS * T1_T
+    seed = 20
+    tr_p, main_counts = run_path(
+        "table1/packed", t1("packed"),
+        torch.Generator(device=dev).manual_seed(seed), theta0,
+        {"fsgld_update_packed": steps, "fsgld_update_2d": 0})
+    tr_l, leaf_counts = run_path(
+        "table1/per_leaf", t1("per_leaf"),
+        torch.Generator(device=dev).manual_seed(seed), theta0,
+        {"fsgld_update_packed": 0, "fsgld_update_2d": steps})
+    if not torch.equal(tr_p, tr_l):
+        raise AssertionError("packed and per_leaf traces differ on one "
+                             "generator")
+    log("  packed == per_leaf, bitwise, on one generator")
+    tr_v, _ = run_path(
+        "table1/vmap (plain reference)", t1("vmap"),
+        torch.Generator(device=dev).manual_seed(seed), theta0,
+        {"fsgld_update_packed": 0, "fsgld_update_2d": 0})
+    half = tr_p.shape[1] // 2
+    ll0 = avg_loglik(theta0[None], test)
+    # per-chain held-out log-lik over each chain's second half: the packed
+    # run must agree with the plain reference within 5 standard errors of
+    # the difference of the two 4-chain means (floor 0.01)
+    ll_p = torch.tensor([avg_loglik(c[half:], test) for c in tr_p])
+    ll_v = torch.tensor([avg_loglik(c[half:], test) for c in tr_v])
+    se = math.sqrt(float(ll_p.var() + ll_v.var()) / T1_CHAINS)
+    diff = float(ll_p.mean() - ll_v.mean())
+    log(f"  held-out avg log-lik: theta0 {ll0:.4f}, packed "
+        f"{float(ll_p.mean()):.4f} (chains {ll_p.tolist()}), vmap reference "
+        f"{float(ll_v.mean()):.4f} (chains {ll_v.tolist()}); difference "
+        f"{diff:.4f}, standard error {se:.4f}")
+    if not (math.isfinite(diff) and abs(diff) < max(0.01, 5 * se)):
+        raise AssertionError("packed run strays from the plain reference")
+
+    log("[mlp4] bench_chains multi-leaf MLP (24,864 params, 4 leaves), "
+        "'scalar' bank, C=8, 3 rounds x 8 steps, packed")
+    mlp = api.FSGLD(
+        api.Posterior(mlp_log_lik, prior_precision=1.0), mlp_data,
+        minibatch=16, step_size=1e-5,
+        surrogate=api.SurrogateSpec(kind="scalar", bank=mlp_bank),
+        schedule=api.Schedule(rounds=3, local_steps=8, n_chains=8, thin=8),
+        execution=api.Execution(device=dev, executor="packed"))
+    run_path("mlp4/packed", mlp, torch.Generator(device=dev).manual_seed(3),
+             mlp_theta0, {"fsgld_update_packed": 24,
+                          "fsgld_update_2d": 0})
+
+    log("[profile] one packed Table-1 round (40 steps) under "
+        "torch.profiler")
+    profile_round(t1("packed"), torch.Generator(device=dev).manual_seed(5),
+                  theta0)
+
+    log("[times] device time per launch: CUDA graphs of back-to-back "
+        "launches replayed 20 times between CUDA events (median)")
+    big = kops.make_packed_layout(torch.zeros(2**24))
+    times = time_kernels(gen, [
+        ("table1/packed", "fsgld_update_packed", t1_layout, T1_CHAINS, 20),
+        ("table1/per_leaf", "fsgld_update_2d", t1_layout, T1_CHAINS, 20),
+        ("mlp4/packed", "fsgld_update_packed", mlp_layout, 8, 20),
+        ("large/packed C*P=2^27", "fsgld_update_packed", big, 8, 1),
+        ("large/per_leaf C*P=2^27", "fsgld_update_2d", big, 8, 1)])
+    log("  no single PyTorch call computes this update, so there is no "
+        "library time (library_ms null)")
+
+    src = "src/repro_torch/kernels/csrc/fsgld_update.cu"
+    rows = []
+    for entry, line, shape, launches in (
+            ("fsgld_update_packed", 273, "table1/packed",
+             main_counts["fsgld_update_packed"]),
+            ("fsgld_update_2d", 189, "table1/per_leaf",
+             leaf_counts["fsgld_update_2d"])):
+        ms, plain_ms, b_ms, b_by, _ = times[shape]
+        rows.append({"name": entry, "route": "cuda", "source": src,
+                     "replaces": f"src/repro/kernels/fsgld_update.py:{line}",
+                     "launches": launches, "max_abs_err": worst[entry],
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": None})
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,306 @@
+"""One FSGLD front door in PyTorch (counterpart of ``repro.api``).
+
+Four declarative pieces — :class:`Posterior`, :class:`SurrogateSpec`,
+:class:`Schedule`, :class:`Execution` — and one verb::
+
+    fsgld = FSGLD(posterior, data, minibatch=10, surrogate=spec,
+                  schedule=Schedule(rounds=300, local_steps=100),
+                  execution=Execution(device="cpu"))
+    samples = fsgld.sample(torch.Generator().manual_seed(0), theta0)
+
+Runs on CUDA unless ``Execution(device="cpu")`` asks for the CPU; with no
+card and no CPU request, ``Execution()`` raises instead of carrying on on
+the CPU. ``executor='auto'`` is the packed single-launch kernel executor
+on CUDA and the plain ``vmap`` executor on the CPU.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional
+
+import torch
+
+from repro_torch import tree as tu
+from repro_torch.configs.base import SamplerConfig
+from repro_torch.core.engine import MeshChainEngine, _not_ported, pad_shards
+from repro_torch.core.federated import (fit_bank_fisher, refresh_bank,
+                                        sample_local_likelihood)
+from repro_torch.core.surrogate import (SurrogateBank, fit_scalar_tree,
+                                        make_bank)
+
+PyTree = Any
+LogLikFn = Callable[[PyTree, PyTree], torch.Tensor]
+
+__all__ = ["Posterior", "SurrogateSpec", "Schedule", "Execution", "FSGLD",
+           "fit_bank_local_sgld"]
+
+_EXECUTORS = ("auto", "vmap", "per_leaf", "packed")
+# method -> (SamplerConfig drift family, carries the conducive correction)
+_METHODS = {"sgld": ("sgld", False), "dsgld": ("dsgld", False),
+            "fsgld": ("fsgld", True)}
+_FIT_SEED_SALT = 0x5357
+
+
+@dataclasses.dataclass(frozen=True)
+class Posterior:
+    """log p(theta | x) ∝ prior * likelihood. ``log_lik(theta, batch)``
+    is the minibatch log-likelihood (summed); the prior is
+    N(0, prior_precision^-1 I); ``temperature`` scales the noise."""
+    log_lik: LogLikFn
+    prior_precision: float = 1.0
+    temperature: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class SurrogateSpec:
+    """How the conducive-gradient surrogates q_s are built.
+
+    kind: 'none' (DSGLD/SGLD), 'diag' (flat-vector params) or 'scalar'
+    (per-tensor isotropic, pytree params). fit (when ``bank`` is None):
+    'auto' ('refresh' for diag, 'local_sgld' for scalar), 'refresh'
+    (gradient-matching Fisher fit at theta0), 'fisher' (Fisher-Laplace at
+    theta0, diag) or 'local_sgld' (short per-client SGLD runs + moment
+    fits, using fit_steps / fit_minibatch / fit_step_size)."""
+    kind: str = "diag"
+    bank: Optional[SurrogateBank] = None
+    fit: str = "auto"
+    fit_steps: int = 200
+    fit_minibatch: int = 32
+    fit_step_size: Optional[float] = None
+
+    def __post_init__(self):
+        if self.kind in ("linear", "full"):
+            raise ValueError(f"surrogate kind {self.kind!r} is not ported; "
+                             "the port has 'none', 'diag' and 'scalar'")
+        if self.kind not in ("none", "diag", "scalar"):
+            raise ValueError(f"unknown surrogate kind {self.kind!r}")
+        if self.fit not in ("auto", "refresh", "fisher", "local_sgld"):
+            raise ValueError(f"unknown surrogate fit {self.fit!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class Schedule:
+    """Algorithm 1's schedule: rounds x local_steps updates per chain;
+    ``reassign`` 'categorical' (i.i.d. draw) or 'permutation'
+    (collision-free); ``thin`` keeps every thin-th local step."""
+    rounds: int
+    local_steps: int = 40
+    n_chains: int = 1
+    reassign: str = "categorical"
+    thin: int = 1
+
+    def __post_init__(self):
+        if self.reassign not in ("categorical", "permutation"):
+            raise ValueError(f"unknown reassign {self.reassign!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class Execution:
+    """Where and how the chains run.
+
+    device: None -> 'cuda', which must be available (no quiet CPU run);
+      pass 'cpu' to run on the CPU.
+    executor: 'vmap' (plain reference), 'per_leaf' (one kernel launch per
+      leaf per step), 'packed' (one launch per step for the whole chain
+      block) or 'auto' (packed on CUDA, vmap on the CPU).
+    collect: False returns final chain states instead of a trace.
+    dtype: surrogate-mean STORAGE dtype (e.g. torch.bfloat16)."""
+    device: Any = None
+    executor: str = "auto"
+    collect: bool = True
+    dtype: Any = None
+
+    def __post_init__(self):
+        if self.executor not in _EXECUTORS:
+            raise ValueError(f"unknown executor {self.executor!r}; pick "
+                             f"from {_EXECUTORS}")
+        if self.device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "CUDA is not available; pass Execution(device='cpu') to "
+                    "run on the CPU")
+            dev = torch.device("cuda")
+        else:
+            dev = torch.device(self.device)
+        object.__setattr__(self, "device", dev)
+
+
+def _to(tree: PyTree, device) -> PyTree:
+    return tu.tree_map(lambda t: torch.as_tensor(t).to(device), tree)
+
+
+class FSGLD:
+    """The sampler: one constructor, one ``sample``.
+
+    data: client shards — a pytree with stacked (S, n, ...) leaves or a
+    list of per-client pytrees (ragged clients are NaN-padded by
+    ``pad_shards``; minibatches never touch the pad). ``method``: 'fsgld'
+    (needs a surrogate kind other than 'none'), 'dsgld' or 'sgld'.
+    ``kernel``: 'sgld' (Langevin) only in this port so far.
+    """
+
+    def __init__(self, posterior: Posterior, data: PyTree, *,
+                 minibatch: int, step_size: float = 1e-4,
+                 method: str = "fsgld", kernel: str = "sgld",
+                 alpha: float = 1.0,
+                 surrogate: Optional[SurrogateSpec] = None,
+                 schedule: Optional[Schedule] = None,
+                 execution: Optional[Execution] = None,
+                 shard_probs: Optional[tuple] = None,
+                 sizes: Optional[tuple] = None):
+        if method == "fald":
+            raise _not_ported("method='fald'", 10)
+        if method not in _METHODS:
+            raise ValueError(f"unknown sampling method {method!r}; "
+                             f"available: {', '.join(_METHODS)}")
+        if kernel == "sghmc":
+            raise _not_ported("kernel='sghmc'", 7)
+        if kernel != "sgld":
+            raise ValueError(kernel)
+        cfg_method, needs_surrogate = _METHODS[method]
+        self.posterior = posterior
+        self.surrogate = surrogate if surrogate is not None \
+            else (SurrogateSpec() if needs_surrogate
+                  else SurrogateSpec(kind="none"))
+        if needs_surrogate and self.surrogate.kind == "none":
+            raise ValueError("method='fsgld' needs a surrogate kind other "
+                             "than 'none' (that's DSGLD)")
+        self.schedule = schedule if schedule is not None \
+            else Schedule(rounds=100)
+        self.execution = execution if execution is not None else Execution()
+        dev = self.execution.device
+        if isinstance(data, (list, tuple)):
+            data, inferred = pad_shards([_to(d, dev) for d in data])
+            sizes = sizes if sizes is not None else inferred
+        self.data = _to(data, dev)
+        self.sizes = sizes
+        num_shards = tu.leaves(self.data)[0].shape[0]
+        self.cfg = SamplerConfig(
+            method=cfg_method, step_size=step_size, num_shards=num_shards,
+            shard_probs=shard_probs, local_updates=self.schedule.local_steps,
+            alpha=alpha,
+            surrogate=(self.surrogate.kind
+                       if self.surrogate.kind != "none" else "diag"),
+            prior_precision=posterior.prior_precision,
+            temperature=posterior.temperature)
+        self.minibatch = minibatch
+        bank = self.surrogate.bank
+        self.bank = None if bank is None else self._install(bank)
+        self._engine = None
+
+    def _install(self, bank: SurrogateBank) -> SurrogateBank:
+        bank = bank.to(self.execution.device)
+        return bank if self.execution.dtype is None \
+            else bank.astype(self.execution.dtype)
+
+    # -- surrogate fitting (phase 1: computed once, communicated once) ----
+
+    def fit(self, generator: torch.Generator, theta0: PyTree
+            ) -> SurrogateBank:
+        """Fit the surrogate bank per the spec and install it. The
+        generator feeds only the stochastic fit ('local_sgld')."""
+        spec = self.surrogate
+        if spec.kind == "none":
+            raise ValueError("surrogate kind 'none': nothing to fit")
+        theta0 = _to(theta0, self.execution.device)
+        fit = spec.fit
+        if fit == "auto":
+            fit = "local_sgld" if spec.kind == "scalar" else "refresh"
+        if fit == "refresh":
+            bank = refresh_bank(self.posterior.log_lik, self.data, theta0)
+        elif fit == "fisher":
+            S = self.cfg.num_shards
+            means = torch.broadcast_to(theta0, (S,) + theta0.shape)
+            bank = fit_bank_fisher(self.posterior.log_lik, self.data,
+                                   means.clone())
+        else:
+            bank = fit_bank_local_sgld(
+                self.posterior.log_lik, self.data, theta0, generator,
+                fit_steps=spec.fit_steps, minibatch=spec.fit_minibatch,
+                step_size=(spec.fit_step_size if spec.fit_step_size
+                           is not None else self.cfg.step_size),
+                kind=spec.kind)
+        self.bank = self._install(bank)
+        self._engine = None
+        return self.bank
+
+    # -- engine resolution -------------------------------------------------
+
+    def _resolve_executor(self) -> tuple[bool, Optional[bool]]:
+        """executor name -> (use_kernel, packed) engine knobs."""
+        ex = self.execution.executor
+        if ex == "auto":
+            if self.execution.device.type == "cuda":
+                return True, None  # packed; per-leaf for non-float leaves
+            ex = "vmap"
+        if ex == "vmap":
+            return False, None
+        if ex == "per_leaf":
+            return True, False
+        return True, True
+
+    @property
+    def engine(self) -> MeshChainEngine:
+        if self._engine is None:
+            use_kernel, packed = self._resolve_executor()
+            self._engine = MeshChainEngine(
+                self.posterior.log_lik, self.cfg, self.data, self.minibatch,
+                bank=self.bank if self.cfg.method == "fsgld" else None,
+                use_kernel=use_kernel, sizes=self.sizes, packed=packed)
+        return self._engine
+
+    # -- phase 2: sampling -------------------------------------------------
+
+    def sample(self, generator: torch.Generator, theta0: PyTree, *,
+               rounds: Optional[int] = None,
+               n_chains: Optional[int] = None):
+        """Run the schedule; returns samples with leading axes
+        (n_chains, rounds * ceil(local_steps / thin), ...), or the final
+        chain states when ``Execution.collect`` is False. ``generator``
+        (on the run's device) drives sampling; a surrogate fit still
+        needed draws from a generator seeded from it, so a prefit-bank
+        run consumes exactly the same stream."""
+        if self.cfg.method == "fsgld" and self.bank is None:
+            fit_gen = torch.Generator(device=generator.device)
+            fit_gen.manual_seed(generator.initial_seed() ^ _FIT_SEED_SALT)
+            self.fit(fit_gen, theta0)
+        sched = self.schedule
+        return self.engine.run(
+            generator, _to(theta0, self.execution.device),
+            rounds if rounds is not None else sched.rounds,
+            n_chains=n_chains if n_chains is not None else sched.n_chains,
+            reassign=sched.reassign, collect_every=sched.thin,
+            collect=self.execution.collect)
+
+
+# ---------------------------------------------------------------------------
+# per-client local-SGLD surrogate fitting (paper Sec 3.1 phase 1)
+# ---------------------------------------------------------------------------
+
+def fit_bank_local_sgld(log_lik_fn: LogLikFn, shard_data: PyTree,
+                        theta0: PyTree, generator: torch.Generator, *,
+                        fit_steps: int, minibatch: int, step_size: float,
+                        kind: str = "scalar",
+                        lam_floor: float = 1e-8) -> SurrogateBank:
+    """Short SGLD runs per client against the LOCAL likelihood, then
+    moment fits over the second half of each trace: per-tensor isotropic
+    ('scalar') or per-dimension ('diag', flat-vector params)."""
+    traces = sample_local_likelihood(
+        log_lik_fn, shard_data, theta0, generator, minibatch=minibatch,
+        step_size=step_size, num_steps=fit_steps, burn_in=fit_steps // 2,
+        thin=1)
+    if kind == "scalar":
+        fits = [fit_scalar_tree(tu.tree_map(lambda t: t[s], traces),
+                                jitter=lam_floor)
+                for s in range(tu.leaves(traces)[0].shape[0])]
+        stack = lambda *xs: torch.stack(xs)  # noqa: E731
+        return make_bank(tu.tree_map(stack, *[m for m, _ in fits]),
+                         tu.tree_map(stack, *[p for _, p in fits]), "scalar")
+    if kind == "diag":
+        flat = tu.leaves(traces)
+        if len(flat) != 1 or flat[0].ndim != 3:
+            raise ValueError("diag fits need flat-vector parameters")
+        mu = flat[0].mean(1)
+        precs = 1.0 / (flat[0].var(1, unbiased=False) + lam_floor)
+        return make_bank(mu, precs, "diag")
+    raise ValueError(kind)

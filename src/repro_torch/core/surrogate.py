@@ -1,0 +1,141 @@
+"""Gaussian surrogates q_s(theta) ~= p(x_s | theta) (paper Sec 3.1);
+counterpart of ``repro.core.surrogate``.
+
+Two precision structures in this port so far:
+
+  'diag'   — mean (P,), precision (P,).     flat-vector parameters.
+  'scalar' — pytree means + ONE precision scalar per tensor.
+
+Gaussians are closed under products, so the global surrogate
+q = prod_s q_s has precision sum(Lambda_s) and natural parameter
+sum(Lambda_s mu_s). A ``SurrogateBank`` stacks the S shard surrogates
+along a leading axis.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch import tree as tu
+
+PyTree = Any
+KINDS = ("diag", "scalar")
+
+
+def _kind_check(kind: str) -> None:
+    if kind not in KINDS:
+        raise ValueError(f"surrogate kind {kind!r} is not ported; the port "
+                         f"has {KINDS}")
+
+
+@dataclasses.dataclass
+class Gaussian:
+    """One Gaussian surrogate: flat ``mean``/``prec`` vectors ('diag') or
+    a pytree of means with a scalar precision per leaf ('scalar')."""
+    mean: PyTree
+    prec: PyTree
+    kind: str = "diag"
+
+    def grad_log(self, theta: PyTree) -> PyTree:
+        """grad log q(theta) = -Lambda (theta - mu)."""
+        _kind_check(self.kind)
+        if self.kind == "diag":
+            return -self.prec * (theta - self.mean)
+        return tu.tree_map(lambda th, mu, lam: -lam * (th - mu.to(th.dtype)),
+                           theta, self.mean, self.prec)
+
+
+@dataclasses.dataclass
+class SurrogateBank:
+    """S stacked shard surrogates + the precomputed global product.
+    means/precs carry a leading shard axis."""
+    means: PyTree
+    precs: PyTree
+    global_: Gaussian
+    kind: str = "diag"
+
+    @property
+    def num_shards(self) -> int:
+        return tu.leaves(self.means)[0].shape[0]
+
+    def shard(self, s) -> Gaussian:
+        return Gaussian(tu.tree_map(lambda a: a[s], self.means),
+                        tu.tree_map(lambda a: a[s], self.precs), self.kind)
+
+    def astype(self, dtype) -> "SurrogateBank":
+        """Bank with means STORED at ``dtype`` (e.g. bf16); precisions stay
+        float32, and every gradient path upcasts means at use."""
+        cast = lambda t: tu.tree_map(lambda l: l.to(dtype), t)  # noqa: E731
+        return SurrogateBank(cast(self.means), self.precs,
+                             Gaussian(cast(self.global_.mean),
+                                      self.global_.prec, self.kind),
+                             self.kind)
+
+    def to(self, device) -> "SurrogateBank":
+        mv = lambda t: tu.tree_map(lambda l: l.to(device), t)  # noqa: E731
+        return SurrogateBank(mv(self.means), mv(self.precs),
+                             Gaussian(mv(self.global_.mean),
+                                      mv(self.global_.prec), self.kind),
+                             self.kind)
+
+
+def make_bank(means: PyTree, precs: PyTree, kind: str,
+              store_dtype=None) -> SurrogateBank:
+    """Bank from stacked per-shard means/precisions, with the product-
+    Gaussian global surrogate computed in the input dtype before any
+    ``store_dtype`` cast of the means."""
+    _kind_check(kind)
+    if kind == "diag":
+        prec_g = precs.sum(0)
+        mean_g = (precs * means).sum(0) / torch.clamp(prec_g, min=1e-12)
+    else:
+        prec_g = tu.tree_map(lambda lam: lam.sum(0), precs)
+        mean_g = tu.tree_map(
+            lambda mu, lam, lg: (
+                (lam.reshape((-1,) + (1,) * (mu.ndim - 1)) * mu).sum(0)
+                / torch.clamp(lg, min=1e-12)).to(mu.dtype),
+            means, precs, prec_g)
+    bank = SurrogateBank(means, precs, Gaussian(mean_g, prec_g, kind), kind)
+    return bank if store_dtype is None else bank.astype(store_dtype)
+
+
+# ---------------------------------------------------------------------------
+# fitting surrogates from local samples (paper Sec 3.1 / Sec 5)
+# ---------------------------------------------------------------------------
+
+def fit_gaussian(samples: torch.Tensor, kind: str, jitter: float = 1e-6,
+                 likelihood_only: bool = True, prior_prec: float = 0.0):
+    """Fit one diagonal Gaussian to (n_samples, P) draws. With
+    ``likelihood_only=False`` and ``prior_prec > 0`` the prior precision
+    is subtracted in natural parameters (the draws targeted
+    prior * likelihood). Returns (mean, precision)."""
+    mu = samples.mean(0)
+    if kind == "diag":
+        prec = 1.0 / (samples.var(0, unbiased=False) + jitter)
+        if not likelihood_only and prior_prec > 0:
+            prec_l = torch.clamp(prec - prior_prec, min=jitter)
+            mu = (prec * mu) / prec_l
+            prec = prec_l
+        return mu, prec
+    raise ValueError(kind)
+
+
+def fit_scalar_tree(sample_tree: PyTree, jitter: float = 1e-6):
+    """Per-tensor isotropic Gaussians: leaves are (n_samples, *shape).
+    Returns (means pytree, scalar precisions pytree)."""
+    means = tu.tree_map(lambda s: s.mean(0), sample_tree)
+    precs = tu.tree_map(
+        lambda s: 1.0 / (s.var(0, unbiased=False).mean() + jitter),
+        sample_tree)
+    return means, precs
+
+
+def analytic_gaussian_likelihood_surrogate(xs: torch.Tensor,
+                                           obs_var: float = 1.0):
+    """Exact likelihood surrogate for the Sec 5.1 model N(x | mu, I):
+    mean xbar_s, precision (N_s / obs_var) I (diag)."""
+    n = xs.shape[0]
+    mu = xs.mean(0)
+    return mu, torch.full_like(mu, n / obs_var)

@@ -1,0 +1,67 @@
+"""Minimal pytree walking for parameter trees of tensors.
+
+Nodes are dicts, lists, tuples and None; everything else is a leaf. Dict
+children are visited in SORTED key order — the order ``jax.tree.flatten``
+uses — so a parameter dict flattens to the same leaf sequence as in the
+JAX package, and leaf indices (packed layouts, per-leaf seeds) line up
+with it.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable
+
+PyTree = Any
+
+
+def flatten(tree: PyTree) -> tuple[list, tuple]:
+    """Returns (leaves, treedef); treedef is a hashable nested tuple."""
+    leaves: list = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            keys = tuple(sorted(t))
+            return ("dict", keys, tuple(walk(t[k]) for k in keys))
+        if isinstance(t, (list, tuple)):
+            return (type(t).__name__, len(t), tuple(walk(c) for c in t))
+        if t is None:
+            return ("none",)
+        leaves.append(t)
+        return ("leaf",)
+
+    return leaves, walk(tree)
+
+
+def unflatten(treedef: tuple, leaves) -> PyTree:
+    it = iter(leaves)
+
+    def build(d):
+        kind = d[0]
+        if kind == "leaf":
+            return next(it)
+        if kind == "none":
+            return None
+        if kind == "dict":
+            return {k: build(c) for k, c in zip(d[1], d[2])}
+        children = [build(c) for c in d[2]]
+        return children if kind == "list" else tuple(children)
+
+    out = build(treedef)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the treedef holds")
+    return out
+
+
+def leaves(tree: PyTree) -> list:
+    return flatten(tree)[0]
+
+
+def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
+    """fn over corresponding leaves of trees with the same structure."""
+    lv, td = flatten(tree)
+    others = []
+    for r in rest:
+        rl, rd = flatten(r)
+        if rd != td:
+            raise ValueError(f"tree structures differ: {td} vs {rd}")
+        others.append(rl)
+    return unflatten(td, [fn(*xs) for xs in zip(lv, *others)])

@@ -1,0 +1,38 @@
+"""The port stands alone: no file of ``src/repro_torch/`` and not
+``chip_smoke.py`` imports JAX or anything of the JAX package ``repro``
+(an AST scan, so a lazy import inside a function counts too)."""
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
+    + [ROOT / "chip_smoke.py"]
+BANNED = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "id", getattr(node.func, "attr", "")) in (
+                    "import_module", "__import__") and node.args and \
+                isinstance(node.args[0], ast.Constant):
+            yield str(node.args[0].value).split(".")[0]
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax_and_nothing_of_repro(path):
+    assert path.exists(), path
+    bad = sorted(set(_imported_roots(path)) & set(BANNED))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_scan_sees_the_whole_port():
+    names = {p.name for p in FILES}
+    assert {"api.py", "engine.py", "fsgld_update.py", "ops.py",
+            "chip_smoke.py"} <= names
