@@ -2,19 +2,35 @@
 
     python3 chip_smoke.py
 
-Builds the fused FSGLD update kernel from ``src/repro_torch/kernels/csrc``,
-holds both of its entries against their plain PyTorch versions on the
-card, drives the sampling path through the ``repro_torch.api`` facade —
-the paper's Table-1 Bayesian MLP at full size (10 clients x 20,000
-points, P = 854) on the packed and per-leaf executors, and the multi-leaf
-MLP of ``benchmarks/bench_chains.py`` — checks that each path launched the
-kernel once per step (per leaf, for per-leaf), and times the kernel beside
-its bound and its plain version. Exits non-zero, printing no result, when
-anything fails or no CUDA card is present. The last line is
-``{"ok": true, "device": {...}}``; the line before it lists the kernels.
+Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+nvcc per source, in parallel) and drives its two paths through the
+``repro_torch.api`` facade:
+
+* sampling: holds both entries of the fused FSGLD update kernel against
+  their plain PyTorch versions, runs the paper's Table-1 Bayesian MLP at
+  full size (10 clients x 20,000 points, P = 854) on the packed and
+  per-leaf executors and the multi-leaf MLP of
+  ``benchmarks/bench_chains.py``, and checks that each path launched the
+  kernel once per step (per leaf, for per-leaf);
+* serving: holds the flash-attention kernel against its plain version
+  over masks, dtypes, GQA groups, head dims and lengths, serves
+  qwen3-1.7b at full width with K = 4 posterior draws (two requests of
+  batch 4 x prompt 2,048, 16 new tokens each) and checks one launch per
+  layer per request and none in decode, the K = 1 ensemble against a
+  plain prefill + decode loop (bitwise) and the kernel's prefill logits
+  against the plain attention's; then one request of h2o-danube-1.8b at
+  full width and 2 layers through the sliding-window ring cache;
+
+and times each kernel beside its bound, its plain version and, where one
+PyTorch call computes the same function, that call. Exits non-zero,
+printing no result, when anything fails or no CUDA card is present. The
+last line is ``{"ok": true, "device": {...}}``; the line before it lists
+the kernels.
 """
 from __future__ import annotations
 
+import dataclasses
+import itertools
 import json
 import math
 import statistics
@@ -30,6 +46,7 @@ import torch  # noqa: E402
 # H100 SXM data-sheet peaks (dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_TC_OPS_PER_S = 989e12
 
 # Kernel vs plain version on the card: the same float32 expression, but
 # nvcc contracts a*b+c into FMAs (an ulp) and CUDA's logf/cosf and torch's
@@ -43,9 +60,30 @@ DEVICE = "cuda"
 T1_S, T1_N, T1_M, T1_H, T1_T = 10, 20_000, 50, 1e-5, 40
 T1_CHAINS, T1_ROUNDS = 4, 5
 
+# Flash attention vs its plain version within
+# repro_torch.kernels.flash_attention.tolerance (tools/flash_planted_faults.py
+# shows faults of the late rows of S = 2,048 failing it), at these hd
+FLASH_HDS = (64, 80, 128, 160, 256)
+# The serving path: qwen3-1.7b at full width, K draws, two requests of
+# batch x prompt, GEN new tokens each; prefill attention shape (B, S, H,
+# Hkv, hd) and the long per-sequence shape of PREFILL_32K.
+SERVE_K, SERVE_B, SERVE_S, SERVE_GEN = 4, 4, 2048, 16
+# layers, d_model, heads, KV heads, head_dim, d_ff, vocab
+QWEN3_WIDTH = (28, 2048, 16, 8, 128, 6144, 151_936)
+FLASH_PATH = (SERVE_B, SERVE_S, 16, 8, 128)
+FLASH_LONG = (1, 32_768, 16, 8, 128)
+# the anchor prefill through the kernel vs through the plain attention:
+# max|diff| / max|logits|, the yardstick of tests/test_prefill_cache.py
+PREFILL_REL = 0.05
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def phase(title: str) -> None:
+    """A phase's header, with the device memory held when it starts."""
+    log(f"{title} ({torch.cuda.memory_allocated() / 1e9:.2f} GB allocated)")
 
 
 def cuda_sync() -> None:
@@ -166,6 +204,78 @@ def check_kernels(gen, main_shapes, leaf_shapes):
     return worst
 
 
+def _qkv(gen, B, S, H, Hkv, hd, dtype):
+    dev = gen.device
+    return (torch.randn(B, S, H, hd, generator=gen, device=dev).to(dtype),
+            torch.randn(B, S, Hkv, hd, generator=gen, device=dev).to(dtype),
+            torch.randn(B, S, Hkv, hd, generator=gen, device=dev).to(dtype))
+
+
+def flash_err(out, ref, bound=None):
+    """(max |kernel - plain|, the largest share of the tolerance
+    ``bound(ref)`` (default: the kernel's ``tolerance``) used); the share
+    is infinite for a wrong dtype or a non-finite output."""
+    from repro_torch.kernels import flash_attention as fa
+    bound = bound or fa.tolerance
+    d = (out.float() - ref.float()).abs()
+    if out.dtype != ref.dtype or not bool(torch.isfinite(out).all()):
+        return float(d.max()), math.inf
+    return float(d.max()), float((d / bound(ref).clamp_min(1e-30)).max())
+
+
+def flash_sweep(gen, bound=None):
+    """Every cell of the kernel-vs-plain sweep: causal, causal + window and
+    non-causal, fp32 and bf16, Hkv = H and H/2, each hd of FLASH_HDS, a
+    ragged S (1,000) and a multi-tile S (2,048). Yields (dtype, causal,
+    window, max |diff|, share of the tolerance used; see ``flash_err``)."""
+    from repro_torch.kernels import flash_attention as fa
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal, window in ((True, None), (True, 300), (False, None)):
+            for (H, Hkv), hd, S in itertools.product(
+                    ((4, 4), (4, 2)), FLASH_HDS, (1000, 2048)):
+                q, k, v = _qkv(gen, 2, S, H, Hkv, hd, dtype)
+                out = fa.flash_attention(q, k, v, causal=causal,
+                                         window=window)
+                ref = fa.flash_attention_plain(q, k, v, causal=causal,
+                                               window=window)
+                cuda_sync()
+                yield (dtype, causal, window) + flash_err(out, ref, bound)
+
+
+def sweep_groups(cells):
+    """Sweep cells grouped by (dtype, causal, window): the largest |diff|
+    and the largest share of the tolerance, over the group's cells."""
+    groups = {}
+    for dtype, causal, window, err, use in cells:
+        e, u, n = groups.get((dtype, causal, window), (0.0, 0.0, 0))
+        groups[dtype, causal, window] = (max(e, err), max(u, use), n + 1)
+    return groups
+
+
+def check_flash(gen):
+    """The sweep of ``flash_sweep``, then the serving path's prefill
+    shape. Returns the worst |diff| at the path's shape."""
+    from repro_torch.kernels import flash_attention as fa
+    failed = False
+    for (dtype, causal, window), (err, use, n) in sweep_groups(
+            flash_sweep(gen)).items():
+        failed = failed or not use <= 1
+        log(f"  {str(dtype)[6:]:8s} causal={causal!s:5s} "
+            f"window={window!s:4s}: {n} cells (Hkv=H,H/2 x hd "
+            f"{','.join(map(str, FLASH_HDS))} x S 1000,2048), "
+            f"max|kernel-plain| {err:.3e}, {100 * use:.1f}% of the "
+            "tolerance at most")
+    q, k, v = _qkv(gen, *FLASH_PATH, torch.bfloat16)
+    worst, use = flash_err(fa.flash_attention(q, k, v),
+                           fa.flash_attention_plain(q, k, v))
+    log(f"  serving path shape (B, S, H, Hkv, hd) = {FLASH_PATH}, causal, "
+        f"bf16: max|kernel-plain| {worst:.3e}, {100 * use:.1f}% of the "
+        "tolerance")
+    if failed or not use <= 1:
+        raise AssertionError("flash kernel disagrees with its plain version")
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # timing
 # ---------------------------------------------------------------------------
@@ -282,6 +392,51 @@ def time_kernels(gen, shapes):
     return rows
 
 
+def flash_bound_ms(B, S, H, Hkv, hd, itemsize):
+    """Least time on an H100 for causal attention at this shape: q, k, v
+    and out each moved once over the memory rate, or 4*B*H*hd flops per
+    unmasked (query, key) pair over the bf16 tensor-core rate."""
+    pairs = S * (S + 1) // 2
+    flops = 4 * B * H * hd * pairs
+    nbytes = itemsize * (2 * B * S * H * hd + 2 * B * S * Hkv * hd)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_TC_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations"), nbytes, flops
+
+
+def time_flash(gen):
+    """(kernel ms, plain ms, SDPA ms, bound ms, bound_by) at the serving
+    path's prefill shape, and kernel / SDPA ms at the long shape."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    rows = {}
+    for name, shape, calls in (("path", FLASH_PATH, 20),
+                               ("long", FLASH_LONG, 1)):
+        q, k, v = _qkv(gen, *shape, torch.bfloat16)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        ms = device_ms(lambda: fa.flash_attention(q, k, v),  # noqa: B023
+                       calls=calls, replays=20 if calls > 1 else 5)
+        sdpa_ms = device_ms(
+            lambda: F.scaled_dot_product_attention(  # noqa: B023
+                qt, kt, vt, is_causal=True, enable_gqa=True),
+            calls=calls, replays=20 if calls > 1 else 5)
+        plain_ms = None
+        if name == "path":
+            plain_ms = device_ms(
+                lambda: fa.flash_attention_plain(q, k, v),  # noqa: B023
+                calls=1, replays=5)
+        b_ms, b_by, nbytes, flops = flash_bound_ms(*shape, 2)
+        rows[name] = (ms, plain_ms, sdpa_ms, b_ms, b_by)
+        log(f"  flash_attention {name} (B, S, H, Hkv, hd) = {shape} causal "
+            f"bf16: kernel {ms:.4f} ms, plain "
+            f"{'not timed' if plain_ms is None else f'{plain_ms:.4f} ms'}, "
+            f"SDPA (library) {sdpa_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}; {flops:.3e} flops, {nbytes} bytes), "
+            f"{100 * b_ms / ms:.1f}% of bound, "
+            f"{flops / ms / 1e9:.1f} TFLOP/s")
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # the sampling paths
 # ---------------------------------------------------------------------------
@@ -336,31 +491,230 @@ def run_path(name, sampler, gen, theta0, expect):
     return out, counts
 
 
-def profile_round(sampler, gen, theta0) -> None:
-    """Where one round's time goes: the top operators by host time, the
-    kernels by device time, and the device's busy share of the wall time
-    (measured under the profiler, which slows the host)."""
+def profile_call(fn, what: str, steps: int) -> None:
+    """Where one call of ``fn`` (``steps`` steps) spends its time: the top
+    operators by host time, the kernels by device time, and the device's
+    busy share of the wall time (measured under the profiler, which slows
+    the host), after one warm-up call."""
     from torch.profiler import ProfilerActivity, profile
-    sampler.sample(gen, theta0, rounds=1)  # warm
+    fn()
     cuda_sync()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sampler.sample(gen, theta0, rounds=1)
+        fn()
         cuda_sync()
         wall_us = 1e6 * (time.perf_counter() - t0)
+    from torch.autograd import DeviceType
     ev = prof.key_averages()
-    dev_us = sum(getattr(e, "self_device_time_total", 0.0) for e in ev)
     log(ev.table(sort_by="self_cpu_time_total", row_limit=12,
                  max_name_column_width=48))
-    busy = [(getattr(e, "self_device_time_total", 0.0), e.key) for e in ev]
+    # the kernels' own events: an operator's self device time repeats the
+    # time of the kernels it launched
+    busy = [(e.self_device_time_total, e.key) for e in ev
+            if e.device_type == DeviceType.CUDA]
+    dev_us = sum(t for t, _ in busy)
     top = sorted(busy, reverse=True)[:6]
     log("  device time by kernel (us): " + ", ".join(
         f"{k[:40]} {t:.0f}" for t, k in top if t > 0))
     busy_pct = 100 * dev_us / wall_us
-    log(f"  round wall {wall_us / 1e3:.2f} ms ({wall_us / 40 / 1e3:.3f} ms "
-        f"per step), device busy {dev_us / 1e3:.2f} ms = {busy_pct:.1f}% "
+    log(f"  {what} wall {wall_us / 1e3:.2f} ms ({wall_us / steps / 1e3:.3f} "
+        f"ms per step), device busy {dev_us / 1e3:.2f} ms = {busy_pct:.1f}% "
         f"(idle {100 - busy_pct:.1f}%)")
+
+
+# ---------------------------------------------------------------------------
+# the serving paths
+# ---------------------------------------------------------------------------
+
+def _check_signals(name, res, n_draws):
+    sig = (res.mean_logprob, res.entropy, res.mutual_info, res.token_var)
+    if not all(bool(torch.isfinite(s).all()) for s in sig):
+        raise AssertionError(f"{name}: non-finite uncertainty signals")
+    mi = res.mutual_info
+    if not bool((mi[:, 0] == 0).all()):
+        raise AssertionError(f"{name}: token 0 (anchor prefill) has "
+                             "mutual information")
+    if n_draws > 1 and not bool((mi[:, 1:] > 0).all()):
+        raise AssertionError(f"{name}: {n_draws} distinct draws show no "
+                             "mutual information")
+
+
+def _peak(base: int) -> str:
+    peak = torch.cuda.max_memory_allocated()
+    return (f"{peak / 1e9:.2f} GB ({(peak - base) / 1e9:.2f} GB above the "
+            f"{base / 1e9:.2f} GB allocated before)")
+
+
+def _prefill_rel(anchor, cfg, prompt, total):
+    """Anchor prefill logits through the kernel vs the plain attention:
+    max|diff| / max|logits|; also the kernel's launches."""
+    from repro_torch import models as TM
+    from repro_torch.kernels import flash_attention as fa
+    fa.reset_launches()
+    logits, cache = TM.prefill_with_cache(anchor, cfg, prompt, total)
+    launched = fa.LAUNCHES["flash_attention"]
+    plain, _ = TM.prefill_with_cache(anchor, cfg, prompt, total,
+                                     attention=fa.flash_attention_plain)
+    cuda_sync()
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{cfg.name}: non-finite prefill logits")
+    rel = float((logits - plain).abs().max() / plain.abs().max())
+    if not rel < PREFILL_REL:
+        raise AssertionError(f"{cfg.name}: prefill through the kernel is "
+                             f"{rel:.3e} of max|logits| from the plain "
+                             f"attention's (limit {PREFILL_REL})")
+    return logits, cache, launched, rel
+
+
+def serve_qwen3(dev):
+    """The serving path at full width, through ``FSGLD.serve``; returns
+    the flash-attention launches of its two requests."""
+    from repro_torch import api
+    from repro_torch import models as TM
+    from repro_torch import tree as tu
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.serve import (EnsembleServer, ensemble_prefill,
+                                   predictive_stats)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    server = api.FSGLD.serve(api.Serving(arch="qwen3-1.7b", smoke=False,
+                                         draws=SERVE_K))
+    cuda_sync()
+    cfg = server.cfg
+    if (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+            cfg.head_dim, cfg.d_ff, cfg.vocab_size) != QWEN3_WIDTH:
+        raise AssertionError(f"not qwen3-1.7b's published width: {cfg}")
+    held = sum(t.numel() * t.element_size() for t in tu.leaves(server.draws))
+    head = server.draws["head_f32"].numel() * 4
+    log(f"  {SERVE_K} draws of {cfg.name} ({cfg.num_layers} layers, d "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, vocab "
+        f"{cfg.vocab_size}) initialised on the card one at a time in "
+        f"{time.perf_counter() - t0:.2f} s; served weights {held / 1e9:.2f}"
+        f" GB (bf16, of which the fp32 heads {head / 1e9:.2f} GB); peak "
+        f"device memory while initialising {_peak(base)}")
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    cuda_sync()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fa.reset_launches()  # the main path: two requests
+    per_request, results = [], []
+    for _ in range(2):
+        before = fa.LAUNCHES["flash_attention"]
+        results.append(server.generate(generator=gen, gen=SERVE_GEN,
+                                       batch=SERVE_B, prompt_len=SERVE_S))
+        per_request.append(fa.LAUNCHES["flash_attention"] - before)
+    cuda_sync()
+    launches = fa.LAUNCHES["flash_attention"]
+    for i, (res, n) in enumerate(zip(results, per_request)):
+        if n != cfg.num_layers:
+            raise AssertionError(f"request {i}: flash_attention launched {n}"
+                                 f" times, expected {cfg.num_layers}")
+        if tuple(res.tokens.shape) != (SERVE_B, SERVE_GEN) \
+                or res.n_draws != SERVE_K:
+            raise AssertionError(f"request {i}: tokens {res.tokens.shape}")
+        _check_signals(f"request {i}", res, SERVE_K)
+        mi = res.mutual_info[:, 1:]
+        log(f"  request {i}: batch {SERVE_B} x prompt {SERVE_S}, "
+            f"{SERVE_GEN} new tokens, K={SERVE_K}: prefill "
+            f"{res.prefill_s:.3f} s, decode {res.decode_s:.3f} s = "
+            f"{SERVE_B * (SERVE_GEN - 1) / res.decode_s:.1f} tok/s "
+            f"({1e3 * res.decode_s / (SERVE_GEN - 1):.1f} ms per step of "
+            f"{SERVE_K} draws); flash_attention launches {n}; mutual info "
+            f"{float(mi.min()):.3e}..{float(mi.max()):.3e}, entropy mean "
+            f"{float(res.entropy.mean()):.3f}")
+    log(f"  main path: {launches} flash_attention launches in 2 requests; "
+        f"peak device memory while serving {_peak(base)}")
+
+    # one prompt: prefill through the kernel vs the plain attention, the
+    # launches of prefill and decode apart, and K=1 against a plain loop
+    prompt = torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_S),
+                           generator=gen, device=dev)
+    total = SERVE_S + SERVE_GEN
+    anchor = tu.tree_map(lambda t: t[0], server.draws)
+    logits, cache, n_prefill, rel = _prefill_rel(anchor, cfg, prompt, total)
+    fa.reset_launches()
+    want_tok, want_logits = [torch.argmax(logits, -1)], []
+    for t in range(SERVE_S, total - 1):
+        lg, cache = TM.decode_step(anchor, cfg, cache, want_tok[-1][:, None],
+                                   torch.full((SERVE_B,), t, device=dev))
+        want_logits.append(lg)
+        want_tok.append(torch.argmax(lg, -1))
+    n_decode = fa.LAUNCHES["flash_attention"]
+    if n_prefill != cfg.num_layers or n_decode != 0:
+        raise AssertionError(f"flash_attention: {n_prefill} launches in "
+                             f"prefill, {n_decode} in decode")
+    log(f"  anchor prefill: kernel vs plain attention max|diff|/max|logits|"
+        f" {rel:.3e} (limit {PREFILL_REL}); flash_attention launches: "
+        f"prefill {n_prefill}, decode {n_decode}")
+    del cache
+    draws1 = tu.tree_map(lambda t: t[:1], server.draws)
+    logits0, caches = ensemble_prefill(draws1, cfg, prompt, total)
+    same = torch.equal(logits0, logits)
+    tok = predictive_stats(logits0[None]).token[:, None]
+    for i, t in enumerate(range(SERVE_S, total - 1)):
+        lk, caches = TM.ensemble_decode_step(
+            draws1, cfg, caches, tok, torch.full((SERVE_B,), t, device=dev))
+        same = same and torch.equal(lk[0], want_logits[i])
+        tok = predictive_stats(lk).token[:, None]
+    del caches
+    res1 = EnsembleServer(cfg, draws=draws1, device=dev).generate(
+        prompt, gen=SERVE_GEN)
+    if not (same and torch.equal(res1.tokens, torch.stack(want_tok, 1))):
+        raise AssertionError("K=1 ensemble serving differs from the plain "
+                             "prefill + decode_step loop")
+    _check_signals("K=1", res1, 1)
+    if not bool((res1.mutual_info == 0).all()):
+        raise AssertionError("K=1: mutual information is not 0")
+    log("  K=1 ensemble == plain prefill + decode_step loop, bitwise "
+        f"(prefill logits, {SERVE_GEN - 1} steps' logits, tokens); mutual "
+        "info 0")
+
+    log(f"  [profile] one decode step of the {SERVE_K}-draw ensemble under "
+        "torch.profiler")
+    _, caches = ensemble_prefill(server.draws, cfg, prompt, total)
+    tok = prompt[:, -1:]
+    pos = torch.full((SERVE_B,), SERVE_S, device=dev)
+    profile_call(lambda: TM.ensemble_decode_step(server.draws, cfg, caches,
+                                                 tok, pos),
+                 "decode step", 1)
+    return launches
+
+
+def serve_danube(dev):
+    """h2o-danube-1.8b at full width, 2 layers: a prompt longer than the
+    4,096-token window, so the kernel's window branch and the ring cache
+    run through the model."""
+    from repro_torch import tree as tu
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.serve import EnsembleServer
+    cfg = dataclasses.replace(get_config("h2o-danube-1.8b"), num_layers=2)
+    server = EnsembleServer(cfg, n_draws=2, seed=1, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    B, S, G = 2, 5000, 8
+    prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device=dev)
+    cuda_sync()
+    fa.reset_launches()
+    res = server.generate(prompt, gen=G)
+    cuda_sync()
+    n = fa.LAUNCHES["flash_attention"]
+    if n != cfg.num_layers:
+        raise AssertionError(f"danube: flash_attention launched {n} times, "
+                             f"expected {cfg.num_layers}")
+    _check_signals("danube", res, 2)
+    _, _, _, rel = _prefill_rel(tu.tree_map(lambda t: t[0], server.draws),
+                                cfg, prompt, S + G)
+    log(f"  {cfg.name} (d {cfg.d_model}, {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} heads, hd {cfg.head_dim}), {cfg.num_layers} "
+        f"layers, window {cfg.swa_window}, K=2: batch {B} x prompt {S} "
+        f"(ring cache of {cfg.swa_window} slots), {G} new tokens; prefill "
+        f"{res.prefill_s:.3f} s, decode {B * (G - 1) / res.decode_s:.1f} "
+        f"tok/s; flash_attention launches {n}; kernel vs plain attention "
+        f"prefill max|diff|/max|logits| {rel:.3e}")
 
 
 def main() -> int:
@@ -382,8 +736,9 @@ def main() -> int:
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    _build.load()
-    log(f"[build] nvcc {' '.join(_build.FLAGS)}: "
+    _build.build()
+    log(f"[build] nvcc {' '.join(_build.FLAGS)}, one process per source "
+        f"({', '.join(_build.SOURCES)}), in parallel: "
         f"{time.perf_counter() - t0:.2f} s")
 
     gen = torch.Generator(device=dev).manual_seed(1234)
@@ -392,14 +747,18 @@ def main() -> int:
     mlp_data, mlp_bank, mlp_theta0 = mlp_problem(mlp_gen, S=4, n=256,
                                                  din=64, hid=256, dout=32)
     mlp_layout = kops.make_packed_layout(mlp_theta0)
-    log("[kernels] kernel vs plain version on the card "
+    phase("[kernels] kernel vs plain version on the card "
         f"(tolerance {ATOL:g} + {RTOL:g}|x|; bf16 leaf one bf16 ulp)")
     worst = check_kernels(gen, [("table1", t1_layout, T1_CHAINS),
                                 ("mlp4", mlp_layout, 8)],
                           [(T1_CHAINS, t1_layout.rows_total,
                             t1_layout.block_rows)])
 
-    log(f"[table1] Bayesian MLP, P={TABLE1_P}, {T1_S} x {T1_N} clients")
+    phase("[flash] flash-attention kernel vs plain version on the card "
+        "(fp32 2e-5 + 2e-3|ref|, bf16 2^-6 (|ref| + rms of ref's row))")
+    flash_worst = check_flash(gen)
+
+    phase(f"[table1] Bayesian MLP, P={TABLE1_P}, {T1_S} x {T1_N} clients")
     shards, test, theta0, bank = table1_setup(dev)
 
     def t1(executor):
@@ -445,7 +804,7 @@ def main() -> int:
     if not (math.isfinite(diff) and abs(diff) < max(0.01, 5 * se)):
         raise AssertionError("packed run strays from the plain reference")
 
-    log("[mlp4] bench_chains multi-leaf MLP (24,864 params, 4 leaves), "
+    phase("[mlp4] bench_chains multi-leaf MLP (24,864 params, 4 leaves), "
         "'scalar' bank, C=8, 3 rounds x 8 steps, packed")
     mlp = api.FSGLD(
         api.Posterior(mlp_log_lik, prior_precision=1.0), mlp_data,
@@ -457,12 +816,21 @@ def main() -> int:
              mlp_theta0, {"fsgld_update_packed": 24,
                           "fsgld_update_2d": 0})
 
-    log("[profile] one packed Table-1 round (40 steps) under "
+    phase("[profile] one packed Table-1 round (40 steps) under "
         "torch.profiler")
-    profile_round(t1("packed"), torch.Generator(device=dev).manual_seed(5),
-                  theta0)
+    prof_sampler = t1("packed")
+    prof_gen = torch.Generator(device=dev).manual_seed(5)
+    profile_call(lambda: prof_sampler.sample(prof_gen, theta0, rounds=1),
+                 "round", T1_T)
 
-    log("[times] device time per launch: CUDA graphs of back-to-back "
+    phase(f"[serve] qwen3-1.7b at full width through FSGLD.serve: K="
+        f"{SERVE_K} draws, 2 requests of batch {SERVE_B} x prompt "
+        f"{SERVE_S}, {SERVE_GEN} new tokens each")
+    serve_launches = serve_qwen3(dev)
+    phase("[serve] h2o-danube-1.8b at full width, 2 layers (sliding window)")
+    serve_danube(dev)
+
+    phase("[times] device time per launch: CUDA graphs of back-to-back "
         "launches replayed 20 times between CUDA events (median)")
     big = kops.make_packed_layout(torch.zeros(2**24))
     times = time_kernels(gen, [
@@ -473,6 +841,7 @@ def main() -> int:
         ("large/per_leaf C*P=2^27", "fsgld_update_2d", big, 8, 1)])
     log("  no single PyTorch call computes this update, so there is no "
         "library time (library_ms null)")
+    flash_times = time_flash(gen)
 
     src = "src/repro_torch/kernels/csrc/fsgld_update.cu"
     rows = []
@@ -487,6 +856,13 @@ def main() -> int:
                      "launches": launches, "max_abs_err": worst[entry],
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": None})
+    ms, plain_ms, sdpa_ms, b_ms, b_by = flash_times["path"]
+    rows.append({"name": "flash_attention", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                 "replaces": "src/repro/kernels/flash_attention.py:88",
+                 "launches": serve_launches, "max_abs_err": flash_worst,
+                 "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                 "bound_by": b_by, "library_ms": sdpa_ms})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """One FSGLD front door in PyTorch (counterpart of ``repro.api``).
 
 Four declarative pieces — :class:`Posterior`, :class:`SurrogateSpec`,
-:class:`Schedule`, :class:`Execution` — and one verb::
+:class:`Schedule`, :class:`Execution` — and one verb (plus
+:class:`Serving` and :meth:`FSGLD.serve` for the posterior's draws)::
 
     fsgld = FSGLD(posterior, data, minibatch=10, surrogate=spec,
                   schedule=Schedule(rounds=300, local_steps=100),
@@ -31,14 +32,25 @@ from repro_torch.core.surrogate import (SurrogateBank, fit_scalar_tree,
 PyTree = Any
 LogLikFn = Callable[[PyTree, PyTree], torch.Tensor]
 
-__all__ = ["Posterior", "SurrogateSpec", "Schedule", "Execution", "FSGLD",
-           "fit_bank_local_sgld"]
+__all__ = ["Posterior", "SurrogateSpec", "Schedule", "Execution", "Serving",
+           "FSGLD", "fit_bank_local_sgld"]
 
 _EXECUTORS = ("auto", "vmap", "per_leaf", "packed")
 # method -> (SamplerConfig drift family, carries the conducive correction)
 _METHODS = {"sgld": ("sgld", False), "dsgld": ("dsgld", False),
             "fsgld": ("fsgld", True)}
 _FIT_SEED_SALT = 0x5357
+_COLLECT_SIGNALS = ("mean", "entropy", "mutual_info", "variance")
+
+
+def _device(device) -> torch.device:
+    """None -> 'cuda', which must be available (no quiet CPU run)."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available; pass device='cpu' to run on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,15 +126,47 @@ class Execution:
         if self.executor not in _EXECUTORS:
             raise ValueError(f"unknown executor {self.executor!r}; pick "
                              f"from {_EXECUTORS}")
-        if self.device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "CUDA is not available; pass Execution(device='cpu') to "
-                    "run on the CPU")
-            dev = torch.device("cuda")
-        else:
-            dev = torch.device(self.device)
-        object.__setattr__(self, "device", dev)
+        object.__setattr__(self, "device", _device(self.device))
+
+
+@dataclasses.dataclass(frozen=True)
+class Serving:
+    """How the posterior is SERVED: K draws as one Bayesian ensemble.
+
+    :meth:`FSGLD.serve` turns this spec plus a draw source into a
+    :class:`repro_torch.serve.EnsembleServer`: one shared prefill per
+    request, a per-token decode fan-out over the ``draws`` axis, the next
+    token from the predictive mean. ``draws=1`` gives the plain
+    single-draw path's tokens and logits, bitwise.
+
+    arch / smoke: which transformer config the draws parameterize
+    (``repro_torch.configs``). batch / prompt_len / gen: the request shape
+    launchers default to. collect: which per-token uncertainty signals
+    launchers report, a subset of ('mean', 'entropy', 'mutual_info',
+    'variance') (all are computed). device: None -> 'cuda', which must be
+    available; pass 'cpu' to serve on the CPU. mesh: multi-device serving
+    is not ported (ROADMAP item 8).
+    """
+    draws: int = 1
+    arch: str = "qwen3-1.7b"
+    smoke: bool = True
+    batch: int = 4
+    prompt_len: int = 32
+    gen: int = 16
+    mesh: Any = None
+    collect: tuple = _COLLECT_SIGNALS
+    device: Any = None
+
+    def __post_init__(self):
+        if self.draws < 1:
+            raise ValueError(f"draws must be >= 1, got {self.draws}")
+        bad = [c for c in self.collect if c not in _COLLECT_SIGNALS]
+        if bad:
+            raise ValueError(f"unknown collect signals {bad}; pick from "
+                             f"{_COLLECT_SIGNALS}")
+        if self.mesh is not None:
+            raise _not_ported("Serving(mesh=)", 8)
+        object.__setattr__(self, "device", _device(self.device))
 
 
 def _to(tree: PyTree, device) -> PyTree:
@@ -271,6 +315,24 @@ class FSGLD:
             n_chains=n_chains if n_chains is not None else sched.n_chains,
             reassign=sched.reassign, collect_every=sched.thin,
             collect=self.execution.collect)
+
+    # -- phase 3: serving the posterior ------------------------------------
+
+    @staticmethod
+    def serve(spec: Serving, *, bank: Optional[str] = None,
+              draws: Any = None, seed: int = 0):
+        """Stand up an ensemble server for this posterior (phase 3) on
+        ``spec.device``. One draw source: ``draws=`` an already-stacked
+        (K, ...) parameter tree, or none — ``spec.draws`` fresh inits
+        from ``seed`` (shape smoke, no posterior). ``bank=`` (draw-bank
+        directories) needs the checkpoint package (ROADMAP item 11)."""
+        from repro_torch.configs import get_config, get_smoke_config
+        from repro_torch.serve import EnsembleServer
+        cfg = (get_smoke_config(spec.arch) if spec.smoke
+               else get_config(spec.arch))
+        return EnsembleServer(cfg, bank=bank, draws=draws,
+                              n_draws=spec.draws, seed=seed,
+                              device=spec.device)
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,11 @@
-"""Build and load the CUDA kernels (nvcc into a shared library with a plain
+"""Build and load the CUDA kernels (nvcc into shared libraries with a plain
 C interface, loaded with ctypes).
 
-The library is compiled at first use into ``build/repro_torch_kernels/``
-at the repository root, named by a hash of the source and the flags, so a
-changed source rebuilds and an unchanged one loads what is there. Nothing
-is built when the module is imported.
+Each source in ``csrc/`` becomes one library, compiled at first use into
+``build/repro_torch_kernels/`` at the repository root and named by a hash
+of its source and the flags, so a changed source rebuilds and an
+unchanged one loads what is there. ``build`` starts one nvcc per missing
+library, all at once. Nothing is built when the module is imported.
 """
 from __future__ import annotations
 
@@ -17,12 +18,24 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "fsgld_update.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = {"fsgld_update": CSRC / "fsgld_update.cu",
+           "flash_attention": CSRC / "flash_attention.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
 # no --use_fast_math: the approximate log/cos would move the normals
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC")
+
+_PTR, _I32 = ctypes.c_void_p, ctypes.c_int
+# library -> (launch function, its argument types)
+_SIGNATURES = {
+    "fsgld_update": ("fsgld_update_launch",
+                     [_I32, _I32] + [_PTR] * 13
+                     + [ctypes.c_longlong, _I32, _I32, _I32, _PTR]),
+    "flash_attention": ("flash_attention_launch",
+                        [_I32] + [_PTR] * 4 + [_I32] * 7 + [_PTR]),
+}
 
 
 def find_nvcc() -> str:
@@ -39,41 +52,65 @@ def nvcc_command(nvcc: str, src: Path, out: Path) -> list[str]:
     return [nvcc, *FLAGS, "-o", str(out), str(src)]
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
+def library_path(name: str) -> Path:
+    digest = hashlib.sha256(SOURCES[name].read_bytes()
                             + " ".join(FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libfsgld_update-{digest}.so"
+    return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build() -> Path:
-    """Compile the kernel library unless an identical build exists."""
-    lib = library_path()
-    if lib.exists():
-        return lib
+def build(*names: str) -> dict[str, Path]:
+    """Compile the named libraries (all when none are named) unless an
+    identical build exists; one nvcc per library, run in parallel."""
+    names = names or tuple(SOURCES)
+    out = {n: library_path(n) for n in names}
+    todo = [n for n in names if not out[n].exists()]
+    if not todo:
+        return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    nvcc = find_nvcc()
+    jobs = []
     try:
-        res = subprocess.run(nvcc_command(find_nvcc(), SOURCE, Path(tmp)),
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}) on "
-                               f"{SOURCE}:\n{res.stdout}{res.stderr}")
-        os.replace(tmp, lib)  # atomic: readers never see a partial file
+        for n in todo:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            proc = subprocess.Popen(nvcc_command(nvcc, SOURCES[n], Path(tmp)),
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            jobs.append((n, tmp, proc))
+        failed = []
+        for n, tmp, proc in jobs:
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}) on "
+                              f"{SOURCES[n]}:\n{log}")
+            else:
+                os.replace(tmp, out[n])  # atomic: no reader sees a partial file
+        if failed:
+            raise RuntimeError("\n".join(failed))
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib
+        for _, tmp, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return out
 
 
 @functools.lru_cache(maxsize=None)
-def load() -> ctypes.CDLL:
-    """The loaded kernel library with its argument types declared."""
-    lib = ctypes.CDLL(str(build()))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.fsgld_update_launch.argtypes = (
-        [i32, i32] + [ptr] * 13 + [ctypes.c_longlong, i32, i32, i32, ptr])
-    lib.fsgld_update_launch.restype = i32
-    lib.fsgld_update_error_string.argtypes = [i32]
-    lib.fsgld_update_error_string.restype = ctypes.c_char_p
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library ``name`` with its argument types declared."""
+    return open_library(build(name)[name], name)
+
+
+def open_library(path: Path, name: str) -> ctypes.CDLL:
+    """The shared library at ``path``, built from library ``name``'s
+    source, with its argument types declared."""
+    lib = ctypes.CDLL(str(path))
+    fn, argtypes = _SIGNATURES[name]
+    getattr(lib, fn).argtypes = argtypes
+    getattr(lib, fn).restype = _I32
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes = [_I32]
+    err.restype = ctypes.c_char_p
     return lib

@@ -201,7 +201,7 @@ def _seeds_i32(seeds):
 def _launch(entry, variant, dynamics, theta2d, g2d, r2d, sur, seg_leaf,
             seg_base, seeds, scalars, rows_total, block_rows, num_leaves):
     from repro_torch.kernels import _build
-    lib = _build.load()
+    lib = _build.load("fsgld_update")
     dev = theta2d.device
     hmc = dynamics == "sghmc"
     out = torch.empty_like(theta2d)

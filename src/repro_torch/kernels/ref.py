@@ -46,10 +46,15 @@ def uniforms(seed: torch.Tensor, idx: torch.Tensor):
 
 
 def gaussian_noise(seed: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Standard normal per element (float32)."""
+    """Standard normal per element (float32): the kernel's float32
+    Box-Muller, ``sqrtf(-2 logf(u1)) * cosf(2π u2)``, with ``log`` and
+    ``cos`` evaluated in float64 and rounded once to float32 (correctly
+    rounded float32 values), so the result does not depend on which
+    vectorised float32 ``log`` a CPU thread runs."""
+    f32, f64 = torch.float32, torch.float64
     u1, u2 = uniforms(seed, idx)
-    r = torch.sqrt(-2.0 * torch.log(u1))
-    return r * torch.cos((2.0 * math.pi) * u2)
+    r = torch.sqrt(-2.0 * torch.log(u1.to(f64)).to(f32))
+    return r * torch.cos(((2.0 * math.pi) * u2).to(f64)).to(f32)
 
 
 def fsgld_update_flat(theta, g, seed, *, h, scale, f_s, prior_prec, alpha,

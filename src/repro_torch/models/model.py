@@ -1,0 +1,347 @@
+"""Dense attention language models for serving (counterpart of
+``repro.models.model``): parameters, the cache-populating prefill and the
+single-token decode step, forward only.
+
+Parameters are plain nested dicts of tensors in the JAX package's layout:
+``embed`` (V, D), ``blocks`` with every leaf stacked over the full
+periods of ``cfg.layer_pattern`` (leading axis, layer keys ``l0``...),
+``rem_blocks`` for a remainder, ``final_norm`` (D,) and ``head`` (D, V),
+with the same leaf names, so a JAX parameter tree converts leaf by leaf
+(``repro_torch.convert.params_from_jax``). A Python loop over the
+layers takes the place of ``lax.scan``.
+
+Precision follows the reference: fp32 master parameters cast to bf16 at
+the point of use (prefill per layer, but not ``final_norm``; decode all
+of them), bf16 activations, and the head product with fp32 products and
+sums (JAX's ``preferred_element_type=float32``). ``serving_params``
+does those casts once for a served draw.
+
+Layer kinds 'attn' and 'swa' (ring cache) run; the MoE FFN, 'rglru',
+'rwkv', 'xattn' (vlm/audio) and the encoder raise NotImplementedError
+(ROADMAP item 15). ``forward`` / ``log_lik_fn`` come with the
+transformer sampling slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch import tree as tu
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.engine import _not_ported
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models import layers as L
+
+ACT_DTYPE = torch.bfloat16
+_RUNS = ("attn", "swa")
+
+
+def _check_runs(cfg: ArchConfig) -> None:
+    for kind in cfg.layer_pattern:
+        if kind not in _RUNS:
+            raise _not_ported(f"layer kind {kind!r} ({cfg.name})", 15)
+    if cfg.moe is not None:
+        raise _not_ported(f"the MoE FFN ({cfg.name})", 15)
+    if cfg.encoder_layers:
+        raise _not_ported(f"the encoder ({cfg.name})", 15)
+
+
+def _cast_floating(tree, dtype=ACT_DTYPE):
+    """Float leaves to the compute dtype at the point of use (a leaf
+    already in it is returned as is, not copied)."""
+    return tu.tree_map(
+        lambda t: t.to(dtype) if t.is_floating_point() else t, tree)
+
+
+# ---------------------------------------------------------------------------
+# parameter layout and init
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class _Leaf:
+    shape: tuple
+    fan_in: Optional[int]  # None: a norm scale, initialised to zero
+
+
+def _period_kinds(cfg: ArchConfig):
+    pat = cfg.layer_pattern
+    n_full = cfg.num_layers // len(pat)
+    return pat, n_full, pat[:cfg.num_layers % len(pat)]
+
+
+def _layer_layout(cfg: ArchConfig, lead: tuple) -> dict:
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
+    w = lambda fan_in, *s: _Leaf(lead + s, fan_in)  # noqa: E731
+    ffn = {"wo": w(f, f, d)}
+    if cfg.ffn_type in ("silu", "geglu"):
+        ffn.update(wi_gate=w(d, d, f), wi_up=w(d, d, f))
+    else:
+        ffn["wi_up"] = w(d, d, f)
+    attn = {"wq": w(d, d, cfg.q_dim), "wk": w(d, d, cfg.kv_dim),
+            "wv": w(d, d, cfg.kv_dim), "wo": w(cfg.q_dim, cfg.q_dim, d)}
+    if cfg.qk_norm:
+        attn.update(q_norm=w(None, hd), k_norm=w(None, hd))
+    return {"norm": w(None, d), "ffn_norm": w(None, d), "ffn": ffn,
+            "attn": attn}
+
+
+def param_layout(cfg: ArchConfig) -> dict:
+    """The parameter tree with each leaf's shape (and init fan-in)."""
+    _check_runs(cfg)
+    pat, n_full, rem = _period_kinds(cfg)
+    d, v = cfg.d_model, cfg.vocab_size
+    out = {"embed": _Leaf((v, d), d),
+           "blocks": {f"l{i}": _layer_layout(cfg, (n_full,))
+                      for i in range(len(pat))},
+           "final_norm": _Leaf((d,), None), "head": _Leaf((d, v), d)}
+    if rem:
+        out["rem_blocks"] = {f"l{i}": _layer_layout(cfg, ())
+                             for i in range(len(rem))}
+    return out
+
+
+def init_params(cfg: ArchConfig, generator: torch.Generator,
+                device=None) -> dict:
+    """N(0, 1/fan_in) weights and zero norm scales in ``cfg.param_dtype``,
+    drawn leaf by leaf (sorted-key order) from ``generator``, which must
+    live on ``device``. The values are not the JAX package's (different
+    generators); tests carry JAX parameters across instead."""
+    dtype = getattr(torch, cfg.param_dtype)
+
+    def make(leaf: _Leaf):
+        if leaf.fan_in is None:
+            return torch.zeros(leaf.shape, dtype=dtype, device=device)
+        t = torch.randn(leaf.shape, generator=generator,
+                        dtype=torch.float32, device=device)
+        return t.mul_(leaf.fan_in ** -0.5).to(dtype)
+
+    return tu.tree_map(make, param_layout(cfg))
+
+
+def serving_params(params: dict) -> dict:
+    """Cast a draw once for serving, with the values every cast point of
+    the reference would give: float leaves to bf16, except ``final_norm``
+    (kept as it is: prefill reads it uncast, decode casts it itself) and
+    the head, held as ``head_f32``: its bf16 values widened to fp32, so
+    the logits product runs in fp32 without widening it on every call.
+    Works on (K, ...) stacked draws; a tree already cast is returned as
+    is."""
+    if "head_f32" in params:
+        return params
+    out = _cast_floating({k: v for k, v in params.items()
+                          if k not in ("head", "final_norm")})
+    out["final_norm"] = params["final_norm"]
+    out["head_f32"] = params["head"].to(ACT_DTYPE).to(torch.float32)
+    return out
+
+
+def _logits(x: torch.Tensor, params: dict) -> torch.Tensor:
+    """(..., D) bf16 activations times the bf16 head, products and sums
+    in fp32."""
+    return x.to(torch.float32) @ params["head_f32"]
+
+
+def _layers(cfg: ArchConfig):
+    """(group, period index or None, layer key, kind) of every layer in
+    order: the stacked periods, then the remainder."""
+    pat, n_full, rem = _period_kinds(cfg)
+    for i in range(n_full):
+        for j, kind in enumerate(pat):
+            yield "blocks", i, f"l{j}", kind
+    for j, kind in enumerate(rem):
+        yield "rem_blocks", None, f"l{j}", kind
+
+
+def _take(tree: dict, group: str, i: Optional[int], key: str):
+    """One layer's subtree; for stacked periods, views into the stack
+    (writes through them land in the stack)."""
+    node = tree[group][key]
+    return node if i is None else tu.tree_map(lambda t: t[i], node)
+
+
+# ---------------------------------------------------------------------------
+# layers (full sequence)
+# ---------------------------------------------------------------------------
+
+AttentionFn = Callable[..., torch.Tensor]
+
+
+def _self_attn(x, p, cfg: ArchConfig, positions, *, window=None,
+               causal=True, attention: AttentionFn = flash_attention):
+    """Self-attention with implicit positions (prefill). Returns the
+    residual output and the layer's roped k and its v, which the decode
+    cache holds. ``attention`` is the flash-attention kernel's wrapper
+    (its plain version for CPU tensors)."""
+    B, S, _ = x.shape
+    a = p["attn"]
+    h = L.rms_norm(x, p["norm"])
+    q = (h @ a["wq"]).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    k = (h @ a["wk"]).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    v = (h @ a["wv"]).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = L.rms_norm(q, a["q_norm"])
+        k = L.rms_norm(k, a["k_norm"])
+    q = L.rope(q, positions, cfg.rope_theta)
+    k = L.rope(k, positions, cfg.rope_theta)
+    o = attention(q, k, v, causal=causal, window=window)
+    return x + o.reshape(B, S, -1) @ a["wo"], k, v
+
+
+def _ffn_residual(x, p, cfg: ArchConfig):
+    h = L.rms_norm(x, p["ffn_norm"])
+    return x + L.ffn_apply(h, p["ffn"], cfg.ffn_type)
+
+
+# ---------------------------------------------------------------------------
+# cache-populating prefill
+# ---------------------------------------------------------------------------
+
+def _fill_cache(kind: str, cfg: ArchConfig, cache: dict, k, v, positions):
+    """Lay the prompt's k/v into one layer's cache exactly as decode
+    would have written them (ring slots pos % W for 'swa')."""
+    B, S = positions.shape
+    if kind == "swa":
+        W = cache["k"].shape[1]
+        b = torch.arange(B, device=k.device)[:, None]
+        pw = positions[:, -W:]
+        slots = pw % W
+        cache["k"][b, slots] = k[:, -W:]
+        cache["v"][b, slots] = v[:, -W:]
+        cache["pos"][b, slots] = pw.to(cache["pos"].dtype)
+    else:
+        cache["k"][:, :S] = k
+        cache["v"][:, :S] = v
+        cache["pos"][:, :S] = positions.to(cache["pos"].dtype)
+
+
+def prefill_with_cache(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
+                       cache_len: int, *,
+                       attention: AttentionFn = flash_attention):
+    """Forward over the prompt AND build the decode cache in one pass.
+
+    params: one draw cast by ``serving_params``; tokens (B, S) integer.
+    Returns (last-token logits (B, V) fp32, cache) where the cache has
+    ``init_cache(cfg, B, cache_len)``'s layout and
+    ``decode_step`` continues from position S. Each layer's
+    self-attention goes through ``attention`` (default: the
+    flash-attention kernel on CUDA, its plain version on the CPU).
+    """
+    _check_runs(cfg)
+    B, S = tokens.shape
+    if cache_len < S:
+        raise ValueError(f"cache_len {cache_len} < prompt length {S}")
+    dev = tokens.device
+    x = params["embed"][tokens].to(ACT_DTYPE)
+    positions = torch.arange(S, device=dev).expand(B, S)
+    cache = init_cache(cfg, B, cache_len, device=dev)
+    for group, i, key, kind in _layers(cfg):
+        p = _cast_floating(_take(params, group, i, key))
+        window = cfg.swa_window if kind == "swa" else None
+        x, k, v = _self_attn(x, p, cfg, positions, window=window,
+                             attention=attention)
+        _fill_cache(kind, cfg, _take(cache, group, i, key), k, v, positions)
+        x = _ffn_residual(x, p, cfg)
+    x = L.rms_norm(x, params["final_norm"])
+    return _logits(x[:, -1], params), cache
+
+
+# ---------------------------------------------------------------------------
+# decode (single-token serving step)
+# ---------------------------------------------------------------------------
+
+def _layer_cache(kind: str, cfg: ArchConfig, lead: tuple, batch: int,
+                 seq_len: int, dtype, device):
+    S = min(cfg.swa_window, seq_len) if kind == "swa" else seq_len
+    kv = lead + (batch, S, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(kv, dtype=dtype, device=device),
+            "v": torch.zeros(kv, dtype=dtype, device=device),
+            "pos": torch.full(lead + (batch, S), -1, dtype=torch.int32,
+                              device=device)}
+
+
+def init_cache(cfg: ArchConfig, batch: int, seq_len: int, dtype=ACT_DTYPE,
+               device=None) -> dict:
+    """Empty decode cache: per attention layer k/v (B, S, K, hd) and pos
+    (B, S) = -1, S = seq_len ('attn') or min(window, seq_len) ('swa', a
+    ring), stacked over full periods like the parameters."""
+    _check_runs(cfg)
+    pat, n_full, rem = _period_kinds(cfg)
+    cache = {"blocks": {
+        f"l{i}": _layer_cache(kind, cfg, (n_full,), batch, seq_len, dtype,
+                              device) for i, kind in enumerate(pat)}}
+    if rem:
+        cache["rem_blocks"] = {
+            f"l{i}": _layer_cache(kind, cfg, (), batch, seq_len, dtype,
+                                  device) for i, kind in enumerate(rem)}
+    return cache
+
+
+def _update_kv(cache: dict, k_new, v_new, pos, ring: bool) -> None:
+    """Write k_new/v_new (B, 1, K, hd) at each row's slot, in place (the
+    reference returns an updated copy)."""
+    B, S = cache["pos"].shape
+    slot = pos % S if ring else torch.clamp_max(pos, S - 1)
+    b = torch.arange(B, device=pos.device)
+    cache["k"][b, slot] = k_new[:, 0]
+    cache["v"][b, slot] = v_new[:, 0]
+    cache["pos"][b, slot] = pos.to(cache["pos"].dtype)
+
+
+def _decode_self_attn(x, p, cfg: ArchConfig, cache, pos, *, ring):
+    B = x.shape[0]
+    a = p["attn"]
+    h = L.rms_norm(x, p["norm"])
+    q = (h @ a["wq"]).reshape(B, 1, cfg.num_heads, cfg.head_dim)
+    k = (h @ a["wk"]).reshape(B, 1, cfg.num_kv_heads, cfg.head_dim)
+    v = (h @ a["wv"]).reshape(B, 1, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = L.rms_norm(q, a["q_norm"])
+        k = L.rms_norm(k, a["k_norm"])
+    q = L.rope(q, pos[:, None], cfg.rope_theta)
+    k = L.rope(k, pos[:, None], cfg.rope_theta)
+    _update_kv(cache, k.to(cache["k"].dtype), v.to(cache["v"].dtype), pos,
+               ring)
+    o = L.decode_attention(q, cache["k"], cache["v"], cache["pos"], pos)
+    return x + o.reshape(B, 1, -1) @ a["wo"]
+
+
+def decode_step(params: dict, cfg: ArchConfig, cache: dict,
+                token: torch.Tensor, pos: torch.Tensor):
+    """One serving step of a draw cast by ``serving_params``. token (B, 1)
+    integer; pos (B,) absolute positions. Returns (logits (B, V) fp32,
+    cache), the cache updated in place."""
+    _check_runs(cfg)
+    x = params["embed"][token[:, 0]].to(ACT_DTYPE)[:, None, :]
+    for group, i, key, kind in _layers(cfg):
+        p = _cast_floating(_take(params, group, i, key))
+        x = _decode_self_attn(x, p, cfg, _take(cache, group, i, key), pos,
+                              ring=kind == "swa")
+        x = _ffn_residual(x, p, cfg)
+    x = L.rms_norm(x, params["final_norm"].to(ACT_DTYPE))
+    return _logits(x[:, 0], params), cache
+
+
+def broadcast_cache(cache: dict, k: int) -> dict:
+    """Fan one prefilled decode cache out to K posterior draws: every leaf
+    gains a leading draw axis (K, ...). The copies are materialised,
+    because each draw's decode writes its own rows in place."""
+    return tu.tree_map(
+        lambda t: t[None].expand((k,) + tuple(t.shape)).clone(), cache)
+
+
+def ensemble_decode_step(draws: dict, cfg: ArchConfig, caches: dict,
+                         token: torch.Tensor, pos: torch.Tensor):
+    """One serving step across K posterior draws sharing ONE token stream:
+    ``draws``/``caches`` carry a leading (K, ...) draw axis, ``token``
+    (B, 1) and ``pos`` (B,) are shared. The draw axis is a loop over K
+    (each draw's cache updated in place through views). Returns
+    (logits (K, B, V), caches)."""
+    n = tu.leaves(draws)[0].shape[0]
+    logits = []
+    for kk in range(n):
+        lg, _ = decode_step(tu.tree_map(lambda t: t[kk], draws), cfg,
+                            tu.tree_map(lambda t: t[kk], caches), token, pos)
+        logits.append(lg)
+    return torch.stack(logits), caches

@@ -13,39 +13,44 @@ from typing import Any, Callable
 PyTree = Any
 
 
+# The walkers are module functions that take their accumulator as an
+# argument: a nested recursive function refers to itself through its
+# closure, and that cycle would keep every leaf alive until the cyclic
+# garbage collector runs (tens of GB of device memory at full width).
+
+def _walk(t, leaves: list):
+    if isinstance(t, dict):
+        keys = tuple(sorted(t))
+        return ("dict", keys, tuple(_walk(t[k], leaves) for k in keys))
+    if isinstance(t, (list, tuple)):
+        return (type(t).__name__, len(t), tuple(_walk(c, leaves) for c in t))
+    if t is None:
+        return ("none",)
+    leaves.append(t)
+    return ("leaf",)
+
+
 def flatten(tree: PyTree) -> tuple[list, tuple]:
     """Returns (leaves, treedef); treedef is a hashable nested tuple."""
     leaves: list = []
+    return leaves, _walk(tree, leaves)
 
-    def walk(t):
-        if isinstance(t, dict):
-            keys = tuple(sorted(t))
-            return ("dict", keys, tuple(walk(t[k]) for k in keys))
-        if isinstance(t, (list, tuple)):
-            return (type(t).__name__, len(t), tuple(walk(c) for c in t))
-        if t is None:
-            return ("none",)
-        leaves.append(t)
-        return ("leaf",)
 
-    return leaves, walk(tree)
+def _build(d, it):
+    kind = d[0]
+    if kind == "leaf":
+        return next(it)
+    if kind == "none":
+        return None
+    if kind == "dict":
+        return {k: _build(c, it) for k, c in zip(d[1], d[2])}
+    children = [_build(c, it) for c in d[2]]
+    return children if kind == "list" else tuple(children)
 
 
 def unflatten(treedef: tuple, leaves) -> PyTree:
     it = iter(leaves)
-
-    def build(d):
-        kind = d[0]
-        if kind == "leaf":
-            return next(it)
-        if kind == "none":
-            return None
-        if kind == "dict":
-            return {k: build(c) for k, c in zip(d[1], d[2])}
-        children = [build(c) for c in d[2]]
-        return children if kind == "list" else tuple(children)
-
-    out = build(treedef)
+    out = _build(treedef, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the treedef holds")
     return out

@@ -1,11 +1,13 @@
-"""The CUDA kernel on the card: held against its plain PyTorch version,
-launched once per step by the packed executor, and refusing operands it
-cannot take. Needs a CUDA card and nvcc; elsewhere every test here skips
-(the decision is made in a fixture, at run time). Run on the card with
+"""The CUDA kernels on the card: each held against its plain PyTorch
+version, launched where its path should launch it (the fused update once
+per step by the packed executor, flash attention once per layer of a
+serving prefill), and refusing operands they cannot take. Needs a CUDA
+card and nvcc; elsewhere every test here skips (the decision is made in a
+fixture, at run time). Run on the card with
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerance 1e-5 absolute + relative: the kernel and the plain version
+Update tolerance 1e-5 absolute + relative: the kernel and the plain version
 evaluate the same float32 expressions, but nvcc contracts multiply-adds
 into FMAs and CUDA's logf/cosf may differ from torch's in the last ulp.
 """
@@ -115,3 +117,66 @@ def test_packed_executor_one_launch_per_step_and_equals_per_leaf(dev):
     for a, b in zip(tu.leaves(out["packed"]), tu.leaves(out["per_leaf"])):
         assert torch.isfinite(a).all()
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# flash attention, within the kernel's stated tolerance (fa.tolerance)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 100),
+                                           (False, None)])
+@pytest.mark.parametrize("H,Hkv,hd", [(4, 4, 64), (4, 2, 80), (2, 1, 128),
+                                      (4, 2, 160), (2, 2, 256)])
+def test_flash_kernel_matches_plain_version(dev, dtype, causal, window, H,
+                                            Hkv, hd):
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=dev).manual_seed(hd)
+    q = torch.randn(2, 333, H, hd, generator=g, device=dev).to(dtype)
+    k = torch.randn(2, 333, Hkv, hd, generator=g, device=dev).to(dtype)
+    v = torch.randn(2, 333, Hkv, hd, generator=g, device=dev).to(dtype)
+    fa.reset_launches()
+    out = fa.flash_attention(q, k, v, causal=causal, window=window)
+    assert fa.LAUNCHES["flash_attention"] == 1
+    ref = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert out.dtype == dtype
+    assert bool(((out.float() - ref.float()).abs()
+                 <= fa.tolerance(ref)).all())
+
+
+def test_flash_kernel_refuses_strided_operands(dev):
+    from repro_torch.kernels import flash_attention as fa
+    q = torch.zeros(1, 64, 4, 64, device=dev).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q, q, q)
+
+
+def test_serving_prefill_runs_the_kernel_once_per_layer(dev):
+    """Smoke qwen3 on the card: prefill launches the kernel once per
+    layer and decode never; K=1 serving equals the plain loop bitwise."""
+    from repro_torch import models as TM
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.serve import EnsembleServer
+    cfg = get_smoke_config("qwen3-1.7b")
+    params = TM.serving_params(TM.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev))
+    prompt = torch.randint(0, cfg.vocab_size, (2, 100), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    fa.reset_launches()
+    logits, cache = TM.prefill_with_cache(params, cfg, prompt, 106)
+    assert fa.LAUNCHES["flash_attention"] == cfg.num_layers
+    plain, _ = TM.prefill_with_cache(params, cfg, prompt, 106,
+                                     attention=flash_attention_plain)
+    assert float((logits - plain).abs().max() / plain.abs().max()) < 0.05
+    want = [torch.argmax(logits, -1)]
+    for t in range(100, 105):
+        lg, cache = TM.decode_step(params, cfg, cache, want[-1][:, None],
+                                   torch.full((2,), t, device=dev))
+        want.append(torch.argmax(lg, -1))
+    assert fa.LAUNCHES["flash_attention"] == cfg.num_layers
+    srv = EnsembleServer(cfg, draws=tu.tree_map(lambda t: t[None], params),
+                         device=dev)
+    res = srv.generate(prompt, gen=6)
+    assert torch.equal(res.tokens, torch.stack(want, 1))

@@ -1,6 +1,6 @@
-"""The port stands alone: no file of ``src/repro_torch/`` and not
-``chip_smoke.py`` imports JAX or anything of the JAX package ``repro``
-(an AST scan, so a lazy import inside a function counts too)."""
+"""The port stands alone: no file of ``src/repro_torch/`` or ``tools/``
+and not ``chip_smoke.py`` imports JAX or anything of the JAX package
+``repro`` (an AST scan, so a lazy import inside a function counts too)."""
 import ast
 from pathlib import Path
 
@@ -8,7 +8,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + sorted((ROOT / "tools").glob("*.py")) + [ROOT / "chip_smoke.py"]
 BANNED = ("jax", "jaxlib", "repro")
 
 
@@ -35,4 +35,4 @@ def test_port_imports_no_jax_and_nothing_of_repro(path):
 def test_scan_sees_the_whole_port():
     names = {p.name for p in FILES}
     assert {"api.py", "engine.py", "fsgld_update.py", "ops.py",
-            "chip_smoke.py"} <= names
+            "chip_smoke.py", "flash_planted_faults.py"} <= names

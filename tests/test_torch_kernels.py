@@ -60,6 +60,27 @@ def test_hash_and_uniforms_bitwise(seed):
     np.testing.assert_allclose(tn, jn, atol=1e-6, rtol=0)
 
 
+@pytest.mark.parametrize("threads", [2, 4, 8])
+def test_noise_does_not_depend_on_thread_count(threads):
+    """The plain normals are the same whichever thread (and vectorised
+    float32 ``log``) computes an element's chunk: one thread vs many,
+    bitwise."""
+    idx = torch.from_numpy(
+        (np.arange(1 << 16, dtype=np.uint32) * np.uint32(40503))
+        .astype(np.int64))
+    seed = torch.tensor(12345)
+    before = torch.get_num_threads()
+    try:
+        torch.set_num_threads(1)
+        one = tref.gaussian_noise(seed, idx)
+        torch.set_num_threads(threads)
+        many = tref.gaussian_noise(seed, idx)
+    finally:
+        torch.set_num_threads(before)
+    assert one.dtype == torch.float32
+    assert torch.equal(one, many)
+
+
 def test_ref_flat_update_matches():
     rng = np.random.default_rng(0)
     P = 3001
@@ -195,8 +216,11 @@ def test_wrapper_checks_shapes():
 
 
 def test_nvcc_command_targets_hopper_without_fast_math():
-    cmd = _build.nvcc_command("nvcc", _build.SOURCE, _build.library_path())
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert not any("fast_math" in c or "fast-math" in c for c in cmd)
-    assert _build.SOURCE.exists()
+    assert set(_build.SOURCES) == {"fsgld_update", "flash_attention"}
+    for name, src in _build.SOURCES.items():
+        cmd = _build.nvcc_command("nvcc", src, _build.library_path(name))
+        assert "arch=compute_90a,code=sm_90a" in cmd
+        assert not any("fast_math" in c or "fast-math" in c for c in cmd)
+        assert src.exists()
+        assert name in _build.library_path(name).name
     assert _build.BUILD_DIR.parts[-2:] == ("build", "repro_torch_kernels")

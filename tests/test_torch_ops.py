@@ -27,6 +27,27 @@ def _t(tree):
     return tu.tree_map(torch.from_numpy, tree)
 
 
+def test_tree_walks_free_their_leaves_without_the_cyclic_collector():
+    """flatten/unflatten/tree_map hold no reference cycle: a leaf dropped
+    by its owner is freed at once (at full width such a cycle kept ~40 GB
+    of fp32 draws alive on the card)."""
+    import gc
+    import weakref
+    t = torch.zeros(4)
+    ref = weakref.ref(t)
+    gc.disable()
+    try:
+        tree = {"a": {"b": t}, "c": [None, (t,)]}
+        leaves, treedef = tu.flatten(tree)
+        assert tu.unflatten(treedef, leaves)["a"]["b"] is t
+        out = tu.tree_map(lambda x, y: x + y, tree, tree)
+        assert torch.equal(tu.leaves(out)[0], torch.zeros(4))
+        del t, tree, leaves
+        assert ref() is None
+    finally:
+        gc.enable()
+
+
 def _j(tree):
     return jax.tree.map(jnp.asarray, tree)
 

@@ -1,0 +1,248 @@
+"""The port's serving path against the JAX package's, at the smoke configs
+of qwen3-1.7b (GQA, qk_norm, full attention) and h2o-danube-1.8b (sliding
+window: the prompt plus generation outruns the 64-slot ring cache).
+
+JAX parameters are carried across by ``convert.params_from_jax``; the
+same numpy prompt goes to both. Tolerances: logits and cache entries are
+held to 5e-2 of their largest magnitude, the yardstick of
+``tests/test_prefill_cache.py`` (bf16 activations through two layers; XLA
+and torch round silu and exp differently in bf16, a few bf16 ulps of 2^-8
+each: about 1.5e-2 here); predictive statistics of the same fp32 logits to
+1e-5; the port's own K=1 ensemble against its own plain loop bitwise.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import models as JM
+from repro.configs import ARCH_NAMES as jax_arch_names
+from repro.configs import get_config as jax_config
+from repro.configs import get_smoke_config as jax_smoke_config
+from repro.serve import predictive_stats as jax_predictive_stats
+from repro_torch import api, convert
+from repro_torch import models as TM
+from repro_torch import tree as tu
+from repro_torch.configs import ARCH_NAMES, get_config, get_smoke_config
+from repro_torch.launch import serve as serve_cli
+from repro_torch.serve import (EnsembleServer, ensemble_prefill,
+                               predictive_stats)
+
+ARCHS = ["qwen3-1.7b", "h2o-danube-1.8b"]
+B, S, GEN = 2, 80, 6
+REL = 5e-2
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def _f32(x):
+    return np.asarray(x.astype(jnp.float32) if x.dtype == jnp.bfloat16
+                      else x)
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def case(request):
+    """JAX params, prompt, prefill and a greedy JAX decode stream, traced
+    once per arch."""
+    arch = request.param
+    jc, cfg = jax_smoke_config(arch), get_smoke_config(arch)
+    jp = JM.init_params(jc, jax.random.PRNGKey(0))
+    prompt = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+    total = S + GEN
+    logits, cache = JM.prefill_with_cache(jp, jc, jnp.asarray(prompt), total)
+    step = jax.jit(lambda c, t, p: JM.decode_step(jp, jc, c, t, p))
+    tokens = [np.asarray(jnp.argmax(logits, -1))]
+    step_logits = []
+    c = cache
+    for t in range(S, total - 1):
+        lg, c = step(c, jnp.asarray(tokens[-1][:, None]),
+                     jnp.full((B,), t, jnp.int32))
+        step_logits.append(np.asarray(lg))
+        tokens.append(np.asarray(jnp.argmax(lg, -1)))
+    return dict(cfg=cfg, params=TM.serving_params(convert.params_from_jax(
+                    jax.tree.map(np.asarray, jp), cfg)),
+                prompt=prompt, total=total, logits=np.asarray(logits),
+                cache=jax.tree.map(_f32, cache), tokens=tokens,
+                step_logits=step_logits)
+
+
+def test_prefill_logits_and_cache_match_jax(case):
+    cfg = case["cfg"]
+    logits, cache = TM.prefill_with_cache(
+        case["params"], cfg, torch.from_numpy(case["prompt"]).long(),
+        case["total"])
+    assert logits.dtype == torch.float32
+    assert _rel(logits.numpy(), case["logits"]) < REL
+    jl, jd = jax.tree.flatten(case["cache"])
+    tl = tu.leaves(cache)
+    assert len(jl) == len(tl)
+    for a, b in zip(tl, jl):
+        assert tuple(a.shape) == b.shape
+        if a.dtype == torch.int32:  # positions: exact
+            np.testing.assert_array_equal(a.numpy(), b)
+        else:
+            assert a.dtype == torch.bfloat16
+            assert _rel(a.float().numpy(), b) < REL
+
+
+def test_teacher_forced_decode_matches_jax(case):
+    """Decode fed JAX's own greedy stream, so a bf16 argmax tie cannot
+    fork the comparison."""
+    cfg, params = case["cfg"], case["params"]
+    _, cache = TM.prefill_with_cache(
+        params, cfg, torch.from_numpy(case["prompt"]).long(), case["total"])
+    for i, t in enumerate(range(S, case["total"] - 1)):
+        tok = torch.tensor(case["tokens"][i][:, None], dtype=torch.long)
+        lg, cache = TM.decode_step(params, cfg, cache, tok,
+                                   torch.full((B,), t))
+        assert _rel(lg.numpy(), case["step_logits"][i]) < REL, t
+
+
+@pytest.mark.parametrize("K", [1, 4])
+def test_predictive_stats_match_jax(K):
+    logits = np.random.default_rng(K).standard_normal(
+        (K, 3, 97)).astype(np.float32) * 3
+    want = jax_predictive_stats(jnp.asarray(logits))
+    got = predictive_stats(torch.from_numpy(logits))
+    np.testing.assert_array_equal(got.token.numpy(), np.asarray(want.token))
+    for f in ("mean_logprob", "entropy", "mutual_info", "token_var"):
+        np.testing.assert_allclose(getattr(got, f).numpy(),
+                                   np.asarray(getattr(want, f)), atol=1e-5,
+                                   rtol=1e-5, err_msg=f)
+    if K == 1:
+        assert torch.all(got.mutual_info == 0)
+        assert torch.all(got.token_var == 0)
+
+
+def test_k1_ensemble_bitwise_matches_plain_loop(case):
+    cfg, params = case["cfg"], case["params"]
+    prompt = torch.from_numpy(case["prompt"]).long()
+    total = case["total"]
+    logits, cache = TM.prefill_with_cache(params, cfg, prompt, total)
+    want_tok = [torch.argmax(logits, -1)]
+    want_logits = []
+    for t in range(S, total - 1):
+        lg, cache = TM.decode_step(params, cfg, cache, want_tok[-1][:, None],
+                                   torch.full((B,), t))
+        want_logits.append(lg)
+        want_tok.append(torch.argmax(lg, -1))
+
+    draws = tu.tree_map(lambda t: t[None], params)
+    logits0, caches = ensemble_prefill(draws, cfg, prompt, total)
+    tok = predictive_stats(logits0[None]).token[:, None]
+    for i, t in enumerate(range(S, total - 1)):
+        lk, caches = TM.ensemble_decode_step(draws, cfg, caches, tok,
+                                             torch.full((B,), t))
+        assert torch.equal(lk[0], want_logits[i])
+        tok = predictive_stats(lk).token[:, None]
+
+    res = EnsembleServer(cfg, draws=draws, device="cpu").generate(
+        prompt, gen=GEN)
+    assert torch.equal(res.tokens, torch.stack(want_tok, 1))
+    assert torch.all(res.mutual_info == 0)
+    assert torch.all(res.token_var == 0)
+
+
+def test_distinct_draws_disagree(case):
+    """K=3 draws (JAX inits, stacked and carried across): finite signals,
+    zero epistemic uncertainty at the anchor's token 0, positive after."""
+    cfg = case["cfg"]
+    jc = jax_smoke_config(cfg.name)
+    stacked = jax.tree.map(
+        lambda *ls: np.stack(ls),
+        *[jax.tree.map(np.asarray, JM.init_params(jc, jax.random.PRNGKey(s)))
+          for s in range(3)])
+    srv = EnsembleServer(cfg, draws=convert.draws_from_jax(stacked, cfg),
+                         device="cpu")
+    assert srv.n_draws == 3
+    res = srv.generate(torch.from_numpy(case["prompt"][:, :16]).long(),
+                       gen=4)
+    assert res.tokens.shape == (B, 4)
+    for f in (res.mean_logprob, res.entropy, res.mutual_info,
+              res.token_var):
+        assert torch.isfinite(f).all()
+    assert torch.all(res.mutual_info[:, 0] == 0)
+    assert torch.all(res.mutual_info[:, 1:] > 0)
+
+
+def test_serving_needs_cuda_unless_the_cpu_is_asked_for(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.Serving()
+    spec = api.Serving(device="cpu", draws=2, arch="h2o-danube-1.8b")
+    assert spec.device == torch.device("cpu")
+    srv = api.FSGLD.serve(spec, seed=3)
+    res = srv.generate(gen=3, batch=2, prompt_len=5)
+    assert srv.n_draws == 2 and res.tokens.shape == (2, 3)
+    assert all(t.device.type == "cpu" for t in tu.leaves(srv.draws))
+
+
+def test_cli_serves_on_the_cpu(capsys, monkeypatch):
+    argv = ["--smoke", "--draws", "2", "--batch", "2", "--prompt-len", "6",
+            "--gen", "3"]
+    assert serve_cli.main(argv + ["--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert out.count("step ") == 3 and "MI" in out
+    assert "for 2 draw(s) on cpu" in out
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_cli.main(argv)
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-7b",
+                                  "whisper-large-v3", "llama-3.2-vision-90b",
+                                  "grok-1-314b", "phi3.5-moe-42b-a6.6b"])
+def test_unported_kinds_are_refused(arch):
+    cfg = get_smoke_config(arch)
+    with pytest.raises(NotImplementedError, match="item 15"):
+        TM.init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match="item 15"):
+        TM.prefill_with_cache({}, cfg, torch.zeros(1, 4, dtype=torch.long),
+                              8)
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["--bank", "/nonexistent"], 11), (["--ckpt", "/nonexistent"], 11),
+    (["--watch", "2"], 11), (["--log-jsonl", "/nonexistent"], 12)])
+def test_unported_serving_options_are_refused(argv, item):
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
+        serve_cli.main(["--smoke", "--device", "cpu"] + argv)
+    cfg = get_smoke_config("h2o-danube-1.8b")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        EnsembleServer(cfg, bank="/nonexistent", device="cpu")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        api.Serving(device="cpu", mesh=object())
+
+
+@pytest.mark.parametrize("arch", sorted(jax_arch_names))
+def test_configs_match_the_reference(arch):
+    """The registry is a copy of the JAX package's data: every field of
+    the published and the smoke config, and the analytic counts."""
+    for get_t, get_j in ((get_config, jax_config),
+                         (get_smoke_config, jax_smoke_config)):
+        t, j = get_t(arch), get_j(arch)
+        assert dataclasses.asdict(t) == dataclasses.asdict(j)
+        assert t.param_count() == j.param_count()
+        assert t.active_param_count() == j.active_param_count()
+    assert set(ARCH_NAMES) == set(jax_arch_names)
+
+
+def test_params_from_jax_checks_the_layout():
+    cfg = get_smoke_config("qwen3-1.7b")
+    like = tu.tree_map(lambda leaf: np.zeros(leaf.shape, np.float32),
+                       TM.param_layout(cfg))
+    assert tu.leaves(convert.params_from_jax(like, cfg))[0].dtype == \
+        torch.float32
+    like["head"] = np.zeros((3, 3), np.float32)
+    with pytest.raises(ValueError, match="leaf of shape"):
+        convert.params_from_jax(like, cfg)
+    del like["head"]
+    with pytest.raises(ValueError, match="layout"):
+        convert.params_from_jax(like, cfg)
