@@ -404,9 +404,26 @@ def flash_bound_ms(B, S, H, Hkv, hd, itemsize):
                                        else "operations"), nbytes, flops
 
 
+def sdpa_backend_ms(sdpa, calls, replays):
+    """The SDPA yardstick's device ms under each backend that accepts the
+    call ({backend: ms, or the reason it refused})."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    out = {}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION):
+        try:
+            with sdpa_kernel(backend):
+                out[backend.name] = device_ms(sdpa, calls=calls,
+                                              replays=replays)
+        except RuntimeError as e:
+            out[backend.name] = str(e).splitlines()[0][:100]
+    return out
+
+
 def time_flash(gen):
     """(kernel ms, plain ms, SDPA ms, bound ms, bound_by) at the serving
-    path's prefill shape, and kernel / SDPA ms at the long shape."""
+    path's prefill shape, and kernel / SDPA ms at the long shape; SDPA
+    is also timed under each of its backends."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     rows = {}
@@ -414,12 +431,16 @@ def time_flash(gen):
                                ("long", FLASH_LONG, 1)):
         q, k, v = _qkv(gen, *shape, torch.bfloat16)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        replays = 20 if calls > 1 else 5
         ms = device_ms(lambda: fa.flash_attention(q, k, v),  # noqa: B023
-                       calls=calls, replays=20 if calls > 1 else 5)
-        sdpa_ms = device_ms(
-            lambda: F.scaled_dot_product_attention(  # noqa: B023
-                qt, kt, vt, is_causal=True, enable_gqa=True),
-            calls=calls, replays=20 if calls > 1 else 5)
+                       calls=calls, replays=replays)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)  # noqa: B023
+
+        sdpa_ms = device_ms(sdpa, calls=calls, replays=replays)
+        backends = sdpa_backend_ms(sdpa, calls, replays)
         plain_ms = None
         if name == "path":
             plain_ms = device_ms(
@@ -434,6 +455,9 @@ def time_flash(gen):
             f"({b_by}; {flops:.3e} flops, {nbytes} bytes), "
             f"{100 * b_ms / ms:.1f}% of bound, "
             f"{flops / ms / 1e9:.1f} TFLOP/s")
+        log(f"  SDPA {name} by backend: " + ", ".join(
+            f"{b} {v:.4f} ms" if isinstance(v, float) else f"{b} refused "
+            f"({v})" for b, v in backends.items()))
     return rows
 
 
@@ -736,10 +760,13 @@ def main() -> int:
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    _build.build()
+    build_seconds = {}
+    _build.build(seconds=build_seconds)
     log(f"[build] nvcc {' '.join(_build.FLAGS)}, one process per source "
         f"({', '.join(_build.SOURCES)}), in parallel: "
         f"{time.perf_counter() - t0:.2f} s")
+    for name, seconds in build_seconds.items():
+        log(f"  {name}: {seconds:.2f} s ({_build.SOURCES[name].name})")
 
     gen = torch.Generator(device=dev).manual_seed(1234)
     t1_layout = kops.make_packed_layout(torch.zeros(TABLE1_P))

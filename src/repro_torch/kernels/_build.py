@@ -16,6 +16,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -58,42 +60,57 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build(*names: str) -> dict[str, Path]:
+def compile_all(jobs: dict[str, tuple[Path, Path, tuple[str, ...]]]
+                ) -> dict[str, tuple[subprocess.CompletedProcess, float]]:
+    """One nvcc per job (name -> (source, output, extra nvcc arguments)),
+    all in parallel: name -> (the finished process, its seconds)."""
+    nvcc = find_nvcc()
+
+    def run(job):
+        src, out, extra = job
+        cmd = nvcc_command(nvcc, src, out)
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd[:1] + list(extra) + cmd[1:],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        return proc, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        return dict(zip(jobs, pool.map(run, jobs.values())))
+
+
+def build(*names: str,
+          seconds: dict[str, float] | None = None) -> dict[str, Path]:
     """Compile the named libraries (all when none are named) unless an
-    identical build exists; one nvcc per library, run in parallel."""
+    identical build exists; one nvcc per library, run in parallel. Each
+    library compiled here gets its nvcc's seconds in ``seconds``."""
     names = names or tuple(SOURCES)
     out = {n: library_path(n) for n in names}
     todo = [n for n in names if not out[n].exists()]
     if not todo:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = find_nvcc()
-    jobs = []
+    tmps, failed = {}, []
     try:
-        for n in todo:
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        for n in todo:  # each compiles into a temporary file of BUILD_DIR
+            fd, tmps[n] = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
-            proc = subprocess.Popen(nvcc_command(nvcc, SOURCES[n], Path(tmp)),
-                                    stdout=subprocess.PIPE,
-                                    stderr=subprocess.STDOUT, text=True)
-            jobs.append((n, tmp, proc))
-        failed = []
-        for n, tmp, proc in jobs:
-            log, _ = proc.communicate()
+        runs = compile_all({n: (SOURCES[n], Path(tmps[n]), ())
+                            for n in todo})
+        for n, (proc, took) in runs.items():
+            if seconds is not None:
+                seconds[n] = took
             if proc.returncode != 0:
                 failed.append(f"nvcc failed ({proc.returncode}) on "
-                              f"{SOURCES[n]}:\n{log}")
+                              f"{SOURCES[n]}:\n{proc.stdout}")
             else:
-                os.replace(tmp, out[n])  # atomic: no reader sees a partial file
-        if failed:
-            raise RuntimeError("\n".join(failed))
+                os.replace(tmps[n], out[n])  # atomic: no partial file seen
     finally:
-        for _, tmp, proc in jobs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+        for tmp in tmps.values():
             if os.path.exists(tmp):
                 os.unlink(tmp)
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return out
 
 

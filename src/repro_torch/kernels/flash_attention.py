@@ -143,8 +143,8 @@ def _ptr(t):
     if not t.is_contiguous():
         raise ValueError("kernel operands must be contiguous")
     if t.data_ptr() % 16:
-        raise ValueError("kernel operands must be 16-byte aligned (the "
-                         "kernel moves 16-byte vectors)")
+        raise ValueError("kernel operands must be 16-byte aligned (TMA "
+                         "and the kernel's 16-byte vectors need it)")
     return ctypes.c_void_p(t.data_ptr())
 
 

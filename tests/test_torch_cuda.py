@@ -123,18 +123,21 @@ def test_packed_executor_one_launch_per_step_and_equals_per_leaf(dev):
 # flash attention, within the kernel's stated tolerance (fa.tolerance)
 # ---------------------------------------------------------------------------
 
+# the bf16 kernel's tile edges (128 query rows per CTA; 128-key tiles, 64
+# at hd 256), windows smaller and larger than a tile, GQA groups 1, 2, 8
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 100),
-                                           (False, None)])
-@pytest.mark.parametrize("H,Hkv,hd", [(4, 4, 64), (4, 2, 80), (2, 1, 128),
-                                      (4, 2, 160), (2, 2, 256)])
-def test_flash_kernel_matches_plain_version(dev, dtype, causal, window, H,
-                                            Hkv, hd):
+                                           (True, 300), (False, None)])
+@pytest.mark.parametrize("S", [1, 127, 128, 129, 1000, 2048])
+@pytest.mark.parametrize("hd", [64, 80, 128, 160, 256])
+@pytest.mark.parametrize("H,Hkv", [(2, 2), (4, 2), (8, 1)])
+def test_flash_kernel_matches_plain_version(dev, dtype, causal, window, S,
+                                            hd, H, Hkv):
     from repro_torch.kernels import flash_attention as fa
-    g = torch.Generator(device=dev).manual_seed(hd)
-    q = torch.randn(2, 333, H, hd, generator=g, device=dev).to(dtype)
-    k = torch.randn(2, 333, Hkv, hd, generator=g, device=dev).to(dtype)
-    v = torch.randn(2, 333, Hkv, hd, generator=g, device=dev).to(dtype)
+    g = torch.Generator(device=dev).manual_seed(S * hd + H)
+    q = torch.randn(2, S, H, hd, generator=g, device=dev).to(dtype)
+    k = torch.randn(2, S, Hkv, hd, generator=g, device=dev).to(dtype)
+    v = torch.randn(2, S, Hkv, hd, generator=g, device=dev).to(dtype)
     fa.reset_launches()
     out = fa.flash_attention(q, k, v, causal=causal, window=window)
     assert fa.LAUNCHES["flash_attention"] == 1
@@ -142,6 +145,30 @@ def test_flash_kernel_matches_plain_version(dev, dtype, causal, window, H,
     assert out.dtype == dtype
     assert bool(((out.float() - ref.float()).abs()
                  <= fa.tolerance(ref)).all())
+
+
+@pytest.mark.parametrize("hd", [80, 128, 256])
+def test_flash_kernel_graph_replay_equals_eager(dev, hd):
+    """The tensor maps travel with the launch: a CUDA graph captured over
+    the kernel and replayed gives the eager call's output bitwise."""
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=dev).manual_seed(hd)
+    q = torch.randn(2, 1000, 4, hd, generator=g, device=dev).bfloat16()
+    k = torch.randn(2, 1000, 2, hd, generator=g, device=dev).bfloat16()
+    v = torch.randn(2, 1000, 2, hd, generator=g, device=dev).bfloat16()
+    eager = fa.flash_attention(q, k, v)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fa.flash_attention(q, k, v)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = fa.flash_attention(q, k, v)
+    replayed.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(replayed, eager)
 
 
 def test_flash_kernel_refuses_strided_operands(dev):

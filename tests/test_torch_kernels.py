@@ -224,3 +224,40 @@ def test_nvcc_command_targets_hopper_without_fast_math():
         assert src.exists()
         assert name in _build.library_path(name).name
     assert _build.BUILD_DIR.parts[-2:] == ("build", "repro_torch_kernels")
+
+
+def test_build_times_each_source_and_reports_a_failure(tmp_path,
+                                                       monkeypatch):
+    """``build`` runs one compiler per missing library, records each
+    one's seconds, installs what compiled and names what did not."""
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\n"
+                    "for a; do case $a in *flash_attention.cu) "
+                    "echo 'error: planted' >&2; exit 3;; esac; done\n"
+                    "while [ $# -gt 0 ]; do [ \"$1\" = -o ] && "
+                    "touch \"$2\"; shift; done\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(fake))
+    seconds = {}
+    out = _build.build("fsgld_update", seconds=seconds)
+    assert out["fsgld_update"].exists()
+    assert seconds["fsgld_update"] >= 0
+    with pytest.raises(RuntimeError, match="planted"):
+        _build.build(seconds=seconds)
+    assert set(seconds) == {"fsgld_update", "flash_attention"}
+    assert not _build.library_path("flash_attention").exists()
+    assert [p.name for p in (tmp_path / "build").iterdir()] == [
+        out["fsgld_update"].name]
+
+
+def test_build_removes_its_temporary_files_when_nvcc_cannot_start(
+        tmp_path, monkeypatch):
+    """A compiler that cannot be started raises out of ``build``, and the
+    temporary libraries it was to write are gone from the build
+    directory."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(tmp_path / "none"))
+    with pytest.raises(OSError):
+        _build.build()
+    assert list((tmp_path / "build").iterdir()) == []

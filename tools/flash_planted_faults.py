@@ -10,12 +10,16 @@ through the wrapper on each build. Prints, per dtype and mask, the largest
 |kernel - plain| and the largest share of the kernel's tolerance
 (``repro_torch.kernels.flash_attention.tolerance``) used,
 and beside it the share of the earlier, looser bf16 tolerance (atol 3e-2
-+ rtol 3e-2). Also prints ptxas's register and spill counts for every
-instantiation of the kernel. Exits non-zero when the kernel as it is
-fails the tolerance or a planted fault passes it.
++ rtol 3e-2). Also prints the build's seconds and ptxas's register and
+spill counts (and any wgmma serialisation warning) for every
+instantiation of the kernel, and how many wgmma (HGMMA), mma.sync (HMMA),
+TMA-load (UTMALDG) and mbarrier (SYNCS) instructions each holds. Exits
+non-zero when the kernel as it is fails the tolerance or spills in a bf16
+instantiation, or when a planted fault passes the tolerance.
 """
 from __future__ import annotations
 
+import re
 import subprocess
 import sys
 import tempfile
@@ -29,70 +33,139 @@ import torch  # noqa: E402
 
 LOOSE_BF16 = (3e-2, 3e-2)  # (atol, rtol) before the row-scaled tolerance
 
-# name -> (what it plants, the source text, its replacement); each fault
-# hurts only rows late in a long sequence, where outputs are small
+# name -> (what it plants, [(source text, its replacement), ...]); each
+# fault hurts only rows late in a long sequence, where outputs are small:
+# rows whose CTA spans more than 1,024 keys (more than 8 tiles of 128 keys,
+# or 16 of 64 at hd 256); SPAN recomputes that inside softmax_tile
+SPAN = ("  int kb_, ke_;\n"
+        "  key_range(p, qc0 / BQ * BQ, BQ, &kb_, &ke_);\n"
+        "  const bool span = ke_ - kb_ / BK * BK > 1024;\n"
+        "  const bool last = k0 + BK >= ke_;\n")
+MASK = "if (!unmasked(p, e < 2 ? qr0 : qr1, k0 + n8 * 8 + t4 * 2 + (e & 1)))"
+
+
+def _masked_when(cond: str):
+    """Replacements that mask the keys of the last tile where ``cond``."""
+    return [("  if (edge) {\n", SPAN + "  if (edge || (span && last)) {\n"),
+            (MASK, MASK.replace("if (!", f"if (({cond}) || !"))]
+
+
 FAULTS = {
     "last_tile": (
-        "rows with more than 1,024 keys skip their last 64-key tile",
-        "for (int kt = kt0; kt < kt1; ++kt) {",
-        "for (int kt = kt0; kt < kt1 - (kt1 - kt0 > 16); ++kt) {"),
+        "rows with more than 1,024 keys skip their last key tile",
+        _masked_when("span && last")),
     "last_keys": (
         "rows with more than 1,024 keys drop the last 8 keys of their last"
         " tile",
-        "        if (edge && !unmasked(p, e < 2 ? qr0 : qr1,",
-        "        if ((kt == kt1 - 1 && kt1 - kt0 > 16 && nt == BK / 8 - 1)"
-        " ||\n            edge && !unmasked(p, e < 2 ? qr0 : qr1,"),
+        _masked_when("span && last && n8 == BK / 8 - 1")),
     "self_key": (
         "causal rows past 1,024 do not see their own key",
-        "if (p.causal) ok = ok && kj <= qi;",
-        "if (p.causal) ok = ok && (qi >= 1024 ? kj < qi : kj <= qi);"),
+        [("if (p.causal) ok = ok && kj <= qi;",
+          "if (p.causal) ok = ok && (qi >= 1024 ? kj < qi : kj <= qi);")]),
     "misweight": (
         "rows with more than 1,024 keys leave their last tile out of the"
         " softmax's sum (bf16)",
-        "        l0 += pv[t][0] + pv[t][1];\n"
-        "        l1 += pv[t][2] + pv[t][3];\n",
-        "        if (kt != kt1 - 1 || kt1 - kt0 <= 16) {\n"
-        "          l0 += pv[t][0] + pv[t][1];\n"
-        "          l1 += pv[t][2] + pv[t][3];\n"
-        "        }\n"),
+        [("  l0 = l0 * c0 + ((r0[0] + r0[1]) + (r0[2] + r0[3]));\n"
+          "  l1 = l1 * c1 + ((r1[0] + r1[1]) + (r1[2] + r1[3]));\n",
+          SPAN + "  l0 = l0 * c0 + (span && last ? 0.f : ((r0[0] + r0[1]) +"
+          " (r0[2] + r0[3])));\n"
+          "  l1 = l1 * c1 + (span && last ? 0.f : ((r1[0] + r1[1]) +"
+          " (r1[2] + r1[3])));\n")]),
 }
 
 
-def _compile(nvcc, src: Path, out: Path, extra=()):
-    from repro_torch.kernels import _build
-    cmd = _build.nvcc_command(nvcc, src, out)
-    return subprocess.Popen(cmd[:1] + list(extra) + cmd[1:],
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True)
+def ptxas_report(text: str) -> list[tuple[str, str, int]]:
+    """ptxas -v's lines on the flash kernels in ``text``: (kernel, line,
+    bytes of spill stores) for each resource line, and ("", line, 0) for
+    each wgmma warning (ptxas prints its warnings first)."""
+    rows, kernel = [], ""
+    for line in text.splitlines():
+        line = line.strip()
+        if "entry function" in line:
+            kernel = line.split("'")[1]
+        elif "wgmma" in line and "flash_fwd" in line:
+            rows.append(("", line, 0))
+        elif "flash_fwd" in kernel and ("spill" in line or "Used" in line):
+            stores = re.search(r"(\d+) bytes spill stores", line)
+            rows.append((kernel, line, int(stores.group(1)) if stores else 0))
+    return rows
 
 
-def build_all(tmp: Path):
-    """The kernel as it is (with ptxas's resource report) and each planted
-    fault, one nvcc each, in parallel. Returns {name: library path}."""
+def build_and_report(sources: dict[str, tuple[Path, tuple[str, ...]]],
+                     tmp: Path, report=None):
+    """One nvcc per build (name -> (source, extra nvcc arguments)), all in
+    parallel into ``tmp``, with ptxas's resource report. Logs each build's
+    seconds and, for the builds named in ``report`` (all when None), the
+    registers, spills and wgmma warnings of every flash kernel. Returns
+    {name: library path} and the names of the builds in which a bf16
+    instantiation spills."""
     from repro_torch.kernels import _build
-    src = _build.SOURCES["flash_attention"]
-    text = src.read_text()
-    nvcc = _build.find_nvcc()
-    jobs = {"as_is": _compile(nvcc, src, tmp / "as_is.so",
-                              ("-Xptxas", "-v"))}
-    for name, (_, old, new) in FAULTS.items():
+    runs = _build.compile_all({
+        name: (src, tmp / f"{name}.so", ("-Xptxas", "-v", *extra))
+        for name, (src, extra) in sources.items()})
+    spilled = set()
+    for name, (proc, took) in runs.items():
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {name}:\n{proc.stdout}")
+        cs.log(f"  {name}: built in {took:.2f} s")
+        for kernel, line, stores in ptxas_report(proc.stdout):
+            if stores and "flash_fwd_bf16" in kernel:
+                spilled.add(name)
+            if report is None or name in report:
+                cs.log(f"    {kernel[-40:]}: {line}" if kernel
+                       else f"    {line[:160]}")
+    return {name: tmp / f"{name}.so" for name in sources}, spilled
+
+
+def plant(text: str, name: str, edits) -> str:
+    """``text`` with each (old, new) of ``edits`` replaced; ``old`` must
+    occur exactly once."""
+    for old, new in edits:
         if text.count(old) != 1:
             raise RuntimeError(f"{name}: the text to replace is not in the "
                                "source exactly once")
+        text = text.replace(old, new)
+    return text
+
+
+def build_all(tmp: Path):
+    """The kernel as it is and each planted fault, one nvcc each, in
+    parallel; the resource report of the kernel as it is. Returns {name:
+    library path} and whether a bf16 instantiation of the kernel as it is
+    spills."""
+    from repro_torch.kernels import _build
+    src = _build.SOURCES["flash_attention"]
+    text = src.read_text()
+    sources = {"as_is": (src, ())}
+    for name, (_, edits) in FAULTS.items():
         planted = tmp / f"{name}.cu"
-        planted.write_text(text.replace(old, new))
-        jobs[name] = _compile(nvcc, planted, tmp / f"{name}.so")
-    for name, proc in jobs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {name}:\n{out}")
-        if name == "as_is":
-            for line in out.splitlines():
-                if "entry function" in line:
-                    cs.log("  " + line.split("'")[1])
-                elif "spill" in line or "Used" in line:
-                    cs.log("    " + line.strip())
-    return {name: tmp / f"{name}.so" for name in jobs}
+        planted.write_text(plant(text, name, edits))
+        sources[name] = (planted, ())
+    libs, spilled = build_and_report(sources, tmp, report={"as_is"})
+    return libs, "as_is" in spilled
+
+
+SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "SYNCS")  # wgmma, mma.sync, TMA
+                                                 # load, mbarrier
+
+
+def sass_counts(lib: Path) -> dict[str, dict[str, int]]:
+    """Per flash kernel of the library, how many instructions of each of
+    SASS_OPS its machine code holds (``cuobjdump -sass``)."""
+    from repro_torch.kernels import _build
+    tool = Path(_build.find_nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                         text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ")[1].strip()
+            if "flash_fwd" in fn:
+                counts[fn] = dict.fromkeys(SASS_OPS, 0)
+        elif fn in counts:
+            for op in SASS_OPS:
+                counts[fn][op] += f" {op}" in line
+    return counts
 
 
 def loose_bound(ref):
@@ -125,7 +198,15 @@ def main() -> int:
     ok = True
     with tempfile.TemporaryDirectory() as tmp:
         cs.log("[build] ptxas resources of the kernel as it is:")
-        libs = build_all(Path(tmp))
+        libs, spilled = build_all(Path(tmp))
+        if spilled:
+            cs.log("  FAILED: a bf16 instantiation spills")
+            ok = False
+        cs.log("[sass] instructions of the kernel as it is "
+               "(cuobjdump -sass):")
+        for fn, counts in sass_counts(libs["as_is"]).items():
+            cs.log(f"  {fn[-48:]}: " + ", ".join(
+                f"{op} {n}" for op, n in counts.items()))
         for name, path in libs.items():
             what = "the kernel as it is" if name == "as_is" \
                 else f"planted fault {name}: {FAULTS[name][0]}"
