@@ -12,6 +12,12 @@ nvcc per source, in parallel) and drives its two paths through the
   per-leaf executors and the multi-leaf MLP of
   ``benchmarks/bench_chains.py``, and checks that each path launched the
   kernel once per step (per leaf, for per-leaf);
+* the paper's federated comparisons, each path with its own launch
+  counts: the Table-1 BNN with SGHMC dynamics on every executor, under
+  five federation scenarios (delay, partial participation, stragglers,
+  top-k and bidirectional QSGD compression) and under FA-LD (against the
+  port's host-loop oracle); the Gaussian of Figs. 2-3 with the paper's
+  delayed-communication claims asserted, and the rival-sampler frontier;
 * serving: holds the flash-attention kernel against its plain version
   over masks, dtypes, GQA groups, head dims and lengths, serves
   qwen3-1.7b at full width with K = 4 posterior draws (two requests of
@@ -59,6 +65,26 @@ DEVICE = "cuda"
 # Table 1 (benchmarks/table1_bnn.py): S x n clients, minibatch, step size
 T1_S, T1_N, T1_M, T1_H, T1_T = 10, 20_000, 50, 1e-5, 40
 T1_CHAINS, T1_ROUNDS = 4, 5
+# the federated phases on the Table-1 BNN: 200 steps as 20 rounds of 10,
+# so delayed-10x communicates twice and the others 20 times
+FED_ROUNDS, FED_T = 20, 10
+FED_SCENARIOS = ("delayed-10x", "partial-50%", "straggler-10%", "topk-1%",
+                 "elf-bidir-qsgd-8bit")
+# SGHMC(h, a) moves theta like Langevin with step 2h/a: at Table 1's h
+# and friction 0.1 that step is 20x Table 1's and the chains diverge, so
+# the SGHMC runs take h = T1_H * a / 2 (the same effective step)
+SGHMC_FRICTION = 0.1
+SGHMC_H = T1_H * SGHMC_FRICTION / 2
+# a diverged chain's held-out log-lik per point (a coin costs -0.69; the
+# diverged runs of h = 1e-5 reached -13 to -1.4e16)
+SGHMC_DIVERGED = -10.0
+# Figs. 2-3 (benchmarks/fig2_3_gaussian.py), cut from 30,000 single-step
+# rounds to FIG_ROUNDS (30 communications at the 100x delay); FIG_CHAINS
+# chains average the single-chain MSE (workloads.chain_mse)
+FIG_ROUNDS, FIG_CHAINS = 3000, 32
+# the frontier (benchmarks/bench_frontier.py: 4,000 rounds, 4 chains,
+# d = 64), cut to FRONTIER_ROUNDS; its FSGLD MSE ceiling
+FRONTIER_ROUNDS, FRONTIER_CHAINS, FRONTIER_CEILING = 2000, 4, 0.1
 
 # Flash attention vs its plain version within
 # repro_torch.kernels.flash_attention.tolerance (tools/flash_planted_faults.py
@@ -490,9 +516,10 @@ def table1_setup(dev):
     return shards, test, theta0, bank
 
 
-def run_path(name, sampler, gen, theta0, expect):
+def run_path(name, sampler, gen, theta0, expect, dynamics=None):
     """Drive one path with the launch counts set to 0 just before it and
-    read just after; ``expect`` maps entry -> launches it must make."""
+    read just after; ``expect`` maps entry -> launches it must make (and
+    every one of them with ``dynamics``, when given)."""
     from repro_torch.kernels import fsgld_update as fk
     cuda_sync()
     fk.reset_launches()
@@ -505,6 +532,11 @@ def run_path(name, sampler, gen, theta0, expect):
         if counts[entry] != want:
             raise AssertionError(f"{name}: {entry} launched "
                                  f"{counts[entry]} times, expected {want}")
+    if dynamics is not None and \
+            fk.DYNAMICS_LAUNCHES[dynamics] != sum(counts.values()):
+        raise AssertionError(f"{name}: launches by dynamics "
+                             f"{fk.DYNAMICS_LAUNCHES}, expected all "
+                             f"{dynamics}")
     from repro_torch import tree as tu
     if not all(bool(torch.isfinite(v).all()) for v in tu.leaves(out)):
         raise AssertionError(f"{name}: non-finite state")
@@ -513,6 +545,247 @@ def run_path(name, sampler, gen, theta0, expect):
     log(f"  {name}: launches {counts}, {dt:.3f} s, "
         f"{steps / dt:.1f} chain-steps/s")
     return out, counts
+
+
+def heldout_check(name, tr_a, tr_b, test):
+    """Per-chain held-out log-lik over each chain's second half: run a
+    must agree with run b within 5 standard errors of the difference of
+    the two chain means (floor 0.01)."""
+    from repro_torch.workloads import avg_loglik
+    half = tr_a.shape[1] // 2
+    ll_a = torch.tensor([avg_loglik(c[half:], test) for c in tr_a])
+    ll_b = torch.tensor([avg_loglik(c[half:], test) for c in tr_b])
+    se = math.sqrt(float(ll_a.var() + ll_b.var()) / tr_a.shape[0])
+    diff = float(ll_a.mean() - ll_b.mean())
+    log(f"  {name} held-out avg log-lik: {float(ll_a.mean()):.4f} (chains "
+        f"{ll_a.tolist()}), reference {float(ll_b.mean()):.4f} (chains "
+        f"{ll_b.tolist()}); difference {diff:.4f}, standard error "
+        f"{se:.4f}")
+    if not (math.isfinite(diff) and abs(diff) < max(0.01, 5 * se)):
+        raise AssertionError(f"{name}: strays from its reference")
+
+
+def same(name, a, b):
+    from repro_torch import tree as tu
+    if not all(torch.equal(x, y) for x, y in zip(tu.leaves(a),
+                                                 tu.leaves(b))):
+        raise AssertionError(f"{name}: the runs differ")
+    log(f"  {name}: equal, bitwise")
+
+
+class ExchangeTimer:
+    """Times every call of the engine's exchange (host clock, the device
+    synchronised before and after) while in a ``with`` block."""
+
+    def __init__(self):
+        self.seconds = []
+
+    def __enter__(self):
+        from repro_torch.core import engine as teng
+        self._real = real = teng.make_exchange
+
+        def make(*a, **k):
+            exchange, carry0 = real(*a, **k)
+
+            def timed(*xa):
+                cuda_sync()
+                t0 = time.perf_counter()
+                out = exchange(*xa)
+                cuda_sync()
+                self.seconds.append(time.perf_counter() - t0)
+                return out
+
+            return timed, carry0
+
+        teng.make_exchange = make
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import engine as teng
+        teng.make_exchange = self._real
+
+    def line(self) -> str:
+        if not self.seconds:
+            return "no exchange"
+        ms = sorted(1e3 * t for t in self.seconds)
+        return (f"exchange {len(ms)} times, median "
+                f"{statistics.median(ms):.4f} ms per communication round "
+                f"(min {ms[0]:.4f}, max {ms[-1]:.4f})")
+
+
+# ---------------------------------------------------------------------------
+# the federated comparisons
+# ---------------------------------------------------------------------------
+
+def t1_sampler(dev, shards, bank, executor, *, rounds=T1_ROUNDS,
+               local_steps=T1_T, thin=20, method="fsgld", step_size=T1_H,
+               **kw):
+    """The Table-1 BNN through the facade (a Fisher bank for FSGLD)."""
+    from repro_torch import api
+    from repro_torch.workloads import table1_log_lik
+    return api.FSGLD(
+        api.Posterior(table1_log_lik, prior_precision=1.0), shards,
+        minibatch=T1_M, step_size=step_size, method=method,
+        surrogate=(api.SurrogateSpec(kind="diag", bank=bank)
+                   if method == "fsgld" else None),
+        schedule=api.Schedule(rounds=rounds, local_steps=local_steps,
+                              n_chains=T1_CHAINS, thin=thin),
+        execution=api.Execution(device=dev, executor=executor), **kw)
+
+
+def _gen(dev, seed):
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+def _expect(executor, steps):
+    """Launches a Table-1 path must make: one per step (one leaf)."""
+    return {"fsgld_update_packed": steps if executor == "packed" else 0,
+            "fsgld_update_2d": steps if executor == "per_leaf" else 0}
+
+
+def timed_exchange(name, sampler, gen, theta0):
+    """One more run of a path with every exchange timed."""
+    with ExchangeTimer() as timer:
+        sampler.sample(gen, theta0)
+    log(f"  {name}: {timer.line()}")
+
+
+def phase_sghmc(dev, shards, test, theta0, bank):
+    from repro_torch.workloads import avg_loglik
+    steps = T1_ROUNDS * T1_T
+    runs = {}
+    for ex in ("packed", "per_leaf", "vmap"):
+        runs[ex], _ = run_path(
+            f"sghmc/{ex}", t1_sampler(dev, shards, bank, ex, kernel="sghmc",
+                                      friction=SGHMC_FRICTION,
+                                      step_size=SGHMC_H),
+            _gen(dev, 21), theta0, _expect(ex, steps), dynamics="sghmc")
+    same("sghmc: packed == per_leaf", runs["packed"], runs["per_leaf"])
+    heldout_check("sghmc packed vs vmap", runs["packed"], runs["vmap"], test)
+    # a diverged pair of runs would pass the check above on its huge
+    # standard error: no chain may fall below SGHMC_DIVERGED nats/point
+    for ex in ("packed", "vmap"):
+        tr = runs[ex]
+        worst = min(avg_loglik(c[tr.shape[1] // 2:], test) for c in tr)
+        if not worst > SGHMC_DIVERGED:
+            raise AssertionError(f"sghmc/{ex} diverged: held-out log-lik "
+                                 f"{worst:.4g} per point")
+
+
+def phase_fed(dev, shards, theta0, bank, tr_main):
+    tr, _ = run_path("identity/packed (the table1 run again)",
+                     t1_sampler(dev, shards, bank, "packed",
+                                federation="identity"),
+                     _gen(dev, 20), theta0,
+                     _expect("packed", T1_ROUNDS * T1_T))
+    same("federation='identity' == federation=None", tr, tr_main)
+    steps = FED_ROUNDS * FED_T
+    for name in FED_SCENARIOS:
+        out = {}
+        for ex in ("packed", "per_leaf"):
+            out[ex], _ = run_path(
+                f"{name}/{ex}", t1_sampler(
+                    dev, shards, bank, ex, rounds=FED_ROUNDS,
+                    local_steps=FED_T, thin=5, federation=name),
+                _gen(dev, 22), theta0, _expect(ex, steps),
+                dynamics="langevin")
+        same(f"{name}: packed == per_leaf", out["packed"], out["per_leaf"])
+        timed_exchange(f"{name}/packed", t1_sampler(
+            dev, shards, bank, "packed", rounds=FED_ROUNDS,
+            local_steps=FED_T, thin=5, federation=name),
+            _gen(dev, 22), theta0)
+
+
+def phase_fald(dev, shards, theta0):
+    from repro_torch.rivals import fald_run_vmap
+    from repro_torch.workloads import table1_log_lik
+    steps = FED_ROUNDS * FED_T
+    for fed in (None, "elf-bidir-qsgd-8bit"):
+        name = f"fald {fed or 'exact'}"
+
+        def make(ex, fed=fed):
+            return t1_sampler(dev, shards, None, ex, rounds=FED_ROUNDS,
+                              local_steps=FED_T, thin=5, method="fald",
+                              federation=fed)
+
+        s = make("packed")
+        tr, _ = run_path(f"{name}/packed", s, _gen(dev, 23), theta0,
+                         _expect("packed", steps), dynamics="langevin")
+        ref = fald_run_vmap(table1_log_lik, s.cfg, s.data, T1_M,
+                            _gen(dev, 23), theta0, FED_ROUNDS,
+                            n_chains=T1_CHAINS, collect_every=5,
+                            federation=fed, sizes=s.sizes, use_kernel=True)
+        same(f"{name}: engine == fald_run_vmap oracle", tr, ref)
+        timed_exchange(f"{name}/packed", make("packed"), _gen(dev, 23),
+                       theta0)
+
+
+def phase_fig2_3(dev):
+    from repro_torch import api
+    from repro_torch.workloads import (FIG2_3_CASES, FIG2_3_D, FIG2_3_H,
+                                       FIG2_3_M, chain_mse, fig2_3_claims,
+                                       gaussian_log_lik, gaussian_problem)
+    data, post, bank = gaussian_problem(_gen(dev, 0))
+    mse = {}
+    for method, scen in FIG2_3_CASES:
+        s = api.FSGLD(
+            api.Posterior(gaussian_log_lik, prior_precision=1.0), data,
+            minibatch=FIG2_3_M, step_size=FIG2_3_H, method=method,
+            surrogate=(api.SurrogateSpec(kind="diag", bank=bank)
+                       if method == "fsgld" else None),
+            schedule=api.Schedule(rounds=FIG_ROUNDS, local_steps=1,
+                                  n_chains=FIG_CHAINS),
+            execution=api.Execution(device=dev, executor="packed"),
+            federation=scen)
+        tr, _ = run_path(f"fig2-3/{method} {scen}", s, _gen(dev, 2),
+                         torch.zeros(FIG2_3_D, device=dev),
+                         _expect("packed", FIG_ROUNDS), dynamics="langevin")
+        mse[method, scen] = chain_mse(tr, post)
+        log(f"    single-chain posterior-mean MSE {mse[method, scen]:.4e}")
+    claims = fig2_3_claims(mse)
+    log(f"  claims of fig2_3_gaussian.py: {claims}")
+    if not all(claims.values()):
+        raise AssertionError(f"Figs. 2-3 claims fail: {claims}")
+
+
+def phase_frontier(dev):
+    from repro_torch import api
+    from repro_torch.fed import get_scenario
+    from repro_torch.workloads import (FIG2_3_H, FIG2_3_M, FRONTIER_D,
+                                       FRONTIER_METHODS, FRONTIER_N,
+                                       FRONTIER_S, FRONTIER_SCENARIOS,
+                                       gaussian_log_lik, gaussian_problem)
+    data, post, bank = gaussian_problem(_gen(dev, 0), num_shards=FRONTIER_S,
+                                        shard_size=FRONTIER_N,
+                                        dim=FRONTIER_D)
+    exact = get_scenario("identity").compression.bytes_per_round(FRONTIER_D)
+    for method in FRONTIER_METHODS:
+        for scen in FRONTIER_SCENARIOS:
+            s = api.FSGLD(
+                api.Posterior(gaussian_log_lik, prior_precision=1.0), data,
+                minibatch=FIG2_3_M, step_size=FIG2_3_H, method=method,
+                surrogate=(api.SurrogateSpec(kind="diag", bank=bank)
+                           if method == "fsgld" else None),
+                schedule=api.Schedule(rounds=FRONTIER_ROUNDS, local_steps=1,
+                                      n_chains=FRONTIER_CHAINS),
+                execution=api.Execution(device=dev, executor="packed"),
+                federation=scen)
+            tr, _ = run_path(f"frontier/{method} {scen}", s, _gen(dev, 2),
+                             torch.zeros(FRONTIER_D, device=dev),
+                             _expect("packed", FRONTIER_ROUNDS),
+                             dynamics="langevin")
+            half = tr[:, tr.shape[1] // 2:]
+            m = float(((half.mean((0, 1)) - post) ** 2).sum())
+            fed = get_scenario(scen)
+            bpr = fed.compression.bytes_per_round(FRONTIER_D)
+            n_comm = -(-FRONTIER_ROUNDS // fed.schedule.delay)
+            log(f"    posterior-mean MSE {m:.4e}; {bpr:.0f} bytes per chain "
+                f"per communication round, {n_comm} communications")
+            if method == "fsgld" and not m < FRONTIER_CEILING:
+                raise AssertionError(f"frontier: FSGLD {scen} MSE {m} "
+                                     f"above {FRONTIER_CEILING}")
+            if not fed.compression.identity and not bpr < exact:
+                raise AssertionError(f"frontier: {scen} saves no bytes")
 
 
 def profile_call(fn, what: str, steps: int) -> None:
@@ -754,7 +1027,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import ops as kops
     from repro_torch.workloads import (TABLE1_P, avg_loglik, mlp_log_lik,
-                                       mlp_problem, table1_log_lik)
+                                       mlp_problem)
     dev = torch.device(DEVICE)
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
@@ -789,13 +1062,7 @@ def main() -> int:
     shards, test, theta0, bank = table1_setup(dev)
 
     def t1(executor):
-        return api.FSGLD(
-            api.Posterior(table1_log_lik, prior_precision=1.0), shards,
-            minibatch=T1_M, step_size=T1_H,
-            surrogate=api.SurrogateSpec(kind="diag", bank=bank),
-            schedule=api.Schedule(rounds=T1_ROUNDS, local_steps=T1_T,
-                                  n_chains=T1_CHAINS, thin=20),
-            execution=api.Execution(device=dev, executor=executor))
+        return t1_sampler(dev, shards, bank, executor)
 
     steps = T1_ROUNDS * T1_T
     seed = 20
@@ -815,21 +1082,9 @@ def main() -> int:
         "table1/vmap (plain reference)", t1("vmap"),
         torch.Generator(device=dev).manual_seed(seed), theta0,
         {"fsgld_update_packed": 0, "fsgld_update_2d": 0})
-    half = tr_p.shape[1] // 2
-    ll0 = avg_loglik(theta0[None], test)
-    # per-chain held-out log-lik over each chain's second half: the packed
-    # run must agree with the plain reference within 5 standard errors of
-    # the difference of the two 4-chain means (floor 0.01)
-    ll_p = torch.tensor([avg_loglik(c[half:], test) for c in tr_p])
-    ll_v = torch.tensor([avg_loglik(c[half:], test) for c in tr_v])
-    se = math.sqrt(float(ll_p.var() + ll_v.var()) / T1_CHAINS)
-    diff = float(ll_p.mean() - ll_v.mean())
-    log(f"  held-out avg log-lik: theta0 {ll0:.4f}, packed "
-        f"{float(ll_p.mean()):.4f} (chains {ll_p.tolist()}), vmap reference "
-        f"{float(ll_v.mean()):.4f} (chains {ll_v.tolist()}); difference "
-        f"{diff:.4f}, standard error {se:.4f}")
-    if not (math.isfinite(diff) and abs(diff) < max(0.01, 5 * se)):
-        raise AssertionError("packed run strays from the plain reference")
+    log(f"  held-out avg log-lik at theta0: "
+        f"{avg_loglik(theta0[None], test):.4f}")
+    heldout_check("packed vs vmap (plain reference)", tr_p, tr_v, test)
 
     phase("[mlp4] bench_chains multi-leaf MLP (24,864 params, 4 leaves), "
         "'scalar' bank, C=8, 3 rounds x 8 steps, packed")
@@ -842,6 +1097,25 @@ def main() -> int:
     run_path("mlp4/packed", mlp, torch.Generator(device=dev).manual_seed(3),
              mlp_theta0, {"fsgld_update_packed": 24,
                           "fsgld_update_2d": 0})
+
+    phase(f"[sghmc] Table-1 BNN, kernel='sghmc' (friction "
+          f"{SGHMC_FRICTION}, h {SGHMC_H:g}), {T1_ROUNDS} rounds x {T1_T} "
+          f"steps, C={T1_CHAINS}, on packed / per_leaf / vmap")
+    phase_sghmc(dev, shards, test, theta0, bank)
+    phase(f"[fed] Table-1 BNN under {', '.join(FED_SCENARIOS)}: "
+          f"{FED_ROUNDS} rounds x {FED_T} steps, C={T1_CHAINS}")
+    phase_fed(dev, shards, theta0, bank, tr_p)
+    phase(f"[fald] Table-1 BNN, method='fald', {FED_ROUNDS} rounds x "
+          f"{FED_T} steps, C={T1_CHAINS}, against the port's oracle")
+    phase_fald(dev, shards, theta0)
+    phase(f"[fig2-3] Gaussian of Figs. 2-3 (S=10 x 200, d=2), "
+          f"{FIG_ROUNDS} single-step rounds (reduced from 30,000), "
+          f"C={FIG_CHAINS}, packed")
+    phase_fig2_3(dev)
+    phase(f"[frontier] Gaussian d=64: dsgld/fsgld/fald x identity/"
+          f"delayed-5x/elf-bidir-qsgd-8bit, {FRONTIER_ROUNDS} rounds "
+          f"(reduced from 4,000), C={FRONTIER_CHAINS}, packed")
+    phase_frontier(dev)
 
     phase("[profile] one packed Table-1 round (40 steps) under "
         "torch.profiler")

@@ -26,8 +26,12 @@ from repro_torch.configs.base import SamplerConfig
 from repro_torch.core.engine import MeshChainEngine, _not_ported, pad_shards
 from repro_torch.core.federated import (fit_bank_fisher, refresh_bank,
                                         sample_local_likelihood)
+from repro_torch.core.sghmc import SGHMCConfig
 from repro_torch.core.surrogate import (SurrogateBank, fit_scalar_tree,
                                         make_bank)
+from repro_torch.fed.partition import partition as partition_clients
+from repro_torch.fed.registry import get_scenario
+from repro_torch.rivals.methods import get_method
 
 PyTree = Any
 LogLikFn = Callable[[PyTree, PyTree], torch.Tensor]
@@ -36,9 +40,6 @@ __all__ = ["Posterior", "SurrogateSpec", "Schedule", "Execution", "Serving",
            "FSGLD", "fit_bank_local_sgld"]
 
 _EXECUTORS = ("auto", "vmap", "per_leaf", "packed")
-# method -> (SamplerConfig drift family, carries the conducive correction)
-_METHODS = {"sgld": ("sgld", False), "dsgld": ("dsgld", False),
-            "fsgld": ("fsgld", True)}
 _FIT_SEED_SALT = 0x5357
 _COLLECT_SIGNALS = ("mean", "entropy", "mutual_info", "variance")
 
@@ -178,49 +179,71 @@ class FSGLD:
 
     data: client shards — a pytree with stacked (S, n, ...) leaves or a
     list of per-client pytrees (ragged clients are NaN-padded by
-    ``pad_shards``; minibatches never touch the pad). ``method``: 'fsgld'
-    (needs a surrogate kind other than 'none'), 'dsgld' or 'sgld'.
-    ``kernel``: 'sgld' (Langevin) only in this port so far.
+    ``pad_shards``; minibatches never touch the pad). ``method`` comes
+    from the ``repro_torch.rivals`` table: 'fsgld' (needs a surrogate kind
+    other than 'none'), 'dsgld', 'sgld' or 'fald' (FA-LD: DSGLD clients
+    server-averaged at every communication round, each client's noise
+    amplified sqrt(C); Langevin only). ``kernel``: 'sgld' (Langevin) or
+    'sghmc' (federated SGHMC with the same estimator stack, ``friction``
+    its alpha_f); both run on every executor.
+
+    ``federation``: a ``repro_torch.fed.Federation`` or a registry name.
+    With a partition spec ``data`` is POOLED (N, ...) data, which the
+    partitioner splits onto clients; the schedule and compression apply
+    to the rounds (the identity scenario is the run without one,
+    bitwise).
     """
 
     def __init__(self, posterior: Posterior, data: PyTree, *,
                  minibatch: int, step_size: float = 1e-4,
                  method: str = "fsgld", kernel: str = "sgld",
-                 alpha: float = 1.0,
+                 alpha: float = 1.0, friction: float = 0.1,
                  surrogate: Optional[SurrogateSpec] = None,
                  schedule: Optional[Schedule] = None,
                  execution: Optional[Execution] = None,
                  shard_probs: Optional[tuple] = None,
-                 sizes: Optional[tuple] = None):
-        if method == "fald":
-            raise _not_ported("method='fald'", 10)
-        if method not in _METHODS:
-            raise ValueError(f"unknown sampling method {method!r}; "
-                             f"available: {', '.join(_METHODS)}")
-        if kernel == "sghmc":
-            raise _not_ported("kernel='sghmc'", 7)
-        if kernel != "sgld":
-            raise ValueError(kernel)
-        cfg_method, needs_surrogate = _METHODS[method]
+                 sizes: Optional[tuple] = None,
+                 federation: Any = None):
+        meth = get_method(method)
+        if kernel not in ("sgld", "sghmc"):
+            raise ValueError(f"unknown kernel {kernel!r}; pick 'sgld' or "
+                             "'sghmc'")
+        if meth.aggregation == "fald" and kernel == "sghmc":
+            raise ValueError(
+                "method='fald' is a Langevin algorithm (FA-LD averages "
+                "overdamped clients); it does not compose with "
+                "kernel='sghmc'")
+        self.method = meth
+        self.kernel = kernel
+        self.friction = friction
         self.posterior = posterior
+        self.federation = (get_scenario(federation)
+                           if federation is not None else None)
         self.surrogate = surrogate if surrogate is not None \
-            else (SurrogateSpec() if needs_surrogate
+            else (SurrogateSpec() if meth.needs_surrogate
                   else SurrogateSpec(kind="none"))
-        if needs_surrogate and self.surrogate.kind == "none":
+        if meth.needs_surrogate and self.surrogate.kind == "none":
             raise ValueError("method='fsgld' needs a surrogate kind other "
                              "than 'none' (that's DSGLD)")
         self.schedule = schedule if schedule is not None \
             else Schedule(rounds=100)
         self.execution = execution if execution is not None else Execution()
         dev = self.execution.device
-        if isinstance(data, (list, tuple)):
+        if self.federation is not None and \
+                self.federation.partition is not None:
+            # the partition's own seed drives the split: changing the
+            # scenario never perturbs the sampling stream
+            data, sizes = partition_clients(None, data,
+                                            self.federation.partition, dev)
+        elif isinstance(data, (list, tuple)):
             data, inferred = pad_shards([_to(d, dev) for d in data])
             sizes = sizes if sizes is not None else inferred
         self.data = _to(data, dev)
         self.sizes = sizes
         num_shards = tu.leaves(self.data)[0].shape[0]
         self.cfg = SamplerConfig(
-            method=cfg_method, step_size=step_size, num_shards=num_shards,
+            method=meth.cfg_method, step_size=step_size,
+            num_shards=num_shards,
             shard_probs=shard_probs, local_updates=self.schedule.local_steps,
             alpha=alpha,
             surrogate=(self.surrogate.kind
@@ -290,31 +313,52 @@ class FSGLD:
             self._engine = MeshChainEngine(
                 self.posterior.log_lik, self.cfg, self.data, self.minibatch,
                 bank=self.bank if self.cfg.method == "fsgld" else None,
-                use_kernel=use_kernel, sizes=self.sizes, packed=packed)
+                use_kernel=use_kernel, sizes=self.sizes, packed=packed,
+                dynamics="sghmc" if self.kernel == "sghmc" else "langevin",
+                sghmc=(SGHMCConfig(friction=self.friction,
+                                   temperature=self.posterior.temperature)
+                       if self.kernel == "sghmc" else None),
+                aggregation=self.method.aggregation)
         return self._engine
 
     # -- phase 2: sampling -------------------------------------------------
 
     def sample(self, generator: torch.Generator, theta0: PyTree, *,
                rounds: Optional[int] = None,
-               n_chains: Optional[int] = None):
+               n_chains: Optional[int] = None, federation: Any = None):
         """Run the schedule; returns samples with leading axes
         (n_chains, rounds * ceil(local_steps / thin), ...), or the final
-        chain states when ``Execution.collect`` is False. ``generator``
-        (on the run's device) drives sampling; a surrogate fit still
-        needed draws from a generator seeded from it, so a prefit-bank
-        run consumes exactly the same stream."""
+        chain states when ``Execution.collect`` is False ((theta,
+        momentum) pairs for SGHMC). ``generator`` (on the run's device)
+        drives sampling; a surrogate fit still needed draws from a
+        generator seeded from it, so a prefit-bank run consumes exactly
+        the same stream.
+
+        ``federation`` (a Federation or a registry name) overrides the
+        constructor's scenario for this run. Only its schedule and
+        compression may change: the data was split at construction, so
+        an override with another partition is refused."""
         if self.cfg.method == "fsgld" and self.bank is None:
             fit_gen = torch.Generator(device=generator.device)
             fit_gen.manual_seed(generator.initial_seed() ^ _FIT_SEED_SALT)
             self.fit(fit_gen, theta0)
+        fed = self.federation
+        if federation is not None:
+            fed = get_scenario(federation)
+            base = (self.federation.partition
+                    if self.federation is not None else None)
+            if fed.partition is not None and fed.partition != base:
+                raise ValueError(
+                    "sample(federation=...) cannot re-partition: the data "
+                    "was split at construction; pass the partition "
+                    "scenario to the FSGLD constructor instead")
         sched = self.schedule
         return self.engine.run(
             generator, _to(theta0, self.execution.device),
             rounds if rounds is not None else sched.rounds,
             n_chains=n_chains if n_chains is not None else sched.n_chains,
             reassign=sched.reassign, collect_every=sched.thin,
-            collect=self.execution.collect)
+            collect=self.execution.collect, federation=fed)
 
     # -- phase 3: serving the posterior ------------------------------------
 

@@ -5,28 +5,42 @@ A run is a host loop over communication rounds. Each round is split in
 two so that the randomness can be handed in from outside:
 
   * ``draw_round(generator, ...) -> RoundDraws`` draws, from ONE
-    ``torch.Generator`` and in this order, the chains' client ids (C,),
-    the minibatch indices (T, C, m) — uniform over each chain's live
-    prefix [0, N_s), never into the pad — and the per-(step, chain, leaf)
-    noise seeds (T, C, L) in [0, 2^31 - 1);
+    ``torch.Generator`` and in this order, the chains' proposed client
+    ids (C,), the minibatch indices (T, C, m) — uniform over the live
+    prefix [0, N_s) of the client each chain HOLDS this round, never into
+    the pad — and the per-(step, chain, leaf) noise seeds (T, C, L) in
+    [0, 2^31 - 1). A federated run (a non-identity ``Federation``, or
+    FA-LD) then draws, each only where its scenario uses it: the
+    participation uniforms (C,), the straggler uniforms (C,), and, on
+    communication rounds only (a function of r alone), the primal and
+    then the dual compression uniforms (C, P). A run without a
+    federation draws exactly the first three;
   * a round function ``round_fn(state, draws, shard_data, bank)`` runs the
     T local steps of every chain on those draws.
 
 Three executors share the draws:
 
   * ``packed``   — the chain block's whole parameter pytree lives in one
-    chain-major (C * rows_total, 128) buffer and every step makes exactly
+    chain-major (C * rows_total, 128) buffer (SGHMC: the momenta in a
+    second one over the same segment table) and every step makes exactly
     ONE launch of the fused update kernel (``kernels.ops.packed_step``);
   * ``per_leaf`` — one launch of the per-leaf entry per leaf per step;
   * ``vmap``     — the plain reference: the drift vmapped over chains and
-    Gaussian noise drawn from the generator (``langevin_update``).
+    Gaussian noise drawn from the generator (``langevin_update`` /
+    ``core.sghmc.sghmc_update``).
 
 ``packed`` and ``per_leaf`` consume the same seeds for the same elements,
 so with the same generator they give the same result, bitwise.
 
 Chain->client reassignment is ``categorical`` (paper Algorithm 1: i.i.d.
 s ~ Categorical(f) per chain) or ``permutation`` (collision-free; block-
-cyclic ``perm[c % S]`` when C > S).
+cyclic ``perm[c % S]`` when C > S). A federated round (``repro_torch.fed``)
+carries the client ids: a chain takes its proposed client only when it
+exchanges (a communication round it takes part in). On communication
+rounds the exchanging chains' states go through the exchange (primal
+compression -> FA-LD average -> dual compression) before the local steps;
+the others are never written. Straggling chains get their pre-round state
+back and their trace repeats it.
 """
 from __future__ import annotations
 
@@ -40,7 +54,13 @@ from repro_torch import tree as tu
 from repro_torch.configs.base import SamplerConfig
 from repro_torch.core.sampler import (LogLikFn, ShardScheme, chain_scales,
                                       langevin_update, make_drift_fn)
+from repro_torch.core.sghmc import SGHMCConfig, init_momentum, sghmc_update
 from repro_torch.core.surrogate import SurrogateBank
+from repro_torch.fed import schedule as fsched
+from repro_torch.fed.compress import (Compression, make_compressor,
+                                      make_flattener)
+from repro_torch.fed.registry import get_scenario
+from repro_torch.fed.spec import Federation
 from repro_torch.kernels import ops as kops
 
 PyTree = Any
@@ -78,41 +98,87 @@ def pad_shards(per_shard: list, fill: float = float("nan")):
 @dataclasses.dataclass
 class RoundDraws:
     """Everything random in one round (see the module docstring)."""
-    sids: torch.Tensor   # (C,) int64 client of each chain
+    sids: torch.Tensor   # (C,) int64 proposed client of each chain
     idx: torch.Tensor    # (T, C, m) int64 rows; pooled indices for SGLD
     seeds: torch.Tensor  # (T, C, L) int32 noise seeds
+    # federated runs only, each None where the scenario does not use it
+    part_u: Optional[torch.Tensor] = None    # (C,) participation
+    strag_u: Optional[torch.Tensor] = None   # (C,) stragglers
+    primal_u: Optional[torch.Tensor] = None  # (C, P) primal compression
+    dual_u: Optional[torch.Tensor] = None    # (C, P) dual compression
+
+
+def exchanging(sched: fsched.CommSchedule, r: int,
+               part_u: Optional[torch.Tensor],
+               like: torch.Tensor) -> torch.Tensor:
+    """(C,) bool: the chains that exchange at round ``r`` — a
+    communication round they take part in (``like``: any (C,) tensor on
+    the run's device)."""
+    comm = fsched.comm_mask(sched, r)
+    if part_u is None:
+        return torch.full(like.shape, comm, dtype=torch.bool,
+                          device=like.device)
+    return fsched.participation_mask(sched, part_u, r) & comm
 
 
 def draw_round(generator: torch.Generator, cfg: SamplerConfig,
                scheme: ShardScheme, *, n_chains: int, minibatch: int,
-               num_leaves: int, reassign: str = "categorical"
-               ) -> RoundDraws:
+               num_leaves: int, reassign: str = "categorical",
+               federation: Optional[Federation] = None, r: int = 0,
+               held: Optional[torch.Tensor] = None,
+               dim: int = 0) -> RoundDraws:
     """One round's draws, on the generator's device, in the fixed order
-    client ids, minibatch indices, seeds. Centralized SGLD draws no client
-    ids and indexes the virtual concatenation of all shards."""
+    of the module docstring. Centralized SGLD draws no client ids and
+    indexes the virtual concatenation of all shards.
+
+    With a ``federation`` (round ``r``, the chains' ``held`` client ids,
+    ``dim`` the flat parameter count P) the scenario's uniforms follow the
+    seeds, and the minibatch rows are drawn for the client each chain
+    holds this round: its proposed one where it exchanges, else
+    ``held``."""
     dev = generator.device
     C, T, S = n_chains, cfg.local_updates, cfg.num_shards
     sizes = scheme.sizes_array(dev)
     if cfg.method == "sgld":
         sids = torch.zeros(C, dtype=torch.int64, device=dev)
-        bound = torch.tensor(scheme.total, device=dev)
+    elif reassign == "categorical":
+        probs = torch.as_tensor(scheme.probs_array(), device=dev)
+        sids = torch.multinomial(probs, C, replacement=True,
+                                 generator=generator)
+    elif reassign == "permutation":
+        perm = torch.randperm(S, generator=generator, device=dev)
+        sids = perm.repeat(-(-C // S))[:C]
     else:
-        if reassign == "categorical":
-            probs = torch.as_tensor(scheme.probs_array(), device=dev)
-            sids = torch.multinomial(probs, C, replacement=True,
-                                     generator=generator)
-        elif reassign == "permutation":
-            perm = torch.randperm(S, generator=generator, device=dev)
-            sids = perm.repeat(-(-C // S))[:C]
-        else:
-            raise ValueError(f"unknown reassign {reassign!r}; pick "
-                             "'categorical' or 'permutation'")
-        bound = sizes[sids][None, :, None]
+        raise ValueError(f"unknown reassign {reassign!r}; pick "
+                         "'categorical' or 'permutation'")
     u = torch.rand((T, C, minibatch), generator=generator, device=dev,
                    dtype=torch.float64)
-    idx = torch.minimum((u * bound).floor().to(torch.int64), bound - 1)
     seeds = kops.chain_leaf_seeds(generator, T, C, num_leaves)
-    return RoundDraws(sids=sids, idx=idx, seeds=seeds)
+    draws = RoundDraws(sids=sids, idx=None, seeds=seeds)
+    hold = sids
+    if federation is not None:
+        sched, comp = federation.schedule, federation.compression
+
+        def unif(*shape):
+            return torch.rand(shape, generator=generator, device=dev)
+
+        if sched.participation < 1.0:
+            draws.part_u = unif(C)
+        if sched.straggler_prob > 0.0:
+            draws.strag_u = unif(C)
+        if fsched.comm_mask(sched, r) and comp.stochastic:
+            if comp.use_primal:
+                draws.primal_u = unif(C, dim)
+            if comp.use_dual:
+                draws.dual_u = unif(C, dim)
+        hold = torch.where(exchanging(sched, r, draws.part_u, sids), sids,
+                           held)
+    if cfg.method == "sgld":
+        bound = torch.tensor(scheme.total, device=dev)
+    else:
+        bound = sizes[hold][None, :, None]
+    draws.idx = torch.minimum((u * bound).floor().to(torch.int64), bound - 1)
+    return draws
 
 
 def _make_batch_sampler(cfg: SamplerConfig, scheme: ShardScheme):
@@ -144,57 +210,70 @@ def _make_batch_sampler(cfg: SamplerConfig, scheme: ShardScheme):
 
 def make_round_fn(log_lik_fn: LogLikFn, cfg: SamplerConfig,
                   scheme: ShardScheme, minibatch: int,
-                  bank: Optional[SurrogateBank] = None):
+                  bank: Optional[SurrogateBank] = None,
+                  hmc: Optional[SGHMCConfig] = None):
     """The plain reference executor ('vmap'): returns
-    round_fn(thetas, draws, shard_data, bank_rt=None, *, generator,
-    on_step=None) over a (C, ...) chain block. The drift is vmapped over
-    chains; the Langevin noise is drawn from ``generator`` (after the
-    round's draws). ``on_step(t, thetas)`` sees each step's states."""
+    round_fn(state, draws, shard_data, bank_rt=None, *, generator,
+    on_step=None) over a (C, ...) chain block; state is the parameter
+    pytree, or the (thetas, momenta) pair for SGHMC (``hmc``). The drift
+    is vmapped over chains; the noise is drawn from ``generator`` (after
+    the round's draws). ``on_step(t, thetas)`` sees each step's states."""
     sample = _make_batch_sampler(cfg, scheme)
     drift_fn = make_drift_fn(log_lik_fn, cfg, scheme, bank)
 
-    def round_fn(thetas, draws, shard_data, bank_rt=None, *, generator,
+    def round_fn(state, draws, shard_data, bank_rt=None, *, generator,
                  on_step=None):
+        thetas, r = state if hmc else (state, None)
         drift_v = vmap(lambda th, b, s: drift_fn(th, b, s, minibatch,
                                                  bank_rt))
         for t in range(cfg.local_updates):
             batches = sample(draws.idx[t], draws.sids, shard_data)
             d = drift_v(thetas, batches, draws.sids)
-            thetas = langevin_update(thetas, d, cfg.step_size, generator,
-                                     cfg.temperature)
+            if hmc is None:
+                thetas = langevin_update(thetas, d, cfg.step_size,
+                                         generator, cfg.temperature)
+            else:
+                thetas, r = sghmc_update(thetas, r, d, cfg.step_size,
+                                         generator, hmc)
             if on_step is not None:
                 on_step(t, thetas)
-        return thetas
+        return (thetas, r) if hmc else thetas
 
     return round_fn
 
 
 def make_chain_round_fn(log_lik_fn: LogLikFn, cfg: SamplerConfig,
                         scheme: ShardScheme, minibatch: int,
-                        bank_kind: Optional[str]):
+                        bank_kind: Optional[str],
+                        hmc: Optional[SGHMCConfig] = None):
     """The 'per_leaf' executor: gradients vmapped over the chain block,
     then one chain-batched kernel launch per leaf per step. Returns
-    round_fn(thetas, draws, shard_data, bank=None, *, on_step=None)."""
+    round_fn(state, draws, shard_data, bank=None, *, on_step=None); state
+    as in ``make_round_fn``."""
     sample = _make_batch_sampler(cfg, scheme)
     grad_v = vmap(grad(log_lik_fn))
     # only FSGLD carries the conducive correction
     use_surrogate = cfg.method == "fsgld"
     bank_kind = bank_kind if use_surrogate else None
+    dyn = (dict(dynamics="sghmc", friction=hmc.friction,
+                temperature=hmc.temperature) if hmc
+           else dict(temperature=cfg.temperature))
 
-    def round_fn(thetas, draws, shard_data, bank=None, *, on_step=None):
+    def round_fn(state, draws, shard_data, bank=None, *, on_step=None):
+        thetas, r = state if hmc else (state, None)
         scale, f_s = chain_scales(cfg, scheme, draws.sids, minibatch)
         for t in range(cfg.local_updates):
             batches = sample(draws.idx[t], draws.sids, shard_data)
             glls = grad_v(thetas, batches)
-            thetas = kops.fused_update_chains_tree(
+            out = kops.fused_update_chains_tree(
                 thetas, glls, draws.seeds[t], h=cfg.step_size, scale=scale,
                 f_s=f_s, prior_prec=cfg.prior_precision, alpha=cfg.alpha,
-                temperature=cfg.temperature,
                 bank=bank if use_surrogate else None, sids=draws.sids,
-                surrogate_kind=bank_kind)
+                surrogate_kind=bank_kind, momentum=r, **dyn)
+            thetas, r = out if hmc else (out, None)
             if on_step is not None:
                 on_step(t, thetas)
-        return thetas
+        return (thetas, r) if hmc else thetas
 
     return round_fn
 
@@ -228,25 +307,33 @@ def pack_bank(layout: kops.PackedChains, bank: Optional[SurrogateBank]):
 def make_packed_round_fn(log_lik_fn: LogLikFn, cfg: SamplerConfig,
                          scheme: ShardScheme, minibatch: int,
                          bank_kind: Optional[str],
-                         layout: kops.PackedChains):
+                         layout: kops.PackedChains,
+                         hmc: Optional[SGHMCConfig] = None):
     """The 'packed' executor: ONE kernel launch per step for the whole
     chain block. Returns round_fn(state, draws, shard_data, pbank=None, *,
-    on_step=None) with state = (packed buffer, unpacked pytree).
+    on_step=None) with state = (packed buffer, unpacked pytree), or
+    (packed buffer, packed momenta, unpacked pytree) for SGHMC (``hmc``):
+    the momenta ride a second chain-major buffer over the same segment
+    table.
 
-    The packed buffer is authoritative; the pytree (views into it for fp32
-    leaves) feeds the gradient pass and the trace. Per step the leaf
-    gradients are copied IN PLACE into one gradient buffer allocated per
-    round (its pad stays zero), the kernel writes a fresh output buffer,
-    and non-fp32 leaves are quantized back in place on that output. Per
-    round: the clients' surrogate rows are gathered and the scalar rows
-    built once."""
+    The packed buffers are authoritative; the pytree (views into the
+    buffer for fp32 leaves) feeds the gradient pass and the trace. Per
+    step the leaf gradients are copied IN PLACE into one gradient buffer
+    allocated per round (its pad stays zero), the kernel writes fresh
+    output buffers, and non-fp32 leaves are quantized back in place on
+    them. Per round: the clients' surrogate rows are gathered and the
+    scalar rows built once."""
     sample = _make_batch_sampler(cfg, scheme)
     grad_v = vmap(grad(log_lik_fn))
     use_surrogate = cfg.method == "fsgld"
     bank_kind = bank_kind if use_surrogate else None
+    dynamics = "sghmc" if hmc else "langevin"
 
     def round_fn(state, draws, shard_data, pbank=None, *, on_step=None):
-        th_p, thetas = state
+        if hmc:
+            th_p, r_p, thetas = state
+        else:
+            (th_p, thetas), r_p = state, None
         sids = draws.sids
         scale, f_s = chain_scales(cfg, scheme, sids, minibatch)
         ops = {}
@@ -269,21 +356,103 @@ def make_packed_round_fn(log_lik_fn: LogLikFn, cfg: SamplerConfig,
         scalars = kops.packed_scalar_rows(
             layout, h=cfg.step_size, scale=scale, f_s=f_s,
             prior_prec=cfg.prior_precision, alpha=cfg.alpha,
-            temperature=cfg.temperature, lam_g_leaf=lam_g_leaf,
-            lam_s_leaf=lam_s_leaf)
+            temperature=hmc.temperature if hmc else cfg.temperature,
+            lam_g_leaf=lam_g_leaf, lam_s_leaf=lam_s_leaf,
+            friction=hmc.friction if hmc else 0.0)
         g_p = torch.zeros_like(th_p)
         for t in range(cfg.local_updates):
             batches = sample(draws.idx[t], sids, shard_data)
             layout.pack(grad_v(thetas, batches), out=g_p)
-            th_p = layout.quantize(kops.packed_step(
+            out = kops.packed_step(
                 layout, th_p, g_p, draws.seeds[t], scalars, variant=variant,
-                **ops))
+                r_p=r_p, dynamics=dynamics, **ops)
+            if hmc:
+                th_p, r_p = layout.quantize(out[0]), layout.quantize(out[1])
+            else:
+                th_p = layout.quantize(out)
             thetas = layout.unpack(th_p)
             if on_step is not None:
                 on_step(t, thetas)
-        return th_p, thetas
+        return (th_p, r_p, thetas) if hmc else (th_p, thetas)
 
     return round_fn
+
+
+# ---------------------------------------------------------------------------
+# the federated exchange
+# ---------------------------------------------------------------------------
+
+def _keep(mask: torch.Tensor, new: torch.Tensor,
+          old: torch.Tensor) -> torch.Tensor:
+    """Per chain: ``old`` where ``mask``, else ``new``; leaves with a
+    leading chain axis, or chain-major packed buffers."""
+    c = mask.shape[0]
+    return torch.where(mask[:, None], old.reshape(c, -1),
+                       new.reshape(c, -1)).reshape(new.shape)
+
+
+def make_exchange(comp: Compression, agg: bool, thetas: PyTree):
+    """The exchange of a communication round over (C, ...) chain leaves
+    shaped like ``thetas``. Returns (exchange, carry0):
+
+      exchange(th, cst, exch, draws) -> (th', cst')
+      carry0(th) -> the initial error-feedback carry (ref, err[, derr]),
+                    None without compression
+
+    The pipeline: flatten -> primal leg ref + C(th - ref + err) -> FA-LD
+    average over the exchanging chains (``agg``) -> dual leg ref +
+    C(m - ref + derr) -> the exchanging chains take the result, cast back
+    to their storage dtypes; the other chains' leaves are returned as
+    they came, and their carry rows are not written. Masks, counts and
+    averages stay on the device."""
+    flatten, unflatten, dim = make_flattener(thetas)
+    compress = None if comp.identity else make_compressor(comp, dim)
+
+    def carry0(th):
+        if compress is None:
+            return None
+        ref = flatten(th).clone()
+        cst = (ref, torch.zeros_like(ref))
+        return cst + (torch.zeros_like(ref),) if comp.use_dual else cst
+
+    def exchange(th, cst, exch, draws):
+        flat = flatten(th)
+        ref = cst[0] if cst is not None else None
+        if comp.use_primal:
+            upd = flat - ref + cst[1]
+            dhat = compress(upd, draws.primal_u)
+            m_flat = ref + dhat
+            err_new = (upd - dhat if comp.error_feedback
+                       else torch.zeros_like(upd))
+        else:
+            m_flat = flat
+        if agg:
+            w = exch[:, None]
+            cnt = exch.to(torch.float32).sum()
+            avg = torch.where(w, m_flat, 0.0).sum(0) / cnt.clamp_min(1.0)
+            m_flat = torch.where(w, avg[None], m_flat)
+        if comp.use_dual:
+            dupd = m_flat - ref + cst[2]
+            dd = compress(dupd, draws.dual_u)
+            v_new = ref + dd
+            derr_new = (dupd - dd if comp.error_feedback
+                        else torch.zeros_like(dupd))
+        else:
+            # the server model itself, not ref + (m - ref)
+            v_new = m_flat
+        if cst is not None:
+            mm = exch[:, None]
+            out = [torch.where(mm, v_new, ref),
+                   torch.where(mm, err_new, cst[1]) if comp.use_primal
+                   else cst[1]]
+            if comp.use_dual:
+                out.append(torch.where(mm, derr_new, cst[2]))
+            cst = tuple(out)
+        th = tu.tree_map(lambda srv, old: _keep(~exch, srv, old),
+                         unflatten(v_new), th)
+        return th, cst
+
+    return exchange, carry0
 
 
 # ---------------------------------------------------------------------------
@@ -305,7 +474,16 @@ class MeshChainEngine:
     per-client counts (None => uniform). ``use_kernel`` selects the fused
     kernel executors: ``packed`` True/None (None: per-leaf for non-float
     leaves) or False (per-leaf); ``use_kernel=False`` is the plain vmap
-    executor. Langevin dynamics only in this port so far.
+    executor.
+
+    ``dynamics='sghmc'`` runs federated SGHMC (``core.sghmc``; ``sghmc``
+    its config, None for the defaults) over (theta, momentum) chain state
+    on every executor; the trace carries theta only.
+    ``aggregation='fald'`` is FA-LD: on every communication round the
+    exchanging chains are replaced by their mean, and every chain samples
+    at temperature x n_chains so that the average has the configured
+    temperature; its rounds always take the federated path (even without
+    a federation), so it shares that path's draws. Langevin only.
     """
     log_lik_fn: LogLikFn
     cfg: SamplerConfig
@@ -316,17 +494,22 @@ class MeshChainEngine:
     sizes: Optional[tuple] = None
     packed: Optional[bool] = None
     dynamics: str = "langevin"
+    sghmc: Optional[SGHMCConfig] = None
     aggregation: str = "none"
 
     def __post_init__(self):
-        if self.dynamics == "sghmc":
-            raise _not_ported("dynamics='sghmc'", 7)
-        if self.dynamics != "langevin":
-            raise ValueError(self.dynamics)
-        if self.aggregation == "fald":
-            raise _not_ported("aggregation='fald'", 10)
-        if self.aggregation != "none":
-            raise ValueError(f"unknown aggregation {self.aggregation!r}")
+        if self.dynamics not in ("langevin", "sghmc"):
+            raise ValueError(f"unknown dynamics {self.dynamics!r}")
+        if self.aggregation not in ("none", "fald"):
+            raise ValueError(f"unknown aggregation {self.aggregation!r}; "
+                             "available: none, fald")
+        if self.aggregation == "fald" and self.dynamics != "langevin":
+            raise NotImplementedError(
+                "aggregation='fald' is a Langevin-dynamics algorithm "
+                "(FA-LD averages overdamped clients); it does not "
+                f"compose with dynamics={self.dynamics!r}")
+        if self.dynamics == "sghmc" and self.sghmc is None:
+            self.sghmc = SGHMCConfig()
         leaf = tu.leaves(self.shard_data)[0]
         s, max_n = leaf.shape[0], leaf.shape[1]
         if s != self.cfg.num_shards:
@@ -369,12 +552,20 @@ class MeshChainEngine:
         Returns the trace, leaves (n_chains, num_rounds *
         ceil(T / collect_every), ...) keeping local steps 0, collect_every,
         ... of each round — or the final chain states when
-        ``collect=False``. ``stacked=True`` takes ``theta0`` as per-chain
-        states with a leading (n_chains, ...) axis."""
+        ``collect=False`` ((theta, momentum) pairs for SGHMC).
+        ``stacked=True`` takes ``theta0`` as per-chain states with a
+        leading (n_chains, ...) axis; SGHMC pairs them with zero momenta.
+
+        ``federation`` (a ``repro_torch.fed.Federation`` or a registry
+        name) applies the scenario's schedule and compression to the
+        rounds; its partition is the facade's job. An engine-identity
+        spec runs the path without a federation, bitwise."""
+        hmc = self.sghmc if self.dynamics == "sghmc" else None
+        if hmc is not None and refresh_every:
+            raise NotImplementedError(
+                "adaptive refresh is not wired for sghmc dynamics")
         if refresh_every:
             raise _not_ported("refresh_every (adaptive refresh)", 8)
-        if federation is not None:
-            raise _not_ported("federation scenarios", 9)
         if recovery is not None or chaos is not None:
             raise _not_ported("recovery / chaos", 11)
         if snapshot_every or snapshot_path or resume:
@@ -388,6 +579,12 @@ class MeshChainEngine:
         if generator.device.type != self.device.type:
             raise ValueError(f"the generator is on {generator.device}, the "
                              f"run on {self.device}")
+        agg = self.aggregation == "fald"
+        fed = get_scenario(federation) if federation is not None else None
+        if fed is not None and fed.engine_identity:
+            fed = None
+        if agg and fed is None:
+            fed = Federation()  # FA-LD: every round exchanges, exactly
         C, T = n_chains, self.cfg.local_updates
         if stacked:
             if tu.leaves(theta0)[0].shape[0] != C:
@@ -404,23 +601,60 @@ class MeshChainEngine:
         num_leaves = len(tu.leaves(chains))
         fsgld_bank = self.bank if self.cfg.method == "fsgld" else None
         bank_kind = fsgld_bank.kind if fsgld_bank is not None else None
+        # FA-LD noise calibration: averaging C clients shrinks the noise
+        # variance by C, so each client samples at temperature * C
+        cfg = (dataclasses.replace(
+            self.cfg, temperature=self.cfg.temperature * C) if agg
+            else self.cfg)
+        mom = init_momentum(chains) if hmc else None
         kw = {}
         if layout is not None:
             round_fn = make_packed_round_fn(
-                self.log_lik_fn, self.cfg, self.scheme, self.minibatch,
-                bank_kind, layout)
-            state = (layout.pack(chains), chains)
+                self.log_lik_fn, cfg, self.scheme, self.minibatch,
+                bank_kind, layout, hmc)
+            th_p = layout.pack(chains)
+            state = ((th_p, layout.pack(mom), layout.unpack(th_p)) if hmc
+                     else (th_p, layout.unpack(th_p)))
             bank_arg = pack_bank(layout, fsgld_bank)
-        elif self.use_kernel:
-            round_fn = make_chain_round_fn(
-                self.log_lik_fn, self.cfg, self.scheme, self.minibatch,
-                bank_kind)
-            state, bank_arg = chains, fsgld_bank
+
+            def thetas_of(st):
+                return st[-1]
+
+            def with_thetas(st, th):
+                th_p = layout.pack(th)
+                return (th_p,) + st[1:-1] + (layout.unpack(th_p),)
+
+            def restore(st, pre, m):
+                bufs = tuple(_keep(m, a, b) for a, b in zip(st[:-1],
+                                                            pre[:-1]))
+                return bufs + (layout.unpack(bufs[0]),)
+
+            def final(st):
+                return (st[-1], layout.unpack(st[1])) if hmc else st[-1]
         else:
-            round_fn = make_round_fn(self.log_lik_fn, self.cfg, self.scheme,
-                                     self.minibatch, fsgld_bank)
-            state, bank_arg = chains, None
-            kw["generator"] = generator
+            if self.use_kernel:
+                round_fn = make_chain_round_fn(
+                    self.log_lik_fn, cfg, self.scheme, self.minibatch,
+                    bank_kind, hmc)
+                bank_arg = fsgld_bank
+            else:
+                round_fn = make_round_fn(self.log_lik_fn, cfg, self.scheme,
+                                         self.minibatch, fsgld_bank, hmc)
+                bank_arg = None
+                kw["generator"] = generator
+            state = (chains, mom) if hmc else chains
+
+            def thetas_of(st):
+                return st[0] if hmc else st
+
+            def with_thetas(st, th):
+                return (th, st[1]) if hmc else th
+
+            def restore(st, pre, m):
+                return tu.tree_map(lambda a, b: _keep(m, a, b), st, pre)
+
+            def final(st):
+                return st
 
         per_round = -(-T // collect_every)
         trace = None
@@ -429,19 +663,49 @@ class MeshChainEngine:
                 lambda t: torch.empty((C, num_rounds * per_round)
                                       + tuple(t.shape[1:]), dtype=t.dtype,
                                       device=t.device), chains)
+        sids, dim = None, 0
+        if fed is not None:
+            sched = fed.schedule
+            exchange, carry0 = make_exchange(fed.compression, agg, chains)
+            exchanges = agg or not fed.compression.identity
+            cst = carry0(chains)
+            sids = torch.zeros(C, dtype=torch.int64, device=self.device)
+            dim = sum(l[0].numel() for l in tu.leaves(chains))
         for r in range(num_rounds):
-            draws = draw_round(generator, self.cfg, self.scheme,
-                               n_chains=C, minibatch=self.minibatch,
-                               num_leaves=num_leaves, reassign=reassign)
-
             def keep(t, thetas, r=r):
                 if t % collect_every == 0:
                     k = r * per_round + t // collect_every
                     tu.tree_map(lambda dst, src: dst[:, k].copy_(src),
                                 trace, thetas)
 
+            on_step = keep if collect else None
+            draws = draw_round(generator, self.cfg, self.scheme, n_chains=C,
+                               minibatch=self.minibatch,
+                               num_leaves=num_leaves, reassign=reassign,
+                               federation=fed, r=r, held=sids, dim=dim)
+            strag = None
+            if fed is not None:
+                exch = exchanging(sched, r, draws.part_u, sids)
+                sids = torch.where(exch, draws.sids, sids)
+                draws.sids = sids
+                if exchanges and fsched.comm_mask(sched, r):
+                    th, cst = exchange(thetas_of(state), cst, exch, draws)
+                    state = with_thetas(state, th)
+                if draws.strag_u is not None:
+                    # dropped updates: the state goes back to its
+                    # pre-round value and the trace repeats it
+                    strag = fsched.straggler_mask(sched, draws.strag_u)
+                    pre = state
+                    if on_step is not None:
+                        def on_step(t, thetas, keep=keep,
+                                    frozen=thetas_of(pre), strag=strag):
+                            keep(t, tu.tree_map(
+                                lambda a, b: _keep(strag, a, b), thetas,
+                                frozen))
             state = round_fn(state, draws, self.shard_data, bank_arg,
-                             on_step=keep if collect else None, **kw)
+                             on_step=on_step, **kw)
+            if strag is not None:
+                state = restore(state, pre, strag)
         if collect:
             return trace
-        return state[1] if layout is not None else state
+        return final(state)

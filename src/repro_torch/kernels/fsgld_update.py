@@ -43,14 +43,17 @@ SCALAR_COLS = 9
 VARIANTS = ("plain", "scalar", "diag")
 DYNAMICS = ("langevin", "sghmc")
 
-# Kernel launches per entry: each wrapper adds one where it launches the
-# CUDA kernel, and nowhere else (the plain version does not count).
+# Kernel launches per entry, and of either entry per dynamics: each
+# wrapper adds one where it launches the CUDA kernel, and nowhere else
+# (the plain version does not count).
 LAUNCHES = {"fsgld_update_packed": 0, "fsgld_update_2d": 0}
+DYNAMICS_LAUNCHES = {"langevin": 0, "sghmc": 0}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, DYNAMICS_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -221,6 +224,7 @@ def _launch(entry, variant, dynamics, theta2d, g2d, r2d, sur, seg_leaf,
             f"{entry} launch failed: cudaError {err} "
             f"({lib.fsgld_update_error_string(err).decode()})")
     LAUNCHES[entry] += 1
+    DYNAMICS_LAUNCHES[dynamics] += 1
     return (out, r_out) if hmc else out
 
 

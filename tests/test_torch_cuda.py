@@ -119,6 +119,40 @@ def test_packed_executor_one_launch_per_step_and_equals_per_leaf(dev):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("kernel,federation", [
+    ("sghmc", None), ("sgld", "elf-bidir-randk-10%"),
+    ("sgld", "straggler-10%"), ("sghmc", "partial-50%")])
+def test_sghmc_and_federated_paths_launch_once_per_step(dev, kernel,
+                                                        federation):
+    """SGHMC and federated rounds on the card: one packed launch per step
+    (none for the exchange), the dynamics' own variant, packed ==
+    per_leaf bitwise."""
+    out = {}
+    for ex in ("packed", "per_leaf"):
+        g = torch.Generator(device=dev).manual_seed(3)
+        data, bank, theta0 = mlp_problem(g, S=3, n=64, din=6, hid=9,
+                                         dout=2)
+        s = api.FSGLD(api.Posterior(mlp_log_lik), data, minibatch=8,
+                      step_size=1e-4, kernel=kernel,
+                      surrogate=api.SurrogateSpec(kind="scalar", bank=bank),
+                      schedule=api.Schedule(rounds=3, local_steps=5,
+                                            n_chains=4),
+                      execution=api.Execution(executor=ex),
+                      federation=federation)
+        fk.reset_launches()
+        out[ex] = s.sample(torch.Generator(device=dev).manual_seed(1),
+                           theta0)
+        torch.cuda.synchronize()
+        entry = "fsgld_update_packed" if ex == "packed" else "fsgld_update_2d"
+        want = 15 if ex == "packed" else 15 * 4
+        assert fk.LAUNCHES[entry] == want
+        dyn = "sghmc" if kernel == "sghmc" else "langevin"
+        assert fk.DYNAMICS_LAUNCHES[dyn] == want
+    for a, b in zip(tu.leaves(out["packed"]), tu.leaves(out["per_leaf"])):
+        assert torch.isfinite(a).all()
+        assert torch.equal(a, b)
+
+
 # ---------------------------------------------------------------------------
 # flash attention, within the kernel's stated tolerance (fa.tolerance)
 # ---------------------------------------------------------------------------

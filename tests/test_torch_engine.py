@@ -230,19 +230,15 @@ def test_execution_refuses_to_fall_back_to_cpu(monkeypatch):
 def test_refusals_name_the_roadmap_item():
     s, theta0 = _mlp_sampler("packed")
     g = torch.Generator()
-    for kw, item in ((dict(federation="delayed-5x"), "9"),
-                     (dict(recovery=object()), "11"),
+    for kw, item in ((dict(recovery=object()), "11"),
                      (dict(snapshot_every=2, snapshot_path="x"), "11"),
                      (dict(telemetry=object()), "12"),
                      (dict(stream=object()), "13"),
                      (dict(refresh_every=2), "8")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             s.engine.run(g, theta0, 1, **kw)
-    post = api.Posterior(mlp_log_lik)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        api.FSGLD(post, s.data, minibatch=4, kernel="sghmc", execution=CPU)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        api.FSGLD(post, s.data, minibatch=4, method="fald", execution=CPU)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        api.Serving(mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="not ported"):
         api.SurrogateSpec(kind="full")
 

@@ -35,4 +35,6 @@ def test_port_imports_no_jax_and_nothing_of_repro(path):
 def test_scan_sees_the_whole_port():
     names = {p.name for p in FILES}
     assert {"api.py", "engine.py", "fsgld_update.py", "ops.py",
-            "chip_smoke.py", "flash_planted_faults.py"} <= names
+            "chip_smoke.py", "flash_planted_faults.py", "sghmc.py",
+            "methods.py", "fald.py", "schedule.py", "compress.py",
+            "partition.py", "spec.py", "registry.py"} <= names
