@@ -26,6 +26,18 @@ nvcc per source, in parallel) and drives its two paths through the
   plain prefill + decode loop (bitwise) and the kernel's prefill logits
   against the plain attention's; then one request of h2o-danube-1.8b at
   full width and 2 layers through the sliding-window ring cache;
+* training: samples qwen3-1.7b's posterior at full width and depth
+  (2,031,739,904 parameters per chain) through the train driver
+  (``repro_torch.launch.train``) at the reference driver's defaults but the
+  step size ``TRAIN_H``: the streaming surrogate fit of 4 clients, 5
+  rounds x 4 packed steps; checks one update launch per step and one
+  flash launch per layer per gradient pass, finite chains within
+  ``TRAIN_GUARD`` nats per token of theta0, per_leaf == packed bitwise,
+  and times one step split into gradient pass, packing and update (held
+  against the plain version); then 4 of the 28 layers with 2 chains
+  (the chain axis folded into the flash kernel's batch, the first update
+  against the plain version) and the differentiable flash entry against
+  plain autograd at the train shape;
 
 and times each kernel beside its bound, its plain version and, where one
 PyTorch call computes the same function, that call. Exits non-zero,
@@ -101,6 +113,22 @@ FLASH_LONG = (1, 32_768, 16, 8, 128)
 # the anchor prefill through the kernel vs through the plain attention:
 # max|diff| / max|logits|, the yardstick of tests/test_prefill_cache.py
 PREFILL_REL = 0.05
+# The training path: repro_torch.launch.train at the reference driver's
+# defaults (qwen3-1.7b at full width, S = 4 clients x 64 x 128 tokens,
+# minibatch 8, 20 local-SGLD fit steps, C = 1, 5 rounds x 4 steps) but the
+# step size, TRAIN_H; a chain may end at most TRAIN_GUARD nats per token
+# below theta0's log-likelihood. At the defaults' h = 1e-5 FSGLD diverged
+# on the card (-21.31 against -12.39 at theta0; DSGLD -12.59), at 1e-6 it
+# ended 0.99 nats below theta0, at 1e-7 0.10 (PERF.md, H100 80GB HBM3,
+# 700 W).
+TRAIN_H = 1e-7
+TRAIN_GUARD = 1.0
+TRAIN_S, TRAIN_FIT, TRAIN_R, TRAIN_T = 4, 20, 5, 4
+QWEN3_P = 2_031_739_904
+# attention at the train shape (B, S, H, Hkv, hd), bf16
+TRAIN_ATTN = (8, 128, 16, 8, 128)
+# the reduced-depth phase: full width, C2_LAYERS of 28 layers, C2_CHAINS
+C2_LAYERS, C2_CHAINS = 4, 2
 
 
 def log(msg: str) -> None:
@@ -190,8 +218,8 @@ def check_kernels(gen, main_shapes, leaf_shapes):
                 kw = dict(variant=variant, dynamics=dynamics, seg_leaf=sl,
                           seg_base=sb, block_rows=layout.block_rows,
                           chains=C, **ops)
-                out = fk.fsgld_update_packed(th, g, seeds, sc, **kw)
                 ref = fk.fsgld_update_packed_plain(th, g, seeds, sc, **kw)
+                out = fk.fsgld_update_packed(th, g, seeds, sc, **kw)
                 rows = None
                 if not layout.all_fp32:
                     out = tuple(layout.quantize(o) for o in _first(out))
@@ -514,6 +542,27 @@ def table1_setup(dev):
         f"clients + Fisher over {T1_S * T1_N} points): "
         f"{time.perf_counter() - t0:.2f} s")
     return shards, test, theta0, bank
+
+
+def time_small_fit(dev, shards, theta0):
+    """The local-SGLD 'scalar' fit of the Table-1 BNN on its T1_S clients
+    (SurrogateSpec's 200 steps; under the fit's trace budget, so every
+    client runs in one batch): the median of 5 fits, host clock."""
+    from repro_torch import api
+    from repro_torch.workloads import table1_log_lik
+    times = []
+    for rep in range(6):
+        cuda_sync()
+        t0 = time.perf_counter()
+        api.fit_bank_local_sgld(table1_log_lik, shards, theta0,
+                                _gen(dev, rep), fit_steps=200,
+                                minibatch=T1_M, step_size=T1_H)
+        cuda_sync()
+        times.append(1e3 * (time.perf_counter() - t0))
+    ms = statistics.median(times[1:])
+    log(f"  local-SGLD 'scalar' fit ({T1_S} clients, 200 steps, all "
+        f"clients at once): {ms:.2f} ms (median of 5 after a warm-up)")
+    return ms
 
 
 def run_path(name, sampler, gen, theta0, expect, dynamics=None):
@@ -1014,6 +1063,350 @@ def serve_danube(dev):
         f"prefill max|diff|/max|logits| {rel:.3e}")
 
 
+# ---------------------------------------------------------------------------
+# the training path
+# ---------------------------------------------------------------------------
+
+def _train_argv():
+    return ["--arch", "qwen3-1.7b"] + (
+        [] if TRAIN_H == 1e-5 else ["--step-size", repr(TRAIN_H)])
+
+
+def phase_train(dev, failures):
+    """qwen3-1.7b at full width and depth through the train driver's flag
+    parser and run (``main`` minus its exit code), then per_leaf on the
+    same generator and bank (bitwise), then one step split three ways.
+    Returns the path's numbers. A chain beyond the divergence guard is
+    appended to ``failures`` (the script fails after its other phases)."""
+    from repro_torch import api
+    from repro_torch import tree as tu
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fsgld_update as fk
+    from repro_torch.launch import train
+    args = train.parse_args(_train_argv())
+    cuda_sync()
+    fk.reset_launches()
+    fa.reset_launches()  # the main path: the driver's whole run
+    tr = train.run(args)
+    cuda_sync()
+    counts, n_flash = dict(fk.LAUNCHES), fa.LAUNCHES["flash_attention"]
+    cfg = tr.cfg
+    if (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+            cfg.head_dim, cfg.d_ff, cfg.vocab_size) != QWEN3_WIDTH:
+        raise AssertionError(f"not qwen3-1.7b's published width: {cfg}")
+    n_params = sum(t.numel() for t in tu.leaves(tr.theta0))
+    if n_params != QWEN3_P:
+        raise AssertionError(f"{n_params} parameters, expected {QWEN3_P}")
+    steps = TRAIN_R * TRAIN_T
+    # gradient passes: the fit's and the sampling's; forwards: the probes
+    # at theta0 and at each chain's final state
+    passes = TRAIN_S * TRAIN_FIT + steps + 1 + args.chains
+    if counts != {"fsgld_update_packed": steps, "fsgld_update_2d": 0} or \
+            n_flash != cfg.num_layers * passes:
+        raise AssertionError(f"train: launches {counts}, flash {n_flash}; "
+                             f"expected {steps} packed and "
+                             f"{cfg.num_layers} x {passes} flash")
+    if not (all(math.isfinite(x) for x in tr.lls)
+            and min(tr.lls) >= tr.ll0 - TRAIN_GUARD):
+        failures.append(f"train diverged: ll/token {tr.lls} against "
+                        f"{tr.ll0:.4f} at theta0 (guard {TRAIN_GUARD} "
+                        f"nats, h {args.step_size:g})")
+        log(f"  FAILED: {failures[-1]}")
+    log(f"  {cfg.name}: {n_params} parameters per chain, h "
+        f"{args.step_size:g}; fit {tr.fit_s:.2f} s, sampling "
+        f"{tr.sample_s:.2f} s = {steps / tr.sample_s:.3f} chain-steps/s; "
+        f"peak device memory fit {tr.peak_gb['fit']:.2f} GB, sampling "
+        f"{tr.peak_gb['sampling']:.2f} GB; ll/token theta0 {tr.ll0:.4f}, "
+        f"chains {[round(x, 4) for x in tr.lls]}")
+    log(f"  main path launches: fsgld_update_packed {counts['fsgld_update_packed']}"
+        f" (1 per step), flash_attention {n_flash} = {cfg.num_layers} x "
+        f"{passes} passes ({TRAIN_S} x {TRAIN_FIT} fit + {steps} sampling "
+        f"gradient passes, {1 + args.chains} probe forwards)")
+
+    s = tr.sampler
+    per_leaf = api.FSGLD(
+        s.posterior, s.data, minibatch=s.minibatch, step_size=s.cfg.step_size,
+        surrogate=api.SurrogateSpec(kind="scalar", bank=s.bank),
+        schedule=s.schedule,
+        execution=api.Execution(device=dev, executor="per_leaf",
+                                collect=False, dtype=s.execution.dtype,
+                                bank_device=s.execution.bank_device))
+    cuda_sync()
+    fk.reset_launches()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    out = per_leaf.sample(train._generator(dev, args.seed, 3), tr.theta0)
+    cuda_sync()
+    dt = time.perf_counter() - t0
+    L = len(tu.leaves(tr.theta0))
+    if fk.LAUNCHES["fsgld_update_2d"] != steps * L or \
+            fa.LAUNCHES["flash_attention"] != cfg.num_layers * steps:
+        raise AssertionError(f"train/per_leaf: launches {fk.LAUNCHES}, "
+                             f"flash {fa.LAUNCHES}")
+    log(f"  per_leaf: {steps * L} fsgld_update_2d launches ({L} leaves), "
+        f"{fa.LAUNCHES['flash_attention']} flash_attention ({cfg.num_layers}"
+        f" per gradient pass), {steps / dt:.3f} chain-steps/s")
+    same("train: packed == per_leaf", tr.finals, out)
+    del out
+    tr.finals = None
+    split = step_split(dev, tr)
+    return {"launches": counts["fsgld_update_packed"], "flash": n_flash,
+            "passes": passes, **split}
+
+
+class Allocations:
+    """Device memory allocated since the last ``step``, in GB."""
+
+    def __init__(self):
+        cuda_sync()
+        self.at = torch.cuda.memory_allocated()
+
+    def step(self) -> float:
+        cuda_sync()
+        now, before = torch.cuda.memory_allocated(), self.at
+        self.at = now
+        return (now - before) / 1e9
+
+
+def step_split(dev, tr):
+    """One sampling step at full width split three ways: the gradient
+    pass (host clock, synchronised), packing the gradients (CUDA events),
+    and the update launch in place (CUDA-graph replay) against its bytes
+    bound; one launch held against the plain version; the device memory
+    each of the step's buffers holds. Then the plain attention backward
+    of one layer at the train shape."""
+    from torch.func import grad, vmap
+    from repro_torch.core import engine as teng
+    from repro_torch.kernels import fsgld_update as fk
+    from repro_torch.kernels import ops as kops
+    from repro_torch import tree as tu
+    s = tr.sampler
+    mem, held = Allocations(), {}
+    layout = kops.make_packed_layout(tr.theta0)
+    th_p = layout.pack(tu.tree_map(lambda t: t[None], tr.theta0), device=dev)
+    held["packed theta"] = mem.step()
+    thetas = layout.unpack(th_p)
+    pbank = teng.pack_bank(layout, s.bank, dev)
+    held["global mean mu_g (fp32)"] = mem.step()
+    gen = _gen(dev, 17)
+    sids = torch.zeros(1, dtype=torch.int64, device=dev)
+    idx = torch.randint(0, 64, (1, s.minibatch), generator=gen, device=dev)
+    batch = tu.tree_map(lambda d: d[sids[:, None], idx], s.data)
+    grad_v = vmap(grad(s.posterior.log_lik))
+    g_p = torch.zeros_like(th_p)
+    held["packed gradient buffer"] = mem.step()
+    ops = {"mu_g": pbank["mu_g"],
+           "mu_s": teng._gather(pbank["means"], sids, dev)}
+    held["gathered client mean mu_s (fp32)"] = mem.step()
+    times = []
+    for _ in range(3):
+        g = None
+        cuda_sync()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        g = grad_v(thetas, batch)
+        cuda_sync()
+        times.append(1e3 * (time.perf_counter() - t0))
+    grad_ms = statistics.median(times)
+    held["gradient pass, transient peak"] = \
+        (torch.cuda.max_memory_allocated() - mem.at) / 1e9
+    held["leaf gradients"] = mem.step()
+    pack_ms = call_ms(lambda: layout.pack(g, out=g_p), reps=3, warmup=1)
+    del g
+    log("  device memory held in one sampling step at full width (C = 1; "
+        "torch.cuda.memory_allocated, GB): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in held.items()))
+    log("  [profile] one gradient pass at full width under torch.profiler")
+    profile_call(lambda: grad_v(thetas, batch), "gradient pass", 1)
+    scale, f_s = teng.chain_scales(s.cfg, s.engine.scheme, sids, s.minibatch)
+    scalars = kops.packed_scalar_rows(
+        layout, h=s.cfg.step_size, scale=scale, f_s=f_s,
+        prior_prec=s.cfg.prior_precision, alpha=s.cfg.alpha,
+        temperature=s.cfg.temperature, lam_g_leaf=pbank["lam_g_leaf"],
+        lam_s_leaf=pbank["lam_s_leaf"][sids])
+    seeds = kops.chain_leaf_seeds(gen, 1, layout.num_leaves)
+    sl, sb = layout.tables(dev)
+    t0 = time.perf_counter()
+    ref = fk.fsgld_update_packed_plain(
+        th_p, g_p, seeds, scalars, variant="scalar", dynamics="langevin",
+        seg_leaf=sl, seg_base=sb, block_rows=layout.block_rows, chains=1,
+        **ops)
+    cuda_sync()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    kops.packed_step(layout, th_p, g_p, seeds, scalars, variant="scalar",
+                     **ops)
+    cuda_sync()
+    err = _err(th_p, ref)
+    del ref
+    upd_ms = device_ms(lambda: kops.packed_step(
+        layout, th_p, g_p, seeds, scalars, variant="scalar", **ops),
+        calls=5, replays=5)
+    n = sum(layout.sizes)
+    b_ms, b_by, nbytes = bound_ms("scalar", "langevin", 1, n,
+                                  layout.num_leaves)
+    log(f"  one step at C*P = {n}: gradient pass {grad_ms:.2f} ms (host "
+        f"clock), packing {pack_ms:.2f} ms, update {upd_ms:.4f} ms on the "
+        f"device (in place; bound {b_ms:.4f} ms, {b_by}, {nbytes} bytes: "
+        f"{100 * b_ms / upd_ms:.1f}% of bound; plain version {plain_ms:.1f}"
+        f" ms), max|kernel-plain| {err:.3e}")
+    del th_p, g_p, thetas, ops, pbank
+    bwd_ms = attention_bwd_ms(dev)
+    return {"grad_ms": grad_ms, "pack_ms": pack_ms, "update_ms": upd_ms,
+            "update_plain_ms": plain_ms, "update_bound_ms": b_ms,
+            "update_err": err, "bwd_ms": bwd_ms}
+
+
+def attention_bwd_ms(dev):
+    """The plain attention backward of one layer at the train shape
+    (device time, CUDA-graph replay), beside the kernel's forward."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    B, S, H, Hkv, hd = TRAIN_ATTN
+    q, k, v = _qkv(_gen(dev, 19), B, S, H, Hkv, hd, torch.bfloat16)
+    out, lse = fa.flash_attention_lse(q, k, v)
+    dout = torch.randn_like(out)
+    pos = torch.arange(S, device=dev).expand(B, S)
+    ones = torch.ones_like(lse)
+    bwd = device_ms(lambda: fa.attention_scan_bwd(
+        q, k, v, pos, pos, lse, ones, dout), calls=10, replays=10)
+    fwd = device_ms(lambda: fa.flash_attention_lse(q, k, v), calls=10,
+                    replays=10)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = device_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), calls=10, replays=10)
+    b_ms, b_by, _, _ = flash_bound_ms(B, S, H, Hkv, hd, 2)
+    log(f"  attention at the train shape (B, S, H, Hkv, hd) = {TRAIN_ATTN}, "
+        f"bf16, per layer: forward kernel (with row statistics) {fwd:.4f} "
+        f"ms (bound {b_ms:.5f} ms, {b_by}: {100 * b_ms / fwd:.1f}% of "
+        f"bound; SDPA {sdpa:.4f} ms), plain backward {bwd:.4f} ms")
+    return bwd
+
+
+class FirstUpdateCheck:
+    """While in a ``with`` block: the first packed step the engine makes
+    is also computed by the plain version on the same operands, and the
+    largest |kernel - plain| kept (``err``)."""
+
+    def __init__(self):
+        self.err = None
+
+    def __enter__(self):
+        from repro_torch.kernels import fsgld_update as fk
+        from repro_torch.kernels import ops as kops
+        self._real = real = kops.packed_step
+
+        def checked(layout, th_p, g_p, seeds, scalars, *, variant, **kw):
+            if self.err is not None:
+                return real(layout, th_p, g_p, seeds, scalars,
+                            variant=variant, **kw)
+            sl, sb = layout.tables(th_p.device)
+            ref = fk.fsgld_update_packed_plain(
+                th_p, g_p, seeds, scalars, variant=variant,
+                dynamics=kw.get("dynamics", "langevin"), seg_leaf=sl,
+                seg_base=sb, block_rows=layout.block_rows,
+                chains=seeds.shape[0], r2d=kw.get("r_p"),
+                **{k: kw[k] for k in ("mu_g", "mu_s", "lam_g", "lam_s")
+                   if k in kw})
+            out = real(layout, th_p, g_p, seeds, scalars, variant=variant,
+                       **kw)
+            cuda_sync()
+            self.err = _err(out, ref)
+            return out
+
+        kops.packed_step = checked
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops as kops
+        kops.packed_step = self._real
+
+
+def check_flash_diff(dev):
+    """The differentiable flash entry at the train shape, bf16 inputs:
+    forward (one launch) and row log-sum-exp against the plain scan,
+    dq/dk/dv against autograd through ``attention_scan`` on the same
+    values in fp32 (autograd through the bf16 scan rounds its
+    probabilities to bf16 before P V, and its dq then strays 6-10x the
+    tolerance from this exact gradient, on the CPU), each within the
+    kernel's ``tolerance`` (the statistics within 1e-3). Returns the
+    largest share of the tolerance used."""
+    from repro_torch.kernels import flash_attention as fa
+    B, S, H, Hkv, hd = TRAIN_ATTN
+    q, k, v = _qkv(_gen(dev, 23), B, S, H, Hkv, hd, torch.bfloat16)
+    dout = torch.randn(B, S, H, hd, generator=_gen(dev, 29),
+                       device=dev).bfloat16()
+    pos = torch.arange(S, device=dev).expand(B, S)
+    out, lse = fa.flash_attention_lse(q, k, v)
+    ref, m, l = fa.attention_scan(q, k, v, pos, pos, stats=True)
+    stat_err = float((lse - (m + torch.log(l))).abs().max())
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(fa.flash_attention_diff(*leaves), leaves, dout)
+    plain = [t.float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(fa.attention_scan(*plain, pos, pos), plain,
+                               dout.float())
+    shares = [flash_err(out, ref)[1]] + [
+        flash_err(a, b.to(a.dtype))[1] for a, b in zip(got, want)]
+    log(f"  flash_attention_diff at the train shape {TRAIN_ATTN}, bf16: "
+        f"share of the tolerance used out {shares[0]:.3f}, dq "
+        f"{shares[1]:.3f}, dk {shares[2]:.3f}, dv {shares[3]:.3f}; row "
+        f"log-sum-exp max|kernel-plain| {stat_err:.3e}")
+    if not (max(shares) <= 1 and stat_err <= 1e-3):
+        raise AssertionError("the differentiable flash entry disagrees with "
+                             "plain autograd")
+    return max(shares)
+
+
+def phase_train_c2(dev):
+    """qwen3-1.7b at full width, C2_LAYERS of its 28 layers, C2_CHAINS
+    chains: the vmap rule folds the chains into the flash kernel's batch
+    (one launch per layer per pass) and the packed buffer holds both;
+    the first step's update held against the plain version."""
+    from repro_torch import api
+    from repro_torch.configs import get_config
+    from repro_torch.data import token_shards
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fsgld_update as fk
+    from repro_torch.models import init_params, log_lik_fn
+    from repro_torch import tree as tu
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"), num_layers=C2_LAYERS)
+    theta0 = init_params(cfg, _gen(dev, 31), device=dev)
+    data = token_shards(_gen(dev, 37), num_shards=TRAIN_S, shard_size=64,
+                        seq_len=128, vocab_size=cfg.vocab_size)
+    ll = lambda p, b: log_lik_fn(p, cfg, b)  # noqa: E731
+    bank = api.fit_bank_local_sgld(ll, data, theta0, _gen(dev, 41),
+                                   fit_steps=4, minibatch=8,
+                                   step_size=TRAIN_H,
+                                   store_dtype=torch.bfloat16)
+    T = 2
+    s = api.FSGLD(api.Posterior(ll, prior_precision=1.0), data, minibatch=8,
+                  step_size=TRAIN_H,
+                  surrogate=api.SurrogateSpec(kind="scalar", bank=bank),
+                  schedule=api.Schedule(rounds=1, local_steps=T,
+                                        n_chains=C2_CHAINS,
+                                        reassign="permutation"),
+                  execution=api.Execution(device=dev, executor="packed",
+                                          collect=False,
+                                          dtype=torch.bfloat16))
+    with FirstUpdateCheck() as chk:
+        cuda_sync()
+        fk.reset_launches()
+        fa.reset_launches()
+        out = s.sample(_gen(dev, 43), theta0)
+        cuda_sync()
+    n_flash = fa.LAUNCHES["flash_attention"]
+    if fk.LAUNCHES["fsgld_update_packed"] != T or n_flash != C2_LAYERS * T:
+        raise AssertionError(f"train-c2: launches {fk.LAUNCHES}, flash "
+                             f"{n_flash}")
+    if not all(bool(torch.isfinite(t).all()) for t in tu.leaves(out)):
+        raise AssertionError("train-c2: non-finite state")
+    P = sum(t.numel() for t in tu.leaves(theta0))
+    log(f"  {C2_LAYERS} layers, {P} parameters per chain, C={C2_CHAINS} "
+        f"(C*P = {C2_CHAINS * P}): {T} fsgld_update_packed launches, "
+        f"{n_flash} flash_attention ({C2_LAYERS} per gradient pass, chains "
+        f"folded); first update max|kernel-plain| {chk.err:.3e}")
+    return chk.err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1060,6 +1453,7 @@ def main() -> int:
 
     phase(f"[table1] Bayesian MLP, P={TABLE1_P}, {T1_S} x {T1_N} clients")
     shards, test, theta0, bank = table1_setup(dev)
+    time_small_fit(dev, shards, theta0)
 
     def t1(executor):
         return t1_sampler(dev, shards, bank, executor)
@@ -1131,6 +1525,20 @@ def main() -> int:
     phase("[serve] h2o-danube-1.8b at full width, 2 layers (sliding window)")
     serve_danube(dev)
 
+    torch.cuda.empty_cache()
+    phase(f"[train] qwen3-1.7b at full width and depth through "
+          f"repro_torch.launch.train {' '.join(_train_argv())}: S="
+          f"{TRAIN_S} clients, {TRAIN_FIT} fit steps, {TRAIN_R} rounds x "
+          f"{TRAIN_T} steps, C=1, packed")
+    failures = []
+    phase_train(dev, failures)
+    torch.cuda.empty_cache()
+    phase(f"[train-c2] qwen3-1.7b at full width, {C2_LAYERS} of 28 layers, "
+          f"C={C2_CHAINS}, packed")
+    phase_train_c2(dev)
+    check_flash_diff(dev)
+    torch.cuda.empty_cache()
+
     phase("[times] device time per launch: CUDA graphs of back-to-back "
         "launches replayed 20 times between CUDA events (median)")
     big = kops.make_packed_layout(torch.zeros(2**24))
@@ -1164,6 +1572,8 @@ def main() -> int:
                  "launches": serve_launches, "max_abs_err": flash_worst,
                  "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                  "bound_by": b_by, "library_ms": sdpa_ms})
+    if failures:
+        raise AssertionError("; ".join(failures))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

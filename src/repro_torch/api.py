@@ -24,13 +24,14 @@ import torch
 from repro_torch import tree as tu
 from repro_torch.configs.base import SamplerConfig
 from repro_torch.core.engine import MeshChainEngine, _not_ported, pad_shards
-from repro_torch.core.federated import (fit_bank_fisher, refresh_bank,
-                                        sample_local_likelihood)
+from repro_torch.core.federated import (fit_bank_fisher, local_sgld_moments,
+                                        refresh_bank, sample_local_likelihood)
 from repro_torch.core.sghmc import SGHMCConfig
-from repro_torch.core.surrogate import (SurrogateBank, fit_scalar_tree,
-                                        make_bank)
+from repro_torch.core.surrogate import (Gaussian, SurrogateBank,
+                                        fit_scalar_tree, make_bank)
 from repro_torch.fed.partition import partition as partition_clients
 from repro_torch.fed.registry import get_scenario
+from repro_torch.kernels.ops import make_packed_layout
 from repro_torch.rivals.methods import get_method
 
 PyTree = Any
@@ -117,11 +118,16 @@ class Execution:
       leaf per step), 'packed' (one launch per step for the whole chain
       block) or 'auto' (packed on CUDA, vmap on the CPU).
     collect: False returns final chain states instead of a trace.
-    dtype: surrogate-mean STORAGE dtype (e.g. torch.bfloat16)."""
+    dtype: surrogate-mean STORAGE dtype (e.g. torch.bfloat16).
+    bank_device: where the surrogate means are stored (None: the run's
+      device). 'cpu' keeps them on the host, the server's side of the
+      federation: each round brings only the chains' clients' rows to the
+      device (at qwen3-1.7b's width the 4 clients' bf16 means are 16 GB)."""
     device: Any = None
     executor: str = "auto"
     collect: bool = True
     dtype: Any = None
+    bank_device: Any = None
 
     def __post_init__(self):
         if self.executor not in _EXECUTORS:
@@ -256,7 +262,8 @@ class FSGLD:
         self._engine = None
 
     def _install(self, bank: SurrogateBank) -> SurrogateBank:
-        bank = bank.to(self.execution.device)
+        bank = bank.to(self.execution.device,
+                       means_device=self.execution.bank_device)
         return bank if self.execution.dtype is None \
             else bank.astype(self.execution.dtype)
 
@@ -286,7 +293,8 @@ class FSGLD:
                 fit_steps=spec.fit_steps, minibatch=spec.fit_minibatch,
                 step_size=(spec.fit_step_size if spec.fit_step_size
                            is not None else self.cfg.step_size),
-                kind=spec.kind)
+                kind=spec.kind, store_dtype=self.execution.dtype,
+                store_device=self.execution.bank_device)
         self.bank = self._install(bank)
         self._engine = None
         return self.bank
@@ -329,7 +337,9 @@ class FSGLD:
         """Run the schedule; returns samples with leading axes
         (n_chains, rounds * ceil(local_steps / thin), ...), or the final
         chain states when ``Execution.collect`` is False ((theta,
-        momentum) pairs for SGHMC). ``generator`` (on the run's device)
+        momentum) pairs for SGHMC). ``theta0`` may lie on the host: the
+        engine copies it into its state on the run's device and never
+        writes it. ``generator`` (on the run's device)
         drives sampling; a surrogate fit still needed draws from a
         generator seeded from it, so a prefit-bank run consumes exactly
         the same stream.
@@ -354,7 +364,7 @@ class FSGLD:
                     "scenario to the FSGLD constructor instead")
         sched = self.schedule
         return self.engine.run(
-            generator, _to(theta0, self.execution.device),
+            generator, tu.tree_map(torch.as_tensor, theta0),
             rounds if rounds is not None else sched.rounds,
             n_chains=n_chains if n_chains is not None else sched.n_chains,
             reassign=sched.reassign, collect_every=sched.thin,
@@ -383,30 +393,98 @@ class FSGLD:
 # per-client local-SGLD surrogate fitting (paper Sec 3.1 phase 1)
 # ---------------------------------------------------------------------------
 
+# The traces of every client's kept steps, above which the fit streams
+# one client at a time.
+FIT_TRACE_BYTES = 1 << 30
+
+
 def fit_bank_local_sgld(log_lik_fn: LogLikFn, shard_data: PyTree,
                         theta0: PyTree, generator: torch.Generator, *,
                         fit_steps: int, minibatch: int, step_size: float,
-                        kind: str = "scalar",
-                        lam_floor: float = 1e-8) -> SurrogateBank:
+                        kind: str = "scalar", lam_floor: float = 1e-8,
+                        store_dtype=None, store_device=None) -> SurrogateBank:
     """Short SGLD runs per client against the LOCAL likelihood, then
-    moment fits over the second half of each trace: per-tensor isotropic
-    ('scalar') or per-dimension ('diag', flat-vector params)."""
+    moment fits over the second half of each trace (steps fit_steps // 2
+    on): per-tensor isotropic ('scalar', the reference's
+    ``fit_scalar_tree``) or per-dimension ('diag', flat-vector params).
+    Means are stored at ``store_dtype`` (default: theta0's dtype) on
+    ``store_device`` (default: theta0's); the global product is computed
+    in fp32 from the fp32 means before that cast, as the reference
+    computes it before ``astype``.
+
+    Where the kept traces of all S clients fit in ``FIT_TRACE_BYTES``,
+    all clients run at once (``sample_local_likelihood``, batched over S:
+    per step the (S, minibatch) rows, then each leaf's normals) and the
+    traces are kept, so small models make one launch per step, not S.
+    Above it, one client at a time (``core.federated.local_sgld_moments``),
+    keeping running moments, not traces. The generator's draws: client 0's
+    ``fit_steps`` steps (each its minibatch rows, then its normals leaf by
+    leaf), then client 1's, and so on. Each client's fp32 means are
+    written straight into one stack (pinned when it is on the host and
+    theta0 lies on a card), laid out as the packed executor's (S,
+    rows_total, 128) buffer whose views are the bank's (S, ...) means, so
+    packing the bank copies nothing; the global product is accumulated
+    client by client."""
+    if kind not in ("scalar", "diag"):
+        raise ValueError(kind)
+    if kind == "diag" and (len(tu.leaves(theta0)) != 1
+                           or tu.leaves(theta0)[0].ndim != 1):
+        raise ValueError("diag fits need flat-vector parameters")
+    S = tu.leaves(shard_data)[0].shape[0]
+    dev = tu.leaves(theta0)[0].device
+    sdev = torch.device(store_device) if store_device is not None else dev
+    trace_bytes = S * (fit_steps - fit_steps // 2) * sum(
+        t.numel() * t.element_size() for t in tu.leaves(theta0))
+    if trace_bytes <= FIT_TRACE_BYTES:
+        bank = _fit_from_traces(
+            log_lik_fn, shard_data, theta0, generator, fit_steps=fit_steps,
+            minibatch=minibatch, step_size=step_size, kind=kind,
+            lam_floor=lam_floor)
+        bank = bank if store_dtype is None else bank.astype(store_dtype)
+        return bank.to(dev, means_device=sdev)
+    layout = make_packed_layout(theta0)
+    stack = torch.zeros(S * layout.rows_total, 128, device=sdev,
+                        dtype=store_dtype or tu.leaves(theta0)[0].dtype,
+                        pin_memory=sdev.type == "cpu" and dev.type == "cuda")
+    means = layout.views(stack)
+    precs, nat, prec_g = [], None, None
+    for s in range(S):
+        mu, lam = local_sgld_moments(
+            log_lik_fn, tu.tree_map(lambda d: d[s], shard_data), theta0,
+            generator, minibatch=minibatch, step_size=step_size,
+            num_steps=fit_steps, burn_in=fit_steps // 2,
+            kind=kind).finish(jitter=lam_floor)
+        # cast where the mean lies, then copy (to the host, say)
+        tu.tree_map(lambda dst, m: dst[s].copy_(m.to(dst.dtype)), means, mu)
+        if nat is None:
+            nat = tu.tree_map(lambda m, lm: lm * m, mu, lam)
+            prec_g = lam
+        else:
+            tu.tree_map(lambda acc, m, lm: acc.add_(lm * m), nat, mu, lam)
+            prec_g = tu.tree_map(torch.add, prec_g, lam)
+        precs.append(lam)
+        del mu
+    mean_g = tu.tree_map(
+        lambda a, lg: (a / torch.clamp(lg, min=1e-12)).to(
+            store_dtype or a.dtype).to(sdev), nat, prec_g)
+    precs = tu.tree_map(lambda *ls: torch.stack(ls), *precs)
+    return SurrogateBank(means, precs, Gaussian(mean_g, prec_g, kind), kind)
+
+
+def _fit_from_traces(log_lik_fn, shard_data, theta0, generator, *,
+                     fit_steps, minibatch, step_size, kind, lam_floor):
+    """All clients at once, traces kept: the fp32 bank."""
     traces = sample_local_likelihood(
         log_lik_fn, shard_data, theta0, generator, minibatch=minibatch,
         step_size=step_size, num_steps=fit_steps, burn_in=fit_steps // 2,
         thin=1)
-    if kind == "scalar":
-        fits = [fit_scalar_tree(tu.tree_map(lambda t: t[s], traces),
-                                jitter=lam_floor)
-                for s in range(tu.leaves(traces)[0].shape[0])]
-        stack = lambda *xs: torch.stack(xs)  # noqa: E731
-        return make_bank(tu.tree_map(stack, *[m for m, _ in fits]),
-                         tu.tree_map(stack, *[p for _, p in fits]), "scalar")
     if kind == "diag":
-        flat = tu.leaves(traces)
-        if len(flat) != 1 or flat[0].ndim != 3:
-            raise ValueError("diag fits need flat-vector parameters")
-        mu = flat[0].mean(1)
-        precs = 1.0 / (flat[0].var(1, unbiased=False) + lam_floor)
-        return make_bank(mu, precs, "diag")
-    raise ValueError(kind)
+        flat = tu.leaves(traces)[0]
+        return make_bank(flat.mean(1), 1.0 / (flat.var(1, unbiased=False)
+                                              + lam_floor), "diag")
+    fits = [fit_scalar_tree(tu.tree_map(lambda t: t[s], traces),
+                            jitter=lam_floor)
+            for s in range(tu.leaves(traces)[0].shape[0])]
+    stack = lambda *xs: torch.stack(xs)  # noqa: E731
+    return make_bank(tu.tree_map(stack, *[m for m, _ in fits]),
+                     tu.tree_map(stack, *[p for _, p in fits]), "scalar")

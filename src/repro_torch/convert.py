@@ -4,7 +4,9 @@ Every function takes plain numpy arrays (``np.asarray`` of the JAX
 arrays), so the port never imports JAX: ``tree_from_numpy`` turns a
 parameter pytree into the port's dict of tensors, ``bank_from_numpy``
 rebuilds a JAX ``SurrogateBank``'s stacked means and precisions as the
-port's bank (the global product is recomputed by ``make_bank``), and
+port's bank (the global product recomputed by ``make_bank``, or the JAX
+bank's own carried across: a bank stored in bf16 had its product taken
+in fp32 before the cast), and
 ``params_from_jax`` / ``draws_from_jax`` carry transformer parameters
 (one draw, or K stacked draws) across, checked against the port's layout.
 """
@@ -16,7 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree as tu
-from repro_torch.core.surrogate import SurrogateBank, make_bank
+from repro_torch.core.surrogate import Gaussian, SurrogateBank, make_bank
 from repro_torch.models.model import param_layout
 
 PyTree = Any
@@ -36,10 +38,19 @@ def tree_from_numpy(tree: PyTree, device=None) -> PyTree:
 
 
 def bank_from_numpy(means: PyTree, precs: PyTree, kind: str,
-                    device=None) -> SurrogateBank:
-    """A JAX bank's stacked (S, ...) means and precisions -> port bank."""
-    return make_bank(tree_from_numpy(means, device),
-                     tree_from_numpy(precs, device), kind)
+                    device=None, global_mean: PyTree = None,
+                    global_prec: PyTree = None) -> SurrogateBank:
+    """A JAX bank's stacked (S, ...) means and precisions -> port bank,
+    each leaf in its own dtype (bf16 means stay bf16). With
+    ``global_mean``/``global_prec`` (the JAX bank's ``global_``) the
+    global product is taken as it is, else recomputed by ``make_bank``."""
+    means = tree_from_numpy(means, device)
+    precs = tree_from_numpy(precs, device)
+    if global_mean is None:
+        return make_bank(means, precs, kind)
+    return SurrogateBank(means, precs, Gaussian(
+        tree_from_numpy(global_mean, device),
+        tree_from_numpy(global_prec, device), kind), kind)
 
 
 def _checked(tree: PyTree, cfg, lead: tuple, device) -> PyTree:

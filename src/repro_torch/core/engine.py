@@ -278,22 +278,38 @@ def make_chain_round_fn(log_lik_fn: LogLikFn, cfg: SamplerConfig,
     return round_fn
 
 
-def pack_bank(layout: kops.PackedChains, bank: Optional[SurrogateBank]):
+def _stack(layout: kops.PackedChains, tree: PyTree) -> torch.Tensor:
+    """Per-shard (S, ...) leaves -> (S, rows_total, 128) at the leaves' own
+    (storage) dtype: the buffer they are already views of
+    (``PackedChains.views``, as ``fit_bank_local_sgld`` lays out its
+    means), else a packed copy."""
+    base = layout.base_of(tree)
+    if base is None:
+        base = layout.pack(tree, dtype=tu.leaves(tree)[0].dtype)
+    return base.view(-1, layout.rows_total, kops.LANE)
+
+
+def pack_bank(layout: kops.PackedChains, bank: Optional[SurrogateBank],
+              device=None):
     """SurrogateBank -> packed operands for the packed round. The shared
-    global surrogate is packed ONCE here; per-shard stacks keep a leading
-    S axis, (S, rows_total, 128), gathered at the chains' clients once per
-    round."""
+    global surrogate is packed ONCE here, in fp32; per-shard stacks keep a
+    leading S axis, (S, rows_total, 128), at the bank's storage dtype
+    (bf16 at billion-parameter scale, sharing the bank's buffer where its
+    means are views of one), gathered at the chains' clients once per
+    round and widened to fp32 there (exact, so results do not depend on
+    where the widening happens). The stacks stay where the bank's means
+    lie (the host, say); the global operands go to ``device`` (default:
+    the bank's)."""
     if bank is None:
         return None
-    stack = lambda t: layout.pack(t).reshape(  # noqa: E731
-        -1, layout.rows_total, kops.LANE)
+    stack = lambda t: _stack(layout, t)  # noqa: E731
     if bank.kind == "diag":
-        return {"mu_g": layout.pack_shared(bank.global_.mean),
-                "lam_g": layout.pack_shared(bank.global_.prec),
+        return {"mu_g": layout.pack_shared(bank.global_.mean, device),
+                "lam_g": layout.pack_shared(bank.global_.prec, device),
                 "means": stack(bank.means), "precs": stack(bank.precs)}
     if bank.kind == "scalar":
         # per-leaf scalar precisions ride in the (C, L, 9) scalar rows
-        return {"mu_g": layout.pack_shared(bank.global_.mean),
+        return {"mu_g": layout.pack_shared(bank.global_.mean, device),
                 "means": stack(bank.means),
                 "lam_g_leaf": torch.stack([
                     torch.as_tensor(p, dtype=torch.float32)
@@ -302,6 +318,20 @@ def pack_bank(layout: kops.PackedChains, bank: Optional[SurrogateBank]):
                     torch.as_tensor(p, dtype=torch.float32)
                     for p in tu.leaves(bank.precs)], dim=1)}
     raise ValueError(bank.kind)
+
+
+def _gather(stack: torch.Tensor, sids: torch.Tensor, device) -> torch.Tensor:
+    """The chains' clients' rows of a (S, rows_total, 128) stack, on
+    ``device`` widened to a chain-major (C * rows_total, 128) fp32 buffer.
+    A stack on another device (the host) is read row block by row block,
+    each client's block copied straight from its (pinned) storage."""
+    if stack.device == torch.device(device):
+        return stack[sids].to(torch.float32).reshape(-1, kops.LANE)
+    out = torch.empty((sids.shape[0],) + tuple(stack.shape[1:]),
+                      dtype=torch.float32, device=device)
+    for c, s in enumerate(sids.tolist()):
+        out[c].copy_(stack[s].to(device))  # copy, then widen there
+    return out.reshape(-1, kops.LANE)
 
 
 def make_packed_round_fn(log_lik_fn: LogLikFn, cfg: SamplerConfig,
@@ -319,10 +349,14 @@ def make_packed_round_fn(log_lik_fn: LogLikFn, cfg: SamplerConfig,
     The packed buffers are authoritative; the pytree (views into the
     buffer for fp32 leaves) feeds the gradient pass and the trace. Per
     step the leaf gradients are copied IN PLACE into one gradient buffer
-    allocated per round (its pad stays zero), the kernel writes fresh
-    output buffers, and non-fp32 leaves are quantized back in place on
-    them. Per round: the clients' surrogate rows are gathered and the
-    scalar rows built once."""
+    allocated per round (its pad stays zero) and freed, the kernel
+    updates the state buffers IN PLACE (so the views stay valid; a caller
+    that needs the pre-round state copies it), and non-fp32 leaves are
+    quantized back in place on them. Per round: the clients' surrogate
+    rows are gathered (widened to fp32) and the scalar rows built once.
+    At qwen3-1.7b's width a step then holds, per chain, the state, the
+    gradient buffer and the gathered client mean (8.1 GB each in fp32),
+    plus the shared global mean and the per-client stack."""
     sample = _make_batch_sampler(cfg, scheme)
     grad_v = vmap(grad(log_lik_fn))
     use_surrogate = cfg.method == "fsgld"
@@ -343,12 +377,12 @@ def make_packed_round_fn(log_lik_fn: LogLikFn, cfg: SamplerConfig,
         elif bank_kind == "diag":
             variant = "diag"
             ops = {"mu_g": pbank["mu_g"], "lam_g": pbank["lam_g"],
-                   "mu_s": pbank["means"][sids].reshape(-1, kops.LANE),
-                   "lam_s": pbank["precs"][sids].reshape(-1, kops.LANE)}
+                   "mu_s": _gather(pbank["means"], sids, th_p.device),
+                   "lam_s": _gather(pbank["precs"], sids, th_p.device)}
         elif bank_kind == "scalar":
             variant = "scalar"
             ops = {"mu_g": pbank["mu_g"],
-                   "mu_s": pbank["means"][sids].reshape(-1, kops.LANE)}
+                   "mu_s": _gather(pbank["means"], sids, th_p.device)}
             lam_g_leaf = pbank["lam_g_leaf"]
             lam_s_leaf = pbank["lam_s_leaf"][sids]
         else:
@@ -363,13 +397,12 @@ def make_packed_round_fn(log_lik_fn: LogLikFn, cfg: SamplerConfig,
         for t in range(cfg.local_updates):
             batches = sample(draws.idx[t], sids, shard_data)
             layout.pack(grad_v(thetas, batches), out=g_p)
-            out = kops.packed_step(
+            kops.packed_step(
                 layout, th_p, g_p, draws.seeds[t], scalars, variant=variant,
                 r_p=r_p, dynamics=dynamics, **ops)
+            layout.quantize(th_p)
             if hmc:
-                th_p, r_p = layout.quantize(out[0]), layout.quantize(out[1])
-            else:
-                th_p = layout.quantize(out)
+                layout.quantize(r_p)
             thetas = layout.unpack(th_p)
             if on_step is not None:
                 on_step(t, thetas)
@@ -555,6 +588,9 @@ class MeshChainEngine:
         ``collect=False`` ((theta, momentum) pairs for SGHMC).
         ``stacked=True`` takes ``theta0`` as per-chain states with a
         leading (n_chains, ...) axis; SGHMC pairs them with zero momenta.
+        ``theta0`` may lie on another device than the run (the host, say):
+        the packed executor copies it leaf by leaf into its state buffer,
+        the others into a device copy, and the run never writes it.
 
         ``federation`` (a ``repro_torch.fed.Federation`` or a registry
         name) applies the scenario's schedule and compression to the
@@ -590,14 +626,20 @@ class MeshChainEngine:
             if tu.leaves(theta0)[0].shape[0] != C:
                 raise ValueError("stacked theta0 needs a leading "
                                  f"(n_chains={C}, ...) axis")
-            chains = tu.tree_map(lambda t: t.clone(), theta0)
             example = tu.tree_map(lambda t: t[0], theta0)
         else:
-            chains = tu.tree_map(
-                lambda t: torch.broadcast_to(t, (C,) + t.shape).clone(),
-                theta0)
             example = theta0
         layout = self._layout_for(example)
+        dev = self.device
+        if layout is not None:
+            # (C, ...) views of theta0, wherever it lies: packing copies
+            chains = theta0 if stacked else tu.tree_map(
+                lambda t: torch.broadcast_to(t, (C,) + t.shape), theta0)
+        elif stacked:
+            chains = tu.tree_map(lambda t: t.to(dev).clone(), theta0)
+        else:
+            chains = tu.tree_map(lambda t: torch.broadcast_to(
+                t.to(dev), (C,) + t.shape).clone(), theta0)
         num_leaves = len(tu.leaves(chains))
         fsgld_bank = self.bank if self.cfg.method == "fsgld" else None
         bank_kind = fsgld_bank.kind if fsgld_bank is not None else None
@@ -606,16 +648,21 @@ class MeshChainEngine:
         cfg = (dataclasses.replace(
             self.cfg, temperature=self.cfg.temperature * C) if agg
             else self.cfg)
-        mom = init_momentum(chains) if hmc else None
         kw = {}
         if layout is not None:
             round_fn = make_packed_round_fn(
                 self.log_lik_fn, cfg, self.scheme, self.minibatch,
                 bank_kind, layout, hmc)
-            th_p = layout.pack(chains)
-            state = ((th_p, layout.pack(mom), layout.unpack(th_p)) if hmc
-                     else (th_p, layout.unpack(th_p)))
-            bank_arg = pack_bank(layout, fsgld_bank)
+            th_p = layout.pack(chains, device=dev)
+            chains = layout.unpack(th_p)
+            state = ((th_p, torch.zeros_like(th_p), chains) if hmc
+                     else (th_p, chains))
+            bank_arg = pack_bank(layout, fsgld_bank, dev)
+
+            def snapshot(st):
+                # the round updates the buffers in place: copy them
+                bufs = tuple(b.clone() for b in st[:-1])
+                return bufs + (layout.unpack(bufs[0]),)
 
             def thetas_of(st):
                 return st[-1]
@@ -638,11 +685,14 @@ class MeshChainEngine:
                     bank_kind, hmc)
                 bank_arg = fsgld_bank
             else:
-                round_fn = make_round_fn(self.log_lik_fn, cfg, self.scheme,
-                                         self.minibatch, fsgld_bank, hmc)
+                # the plain drift indexes the bank under vmap: on the device
+                round_fn = make_round_fn(
+                    self.log_lik_fn, cfg, self.scheme, self.minibatch,
+                    fsgld_bank.to(dev) if fsgld_bank is not None else None,
+                    hmc)
                 bank_arg = None
                 kw["generator"] = generator
-            state = (chains, mom) if hmc else chains
+            state = (chains, init_momentum(chains)) if hmc else chains
 
             def thetas_of(st):
                 return st[0] if hmc else st
@@ -654,6 +704,9 @@ class MeshChainEngine:
                 return tu.tree_map(lambda a, b: _keep(m, a, b), st, pre)
 
             def final(st):
+                return st
+
+            def snapshot(st):
                 return st
 
         per_round = -(-T // collect_every)
@@ -695,7 +748,7 @@ class MeshChainEngine:
                     # dropped updates: the state goes back to its
                     # pre-round value and the trace repeats it
                     strag = fsched.straggler_mask(sched, draws.strag_u)
-                    pre = state
+                    pre = snapshot(state)
                     if on_step is not None:
                         def on_step(t, thetas, keep=keep,
                                     frozen=thetas_of(pre), strag=strag):

@@ -1,9 +1,12 @@
 """Client-side surrogate fitting (paper Sec 3.1, App. F.2); counterpart of
 the fitting half of ``repro.core.federated``.
 
-Every pass here is batched over the client axis S with ``torch.func.vmap``
-and, for per-example gradients, over a chunk of examples as well, so one
-call runs all clients at once on the device.
+``sample_local_likelihood`` and the Fisher fits are batched over the
+client axis S with ``torch.func.vmap`` and, for per-example gradients,
+over a chunk of examples as well, so one call runs all clients at once on
+the device. ``local_sgld_moments`` runs ONE client and keeps only running
+moments, for parameter trees too large to hold S chains and their traces
+(the transformer posteriors).
 """
 from __future__ import annotations
 
@@ -15,7 +18,8 @@ from torch.func import grad, vmap
 
 from repro_torch import tree as tu
 from repro_torch.core.sampler import LogLikFn
-from repro_torch.core.surrogate import SurrogateBank, make_bank
+from repro_torch.core.surrogate import (RunningMoments, SurrogateBank,
+                                        make_bank)
 
 PyTree = Any
 
@@ -52,6 +56,38 @@ def sample_local_likelihood(log_lik_fn: LogLikFn, shard_data: PyTree,
         if t >= burn_in and (t - burn_in) % thin == 0:
             kept.append(thetas)
     return tu.tree_map(lambda *xs: torch.stack(xs, 1), *kept)
+
+
+def local_sgld_moments(log_lik_fn: LogLikFn, client_data: PyTree,
+                       theta0: PyTree, generator: torch.Generator, *,
+                       minibatch: int, step_size: float, num_steps: int,
+                       burn_in: int, kind: str = "scalar") -> RunningMoments:
+    """SGLD of ONE client against its local likelihood (no prior), from
+    ``theta0``: ``num_steps`` steps theta <- theta + (h/2) (n/m) grad +
+    sqrt(h) xi (the reference's local step, ``repro/api.py``
+    ``fit_bank_local_sgld``), updating one chain in place; the running
+    moments of steps burn_in, burn_in + 1, ... (deviations from theta0).
+    ``client_data``: leaves (n, ...) on the generator's device. Draws per
+    step, in order: the m minibatch rows in [0, n), then the normals of
+    every leaf in the tree's (sorted-key) order."""
+    leaf = tu.leaves(client_data)[0]
+    n, dev = leaf.shape[0], leaf.device
+    theta = tu.tree_map(lambda t: t.detach().clone(), theta0)
+    coef, sig = (step_size / 2) * (n / minibatch), math.sqrt(step_size)
+    grad_fn = grad(log_lik_fn)
+    moments = RunningMoments(kind, shift=theta0)
+    for t in range(num_steps):
+        idx = torch.randint(0, n, (minibatch,), generator=generator,
+                            device=dev)
+        g = grad_fn(theta, tu.tree_map(lambda d: d[idx], client_data))
+        for th, gg in zip(tu.leaves(theta), tu.leaves(g)):
+            th.add_(gg.to(th.dtype), alpha=coef)
+            th.add_(torch.randn(th.shape, generator=generator, device=dev,
+                                dtype=th.dtype), alpha=sig)
+        del g
+        if t >= burn_in:
+            moments.update(theta)
+    return moments
 
 
 def _per_example_grads(log_lik_fn, shard_data, thetas, batch, shared):

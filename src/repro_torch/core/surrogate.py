@@ -73,10 +73,15 @@ class SurrogateBank:
                                       self.global_.prec, self.kind),
                              self.kind)
 
-    def to(self, device) -> "SurrogateBank":
-        mv = lambda t: tu.tree_map(lambda l: l.to(device), t)  # noqa: E731
-        return SurrogateBank(mv(self.means), mv(self.precs),
-                             Gaussian(mv(self.global_.mean),
+    def to(self, device, means_device=None) -> "SurrogateBank":
+        """The bank on ``device``, its means (per-client and global) on
+        ``means_device`` if given (e.g. the host); a leaf already there
+        is kept, not copied."""
+        mv = lambda t, d=device: tu.tree_map(  # noqa: E731
+            lambda l: l.to(d), t)
+        md = device if means_device is None else means_device
+        return SurrogateBank(mv(self.means, md), mv(self.precs),
+                             Gaussian(mv(self.global_.mean, md),
                                       mv(self.global_.prec), self.kind),
                              self.kind)
 
@@ -130,6 +135,66 @@ def fit_scalar_tree(sample_tree: PyTree, jitter: float = 1e-6):
         lambda s: 1.0 / (s.var(0, unbiased=False).mean() + jitter),
         sample_tree)
     return means, precs
+
+
+class RunningMoments:
+    """Streaming form of ``fit_scalar_tree`` ('scalar') and of
+    ``fit_gaussian(..., 'diag')`` ('diag') over a trace seen one sample
+    at a time, so no trace is held. Welford's update runs on the
+    deviations from ``shift`` (a pytree like the samples; default: a copy
+    of the first sample), which keeps the variance exact to float32
+    rounding when it is far smaller than the mean: per element the mean
+    deviation, in the samples' dtype, on buffers this object owns; the
+    sum of squared deviations M2 per element for 'diag', and summed over
+    each leaf in float64 for 'scalar' (whose estimator needs only the
+    leaf's mean variance)."""
+
+    def __init__(self, kind: str, shift: PyTree = None):
+        _kind_check(kind)
+        self.kind = kind
+        self.shift = shift
+        self.n = 0
+        self.mean = None
+        self.m2 = None
+
+    def update(self, sample: PyTree) -> None:
+        if self.shift is None:
+            self.shift = tu.tree_map(lambda x: x.detach().clone(), sample)
+        leaves, treedef = tu.flatten(sample)
+        shifts = tu.leaves(self.shift)
+        if self.mean is None:
+            self.mean = tu.unflatten(treedef, [torch.zeros_like(x)
+                                               for x in leaves])
+            self.m2 = tu.unflatten(treedef, [
+                torch.zeros_like(x) if self.kind == "diag" else
+                torch.zeros((), dtype=torch.float64, device=x.device)
+                for x in leaves])
+        self.n += 1
+        new_m2 = []
+        for x, c, mu, m2 in zip(leaves, shifts, tu.leaves(self.mean),
+                                tu.leaves(self.m2)):
+            d = x - c
+            delta = d - mu
+            mu.add_(delta / self.n)
+            dev = d.sub_(mu).mul_(delta)
+            new_m2.append(m2.add_(dev) if self.kind == "diag"
+                          else m2 + dev.sum(dtype=torch.float64))
+        self.m2 = tu.unflatten(treedef, new_m2)
+
+    def finish(self, jitter: float = 1e-6):
+        """(means, precisions): 'scalar' 1 / (mean over the leaf of the
+        per-element population variance + jitter), a float32 scalar per
+        leaf; 'diag' 1 / (variance + jitter) per element. The means are
+        this object's buffers (shift added in place)."""
+        means = tu.tree_map(lambda mu, c: mu.add_(c), self.mean, self.shift)
+        if self.kind == "diag":
+            precs = tu.tree_map(lambda m2: 1.0 / (m2 / self.n + jitter),
+                                self.m2)
+        else:
+            precs = tu.tree_map(
+                lambda m2, mu: (1.0 / (m2 / (self.n * mu.numel()) + jitter)
+                                ).to(torch.float32), self.m2, means)
+        return means, precs
 
 
 def analytic_gaussian_likelihood_surrogate(xs: torch.Tensor,

@@ -6,6 +6,8 @@ built on the generator's device:
   * susy_shards     — Sec 5.3: binary classification, per-shard label
                       proportions pi_s ~ Beta(a, a) (a=100 IID, 0.5 non-IID)
   * susy_test_set   — a balanced held-out set from the same classes
+  * token_shards    — federated non-IID token streams: each client's own
+                      Dirichlet(alpha)-skewed unigram
 
 The numbers differ from the JAX package's (another generator); the
 structure is the same.
@@ -75,6 +77,29 @@ def susy_shards(generator: torch.Generator, *, num_shards=30,
                         device=dev)
     x = torch.where(y[..., None] > 0.5, mu_pos, mu_neg) + noise
     return {"x": x, "y": y}, pi
+
+
+def token_shards(generator: torch.Generator, *, num_shards: int,
+                 shard_size: int, seq_len: int, vocab_size: int,
+                 alpha: float = 0.1) -> dict:
+    """Client s samples its ``shard_size`` sequences of ``seq_len + 1``
+    tokens i.i.d. from its own unigram p_s ~ Dirichlet(alpha) over the
+    vocabulary, drawn as normalised Gamma(alpha) variates in float64 (a
+    low alpha makes the clients highly heterogeneous). Returns
+    {'tokens', 'labels'}, (S, shard_size, seq_len) int64: labels are the
+    tokens shifted by one. Draws from ``generator``: the Gammas of all
+    clients, then each client's tokens in client order."""
+    dev = generator.device
+    g = _gamma(generator, alpha, num_shards * vocab_size).reshape(
+        num_shards, vocab_size)
+    probs = g / g.sum(-1, keepdim=True)
+    toks = torch.stack([
+        torch.multinomial(probs[s], shard_size * (seq_len + 1),
+                          replacement=True, generator=generator)
+        for s in range(num_shards)]).reshape(num_shards, shard_size,
+                                             seq_len + 1).to(dev)
+    return {"tokens": toks[..., :-1].contiguous(),
+            "labels": toks[..., 1:].contiguous()}
 
 
 def susy_test_set(generator: torch.Generator, *, size=10_000, dim=18,

@@ -30,13 +30,15 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC")
 
 _PTR, _I32 = ctypes.c_void_p, ctypes.c_int
-# library -> (launch function, its argument types)
+# library -> {launch function: its argument types}
 _SIGNATURES = {
-    "fsgld_update": ("fsgld_update_launch",
-                     [_I32, _I32] + [_PTR] * 13
-                     + [ctypes.c_longlong, _I32, _I32, _I32, _PTR]),
-    "flash_attention": ("flash_attention_launch",
-                        [_I32] + [_PTR] * 4 + [_I32] * 7 + [_PTR]),
+    "fsgld_update": {
+        "fsgld_update_launch": [_I32, _I32] + [_PTR] * 13
+        + [ctypes.c_longlong, _I32, _I32, _I32, _PTR]},
+    "flash_attention": {
+        "flash_attention_launch": [_I32] + [_PTR] * 4 + [_I32] * 7 + [_PTR],
+        "flash_attention_lse_launch": [_I32] + [_PTR] * 5 + [_I32] * 7
+        + [_PTR]},
 }
 
 
@@ -122,11 +124,13 @@ def load(name: str) -> ctypes.CDLL:
 
 def open_library(path: Path, name: str) -> ctypes.CDLL:
     """The shared library at ``path``, built from library ``name``'s
-    source, with its argument types declared."""
+    source, with the argument types of each launch function it defines
+    declared (an older source may lack a later entry)."""
     lib = ctypes.CDLL(str(path))
-    fn, argtypes = _SIGNATURES[name]
-    getattr(lib, fn).argtypes = argtypes
-    getattr(lib, fn).restype = _I32
+    for fn, argtypes in _SIGNATURES[name].items():
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = _I32
     err = getattr(lib, f"{name}_error_string")
     err.argtypes = [_I32]
     err.restype = ctypes.c_char_p

@@ -5,6 +5,13 @@
 //
 //   out = softmax(q k^T * hd^-0.5, masked) v
 //
+// and, where the caller passes a buffer for them (the training path's
+// differentiable entry), each row's log-sum-exp of its masked scaled
+// scores, lse = m + log(l) in natural units, as fp32 (B, H, S): the
+// residual the backward recomputes the probabilities from (the reference's
+// _flash_fwd returns m and l). Serving passes none, and nothing of its
+// results or launches changes.
+//
 // with a running (m, l, acc) online softmax in fp32 over key tiles, masked
 // scores set to NEG_INF = -1e30 (causal: key <= query; window W: key >
 // query - W; and the ragged tail key >= S), key tiles above the diagonal or
@@ -71,12 +78,14 @@ namespace {
 
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 struct Params {
   const void* q;
   const void* k;
   const void* v;
   void* o;
+  float* lse;        // (B, H, S) row log-sum-exp, or null: not written
   int B, S, H, Hkv, hd;
   int causal;
   int window;        // <= 0: no window
@@ -688,6 +697,12 @@ __global__ void __launch_bounds__(THREADS, 1)
       l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
       l0 = fmaxf(l0, 1e-30f);
       l1 = fmaxf(l1, 1e-30f);
+      // the quad's 4 threads hold the same row statistics; one writes them
+      if (p.lse != nullptr && t4 == 0) {
+        float* lse = p.lse + ((int64_t)b * p.H + h) * p.S;
+        if (qr0 < p.S) lse[qr0] = (m0 * p.scale_log2 + log2f(l0)) * LN2;
+        if (qr1 < p.S) lse[qr1] = (m1 * p.scale_log2 + log2f(l1)) * LN2;
+      }
 
       // O / l in bf16, each thread's two columns of its two rows straight
       // from the accumulator (the next work's Q may already be loading);
@@ -793,6 +808,8 @@ __global__ void __launch_bounds__(F_ROWS * 32) flash_fwd_f32(Params p) {
     }
   }
   l = fmaxf(l, 1e-30f);
+  if (p.lse != nullptr && lane == 0 && qi < p.S)
+    p.lse[((int64_t)b * p.H + h) * p.S + qi] = (m + log2f(l)) * LN2;
   if (qi < p.S) {
 #pragma unroll
     for (int e = 0; e < HD / 32; ++e) {
@@ -910,17 +927,13 @@ cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// dtype: 0 float32, 1 bfloat16. window <= 0: no sliding window.
-extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
-                                      const void* v, void* o, int B, int S,
-                                      int H, int Hkv, int hd, int causal,
-                                      int window, void* stream) {
+int launch(int dtype, const void* q, const void* k, const void* v, void* o,
+           float* lse, int B, int S, int H, int Hkv, int hd, int causal,
+           int window, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || hd <= 0 ||
       hd % 16 || hd > 256 || B * H > 65535)
     return (int)cudaErrorInvalidValue;
-  const Params p{q, k, v, o, B, S, H, Hkv, hd, causal, window,
+  const Params p{q, k, v, o, lse, B, S, H, Hkv, hd, causal, window,
                  (float)(LOG2E / sqrt((double)hd))};
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const int pad = hd <= 64 ? 64 : hd <= 128 ? 128 : 256;
@@ -935,6 +948,27 @@ extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
     return (int)launch_f32<256>(p, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// dtype: 0 float32, 1 bfloat16. window <= 0: no sliding window.
+extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
+                                      const void* v, void* o, int B, int S,
+                                      int H, int Hkv, int hd, int causal,
+                                      int window, void* stream) {
+  return launch(dtype, q, k, v, o, nullptr, B, S, H, Hkv, hd, causal, window,
+                stream);
+}
+
+// The same, also writing each row's log-sum-exp into lse (B, H, S) fp32.
+extern "C" int flash_attention_lse_launch(int dtype, const void* q,
+                                          const void* k, const void* v,
+                                          void* o, float* lse, int B, int S,
+                                          int H, int Hkv, int hd, int causal,
+                                          int window, void* stream) {
+  return launch(dtype, q, k, v, o, lse, B, S, H, Hkv, hd, causal, window,
+                stream);
 }
 
 extern "C" const char* flash_attention_error_string(int err) {

@@ -27,6 +27,13 @@
 // segment table looked up per thread (a few hundred bytes, L1-resident).
 // TMA and persistent blocks are left for later work.
 //
+// In place: theta_out may be theta itself (and r_out r), which saves a
+// buffer of the parameters' size, 8.1 GB per chain at qwen3-1.7b's width.
+// So theta, r and the outputs carry no __restrict__, and theta and r are
+// read through the coherent path, not the read-only cache (__ldg), in
+// place or not. Each thread reads its own float4 before it writes it, and
+// no other thread touches it.
+//
 // Built without --use_fast_math: __logf/__cosf would move the normals far
 // outside the tolerance against the plain version. nvcc's default FMA
 // contraction moves results by an ulp, which the tolerance allows.
@@ -46,8 +53,8 @@ enum { S_H, S_SCALE, S_FS, S_PRIOR, S_ALPHA, S_TEMP, S_LAMG, S_LAMS, S_FRIC,
 enum { PLAIN = 0, SCALAR = 1, DIAG = 2 };
 
 struct Args {
-  const float* __restrict__ theta;
-  const float* __restrict__ r;
+  const float* theta;  // may be theta_out (in place)
+  const float* r;      // may be r_out
   const float* __restrict__ g;
   const float* __restrict__ mu_g;
   const float* __restrict__ mu_s;
@@ -57,8 +64,8 @@ struct Args {
   const int* __restrict__ seg_base;
   const int* __restrict__ seeds;      // uint32 bit patterns, (C, L)
   const float* __restrict__ scalars;  // (C, L, SCALAR_COLS)
-  float* __restrict__ theta_out;
-  float* __restrict__ r_out;
+  float* theta_out;
+  float* r_out;
   int64_t rows;
   int rows_total;
   int block_rows;
@@ -85,6 +92,11 @@ __device__ __forceinline__ float gaussian_noise(uint32_t seed, uint32_t idx) {
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+// A stream the kernel may also write (in place): the coherent path.
+__device__ __forceinline__ float4 ld4_state(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
 }
 
 __device__ __forceinline__ float get(const float4& v, int k) {
@@ -117,12 +129,12 @@ __global__ void __launch_bounds__(THREADS) fsgld_update_kernel(const Args a) {
 
     const int64_t off = row * LANE + col;            // per-chain operands
     const int64_t soff = (int64_t)rr * LANE + col;   // shared operands
-    const float4 th4 = ld4(a.theta + off);
+    const float4 th4 = ld4_state(a.theta + off);
     const float4 g4 = ld4(a.g + off);
     float4 mg4, ms4, lg4, ls4, r4;
     if (V != PLAIN) { mg4 = ld4(a.mu_g + soff); ms4 = ld4(a.mu_s + off); }
     if (V == DIAG) { lg4 = ld4(a.lam_g + soff); ls4 = ld4(a.lam_s + off); }
-    if (HMC) r4 = ld4(a.r + off);
+    if (HMC) r4 = ld4_state(a.r + off);
 
     float4 out4, rout4;
 #pragma unroll
@@ -175,6 +187,9 @@ extern "C" int fsgld_update_launch(
     long long rows, int rows_total, int block_rows, int num_leaves,
     void* stream) {
   if (rows <= 0 || rows_total <= 0 || block_rows <= 0 || num_leaves <= 0)
+    return (int)cudaErrorInvalidValue;
+  // in place is all or nothing: theta and r both, or neither
+  if (sghmc && (theta_out == theta) != (r_out == r))
     return (int)cudaErrorInvalidValue;
   const Args a{theta, r, g, mu_g, mu_s, lam_g, lam_s, seg_leaf, seg_base,
                seeds, scalars, theta_out, r_out, (int64_t)rows, rows_total,

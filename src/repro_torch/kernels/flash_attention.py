@@ -1,5 +1,5 @@
-"""Forward flash attention: the CUDA kernel's wrapper and its plain PyTorch
-version.
+"""Flash attention: the CUDA kernel's wrappers, its plain PyTorch version,
+and the differentiable entry of the training path.
 
 Counterpart of ``repro.kernels.flash_attention`` (the Pallas TPU kernel
 ``flash_attention``): ``softmax(q k^T * hd^-0.5, masked) v`` with a running
@@ -15,6 +15,17 @@ takes the plain version, a CUDA tensor launches the kernel
 (``csrc/flash_attention.cu``, built at first use by ``_build``) and any
 other device raises. The plain version is the oracle the kernel is held
 against on the card, never a fallback.
+
+The training path differentiates through ``flash_attention_diff``, a
+``torch.autograd.Function`` (counterpart of the reference's
+``jax.custom_vjp`` ``_flash_attention``, ``repro/models/layers.py:134``):
+its forward is the kernel on the card, which also writes each row's
+log-sum-exp, or the plain scan with its (m, l) statistics on the CPU; its
+backward is ``attention_scan_bwd``, the reference's ``_flash_bwd`` in plain
+PyTorch (no Pallas kernel to port), which recomputes each key block's
+probabilities from those statistics. Its ``vmap`` rule folds a vmapped
+(chain) axis into the batch, because a ctypes launch cannot read
+functorch's wrapped tensors.
 """
 from __future__ import annotations
 
@@ -41,8 +52,20 @@ def reset_launches() -> None:
 # plain version
 # ---------------------------------------------------------------------------
 
+def _mask(pos, qpos, causal, window):
+    """Unmasked (query, key) pairs of a key block: pos (B, 1, 1, bk) key
+    positions, -1 for empty slots; qpos (B, 1, Sq, 1)."""
+    valid = pos >= 0
+    if causal:
+        valid = valid & (pos <= qpos)
+    if window is not None:
+        valid = valid & (pos > qpos - window)
+    return valid
+
+
 def attention_scan(q, k, v, q_positions, kv_positions, *, causal=True,
-                   window: Optional[int] = None, block_k: int = BLOCK_K):
+                   window: Optional[int] = None, block_k: int = BLOCK_K,
+                   stats: bool = False):
     """The forward of the reference's ``_flash_fwd_scan``
     (``repro/models/layers.py:96``) with explicit positions: a scan over
     key blocks with running max and normaliser, so no (Sq x Sk) matrix
@@ -50,7 +73,8 @@ def attention_scan(q, k, v, q_positions, kv_positions, *, causal=True,
     probabilities rounded to v's dtype before the P V product, as the
     reference does. q (B, Sq, H, hd), k/v (B, Sk, K, hd), positions
     (B, Sq) / (B, Sk) with -1 marking empty key slots. Returns
-    (B, Sq, H, hd) in q's dtype."""
+    (B, Sq, H, hd) in q's dtype, and with ``stats`` also each row's
+    running max m and normaliser l, fp32 (B, H, Sq)."""
     B, Sq, H, hd = q.shape
     Sk, K = k.shape[1], k.shape[2]
     G = H // K
@@ -66,12 +90,7 @@ def attention_scan(q, k, v, q_positions, kv_positions, *, causal=True,
         vh = v[:, s0:s0 + block_k].repeat_interleave(G, dim=2)
         pos = kv_positions[:, None, None, s0:s0 + block_k]
         s = torch.einsum("bqhd,bchd->bhqc", qf, kh.to(f32)) * scale
-        valid = pos >= 0
-        if causal:
-            valid = valid & (pos <= qpos)
-        if window is not None:
-            valid = valid & (pos > qpos - window)
-        s = torch.where(valid, s, NEG_INF)
+        s = torch.where(_mask(pos, qpos, causal, window), s, NEG_INF)
         m_new = torch.maximum(m, s.amax(-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
@@ -80,7 +99,73 @@ def attention_scan(q, k, v, q_positions, kv_positions, *, causal=True,
             "bhqc,bchd->bhqd", p.to(v.dtype).to(f32), vh.to(f32))
         m = m_new
     out = acc / torch.clamp_min(l, 1e-30)[..., None]
-    return out.transpose(1, 2).to(q.dtype)
+    out = out.transpose(1, 2).to(q.dtype)
+    return (out, m, l) if stats else out
+
+
+def attention_scan_bwd(q, k, v, q_positions, kv_positions, m, l, dout, *,
+                       causal=True, window: Optional[int] = None,
+                       block_k: int = BLOCK_K):
+    """The reference's attention backward ``_flash_bwd``
+    (``repro/models/layers.py:145``) in plain PyTorch: a scan over key
+    blocks that recomputes each block's probabilities
+    ``p = exp(s - m) / l`` from the forward's row statistics (B, H, Sq)
+    (the kernel's log-sum-exp is m with l = 1), ``ds = p (dp - D) scale``
+    with ``dp = dout v^T``, and the expanded heads' dk, dv summed back
+    onto their Hkv KV heads; everything in fp32, each gradient returned in
+    its input's dtype. The probabilities are used as p / Z, Z their row
+    sum, so that they sum to 1 whatever the statistics' rounding (the
+    kernel's log-sum-exp comes from approximate exp2/log2): a query that
+    sees one key gets p = 1 and its exact zero gradient. ``D =
+    rowsum(dout * out)`` is taken as ``rowsum(p * dp)``, its value at the
+    fp32 output (as the reference holds it): the output the caller holds
+    is rounded to its dtype (bf16), and ``dp - D`` cancels, so the rounded
+    output would move dk by more than a bf16 ulp (the output is therefore
+    not a residual).
+    With one key block (S <= block_k, the sampling path) that block is
+    computed once; with more, the blocks are recomputed for Z, for D and
+    for the gradients. Out of place throughout, so that it runs under
+    ``torch.func.vmap``."""
+    B, Sq, H, hd = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    G = H // K
+    scale = hd ** -0.5
+    f32 = torch.float32
+    qf = q.to(f32)
+    do = dout.transpose(1, 2).to(f32)                  # (B, H, Sq, hd)
+    linv = 1.0 / torch.clamp_min(l, 1e-30)
+    qpos = q_positions[:, None, :, None]
+
+    def block(s0):
+        kh = k[:, s0:s0 + block_k].repeat_interleave(G, dim=2).to(f32)
+        vh = v[:, s0:s0 + block_k].repeat_interleave(G, dim=2).to(f32)
+        pos = kv_positions[:, None, None, s0:s0 + block_k]
+        s = torch.einsum("bqhd,bchd->bhqc", qf, kh) * scale
+        p = torch.where(_mask(pos, qpos, causal, window),
+                        torch.exp(s - m[..., None]), 0.0) * linv[..., None]
+        return kh, p, torch.einsum("bhqd,bchd->bhqc", do, vh)
+
+    starts = range(0, Sk, block_k)
+    one = [block(0)] if len(starts) == 1 else None
+
+    def blocks():
+        return one if one is not None else map(block, starts)
+
+    Z = torch.clamp_min(sum(p.sum(-1) for _, p, _ in blocks()), 1e-30)
+    D = sum(((p / Z[..., None]) * dp).sum(-1) for _, p, dp in blocks())
+    dq = torch.zeros((B, Sq, H, hd), dtype=f32, device=q.device)
+    dks, dvs = [], []
+    for kh, p, dp in blocks():
+        p = p / Z[..., None]
+        ds = p * (dp - D[..., None]) * scale
+        dq = dq + torch.einsum("bhqc,bchd->bqhd", ds, kh)
+        dkh = torch.einsum("bhqc,bqhd->bchd", ds, qf)
+        dvh = torch.einsum("bhqc,bhqd->bchd", p, do)
+        bk = kh.shape[1]
+        dks.append(dkh.reshape(B, bk, K, G, hd).sum(3))
+        dvs.append(dvh.reshape(B, bk, K, G, hd).sum(3))
+    return (dq.to(q.dtype), torch.cat(dks, 1).to(k.dtype),
+            torch.cat(dvs, 1).to(v.dtype))
 
 
 def tolerance(ref: torch.Tensor) -> torch.Tensor:
@@ -148,17 +233,10 @@ def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
-    """q (B, S, H, hd), k/v (B, S, Hkv, hd), fp32 or bf16, H % Hkv == 0,
-    hd a multiple of 16 up to 256, any S. Returns (B, S, H, hd) in q's
-    dtype. CPU tensors take the plain version; CUDA tensors launch the
-    kernel on PyTorch's current stream."""
-    _check(q, k, v, window)
+def _launch(q, k, v, causal, window, lse):
+    """One launch of the kernel on CUDA tensors; ``lse`` (B, H, S) fp32
+    or None (the serving entry: the kernel writes no statistics)."""
     dev = q.device
-    if dev.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
     if dev.type != "cuda":
         raise RuntimeError(f"flash_attention runs on cuda or cpu tensors, "
                            f"not {dev.type}")
@@ -169,15 +247,142 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     from repro_torch.kernels import _build
     lib = _build.load("flash_attention")
     out = torch.empty_like(q)
+    args = (_ptr(q), _ptr(k), _ptr(v), _ptr(out))
+    rest = (B, S, H, k.shape[2], hd, int(causal),
+            0 if window is None else int(window))
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.flash_attention_launch(
-            DTYPES.index(q.dtype), _ptr(q), _ptr(k), _ptr(v), _ptr(out), B,
-            S, H, k.shape[2], hd, int(causal),
-            0 if window is None else int(window), ctypes.c_void_p(stream))
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        if lse is None:
+            err = lib.flash_attention_launch(DTYPES.index(q.dtype), *args,
+                                             *rest, stream)
+        else:
+            err = lib.flash_attention_lse_launch(
+                DTYPES.index(q.dtype), *args, _ptr(lse), *rest, stream)
     if err != 0:
         raise RuntimeError(
             f"flash_attention launch failed: cudaError {err} "
             f"({lib.flash_attention_error_string(err).decode()})")
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """q (B, S, H, hd), k/v (B, S, Hkv, hd), fp32 or bf16, H % Hkv == 0,
+    hd a multiple of 16 up to 256, any S. Returns (B, S, H, hd) in q's
+    dtype. CPU tensors take the plain version; CUDA tensors launch the
+    kernel on PyTorch's current stream."""
+    _check(q, k, v, window)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    return _launch(q, k, v, causal, window, None)
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True,
+                        window: Optional[int] = None):
+    """``flash_attention`` and each row's log-sum-exp of its masked scaled
+    scores, fp32 (B, H, S): one launch of the kernel's statistics entry on
+    CUDA tensors; on CPU tensors the plain scan, with m + log(l)."""
+    _check(q, k, v, window)
+    if q.device.type == "cpu":
+        out, m, l = _plain_stats(q, k, v, None, None, causal, window,
+                                 BLOCK_K)
+        return out, m + torch.log(torch.clamp_min(l, 1e-30))
+    B, S, H, _ = q.shape
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    return _launch(q, k, v, causal, window, lse), lse
+
+
+# ---------------------------------------------------------------------------
+# the differentiable entry
+# ---------------------------------------------------------------------------
+
+def _plain_stats(q, k, v, q_positions, kv_positions, causal, window,
+                 block_k):
+    if q_positions is None:
+        B, S = q.shape[:2]
+        q_positions = kv_positions = torch.arange(
+            S, device=q.device).expand(B, S)
+    return attention_scan(q, k, v, q_positions, kv_positions, causal=causal,
+                          window=window, block_k=block_k, stats=True)
+
+
+class _Attention(torch.autograd.Function):
+    """(out, m, l) of attention with the reference's flash backward.
+    Positions None: implicit (row = position), and on CUDA tensors the
+    forward is one launch of the kernel, whose log-sum-exp stands in for
+    (m, l = 1). Positions given: the plain scan on any device."""
+
+    @staticmethod
+    def forward(q, k, v, q_positions, kv_positions, causal, window,
+                block_k):
+        if q_positions is None and q.device.type == "cuda":
+            out, lse = flash_attention_lse(q.contiguous(), k.contiguous(),
+                                           v.contiguous(), causal=causal,
+                                           window=window)
+            return out, lse, torch.ones_like(lse)
+        return _plain_stats(q, k, v, q_positions, kv_positions, causal,
+                            window, block_k)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, q_positions, kv_positions, causal, window, block_k = inputs
+        _, m, l = output
+        ctx.mark_non_differentiable(m, l)
+        ctx.save_for_backward(q, k, v, q_positions, kv_positions, m, l)
+        ctx.causal, ctx.window, ctx.block_k = causal, window, block_k
+
+    @staticmethod
+    def backward(ctx, dout, _dm, _dl):
+        q, k, v, q_positions, kv_positions, m, l = ctx.saved_tensors
+        if q_positions is None:
+            B, S = q.shape[:2]
+            q_positions = kv_positions = torch.arange(
+                S, device=q.device).expand(B, S)
+        dq, dk, dv = attention_scan_bwd(
+            q, k, v, q_positions, kv_positions, m, l, dout,
+            causal=ctx.causal, window=ctx.window, block_k=ctx.block_k)
+        return dq, dk, dv, None, None, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, q_positions, kv_positions, causal,
+             window, block_k):
+        """Fold the vmapped axis into the batch: (n, B, ...) -> (n*B, ...)
+        for every tensor (an unbatched one is broadcast first), one call,
+        then unfold the three outputs."""
+        n = info.batch_size
+
+        def fold(t, d):
+            if t is None:
+                return None
+            t = t.movedim(d, 0) if d is not None \
+                else t.expand((n,) + tuple(t.shape))
+            return t.reshape((n * t.shape[1],) + tuple(t.shape[2:]))
+
+        args = [fold(t, d) for t, d in zip(
+            (q, k, v, q_positions, kv_positions), in_dims[:5])]
+        outs = _Attention.apply(*args, causal, window, block_k)
+        return tuple(o.reshape((n, -1) + tuple(o.shape[1:]))
+                     for o in outs), (0, 0, 0)
+
+
+def flash_attention_diff(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True,
+                         window: Optional[int] = None) -> torch.Tensor:
+    """``flash_attention`` with a gradient: the training path's attention
+    (same contract and dtypes). On CUDA tensors the forward is one launch
+    of the kernel (counted in ``LAUNCHES``) and the backward the plain
+    ``attention_scan_bwd``; on CPU tensors both are plain. Composes with
+    ``torch.func.grad`` and ``torch.func.vmap``."""
+    _check(q, k, v, window)
+    return _Attention.apply(q, k, v, None, None, causal, window, BLOCK_K)[0]
+
+
+def scan_attention(q, k, v, q_positions, kv_positions, *, causal=True,
+                   window: Optional[int] = None, block_k: int = BLOCK_K):
+    """``attention_scan`` with explicit positions and the flash backward
+    (the reference's ``chunked_attention``), plain on every device."""
+    return _Attention.apply(q, k, v, q_positions, kv_positions, causal,
+                            window, block_k)[0]

@@ -17,8 +17,9 @@ of (seed[chain, leaf], element index within the leaf). Drift variants:
 
 Operands are chain-major ``(C * rows_per_chain, 128)`` float32 buffers;
 the shared operands mu_g / lam_g are ``(rows_per_chain, 128)`` and are
-read again for every chain. Dispatch is by device: a CPU tensor takes the
-plain version, a CUDA tensor launches the kernel (``csrc/fsgld_update.cu``,
+read again for every chain. The packed entry updates theta (and r) in
+place, which saves a buffer of the parameters' size; the per-leaf entry
+returns new buffers. Dispatch is by device: a CPU tensor takes the plain version, a CUDA tensor launches the kernel (``csrc/fsgld_update.cu``,
 built at first use by ``_build``) and any other device raises. The plain
 version is the oracle the kernel is held against on the card, not a
 fallback.
@@ -99,27 +100,47 @@ def _sur_plain(variant, chains, mu_g, mu_s, lam_g, lam_s):
             f(lam_s)]
 
 
+PLAIN_CHUNK_ROWS = 1 << 16  # rows per pass of the packed entry's plain version
+
+
 def fsgld_update_packed_plain(theta2d, g2d, seeds, scalars, *, variant,
                               dynamics, seg_leaf, seg_base, block_rows,
                               chains, r2d=None, mu_g=None, mu_s=None,
-                              lam_g=None, lam_s=None):
-    """Plain version of the packed entry (same contract)."""
+                              lam_g=None, lam_s=None,
+                              chunk_rows: int = PLAIN_CHUNK_ROWS):
+    """Plain version of the packed entry (same contract), computed over
+    chunks of ``chunk_rows`` rows so that its int64 hash and float64
+    noise temporaries stay bounded at billion-parameter shapes (the
+    update is elementwise: chunking changes no value)."""
     rows = theta2d.shape[0]
     rows_total = rows // chains
     dev = theta2d.device
-    row = torch.arange(rows, device=dev)
-    c, rr = row // rows_total, row % rows_total
-    j = rr // block_rows
     seg_leaf = torch.as_tensor(seg_leaf, device=dev).to(torch.int64)
     seg_base = torch.as_tensor(seg_base, device=dev).to(torch.int64)
-    leaf = seg_leaf[j]
-    idx = (seg_base[j] + (rr % block_rows) * LANE)[:, None] \
-        + torch.arange(LANE, device=dev)[None]
-    seed = seeds.to(torch.int64)[c, leaf][:, None]
-    sc = scalars.to(torch.float32)[c, leaf]
-    sur = _sur_plain(variant, chains, mu_g, mu_s, lam_g, lam_s)
-    return _update_plain(variant, dynamics, sc, theta2d, g2d, r2d, sur, seed,
-                         idx)
+    seeds, scalars = seeds.to(torch.int64), scalars.to(torch.float32)
+    hmc = dynamics == "sghmc"
+    outs = [torch.empty(rows, LANE, dtype=torch.float32, device=dev)
+            for _ in range(2 if hmc else 1)]
+    f = lambda t: t.to(torch.float32)  # noqa: E731
+    for r0 in range(0, rows, chunk_rows):
+        rs = slice(r0, min(r0 + chunk_rows, rows))
+        row = torch.arange(rs.start, rs.stop, device=dev)
+        c, rr = row // rows_total, row % rows_total
+        j = rr // block_rows
+        leaf = seg_leaf[j]
+        idx = (seg_base[j] + (rr % block_rows) * LANE)[:, None] \
+            + torch.arange(LANE, device=dev)[None]
+        # shared operands by in-chain row, per-chain ones by row
+        sur = [] if variant == "plain" else [f(mu_g[rr]), f(mu_s[rs])]
+        if variant == "diag":
+            sur += [f(lam_g[rr]), f(lam_s[rs])]
+        res = _update_plain(variant, dynamics, scalars[c, leaf],
+                            theta2d[rs], g2d[rs],
+                            r2d[rs] if hmc else None, sur,
+                            seeds[c, leaf][:, None], idx)
+        for o, x in zip(outs, res if hmc else (res,)):
+            o[rs] = x
+    return tuple(outs) if hmc else outs[0]
 
 
 def fsgld_update_2d_plain(theta2d, g2d, seed, scalars, *, variant, dynamics,
@@ -181,14 +202,17 @@ def _check(variant, dynamics, theta2d, g2d, r2d, mu_g, mu_s, lam_g, lam_s,
         _need("lam_s", lam_s, full, f32, dev)
 
 
-def _ptr(t):
+def _ptr(t, align: int = 16):
+    """The operand's address; the (rows, 128) streams must be 16-byte
+    aligned (the kernel moves float4 vectors), the tables and per-(chain,
+    leaf) rows, read one value at a time, ``align=4`` (a step's seeds are
+    a row of the round's (T, C, L) draw)."""
     if t is None:
         return None
     if not t.is_contiguous():
         raise ValueError("kernel operands must be contiguous")
-    if t.data_ptr() % 16:
-        raise ValueError("kernel operands must be 16-byte aligned "
-                         "(the kernel moves float4 vectors)")
+    if t.data_ptr() % align:
+        raise ValueError(f"kernel operands must be {align}-byte aligned")
     return ctypes.c_void_p(t.data_ptr())
 
 
@@ -203,20 +227,23 @@ def _seeds_i32(seeds):
 
 def _launch(entry, variant, dynamics, theta2d, g2d, r2d, sur, seg_leaf,
             seg_base, seeds, scalars, rows_total, block_rows, num_leaves):
+    """The packed entry updates in place; the per-leaf one writes new
+    buffers."""
     from repro_torch.kernels import _build
     lib = _build.load("fsgld_update")
     dev = theta2d.device
     hmc = dynamics == "sghmc"
-    out = torch.empty_like(theta2d)
-    r_out = torch.empty_like(theta2d) if hmc else None
+    inplace = entry == "fsgld_update_packed"
+    out = theta2d if inplace else torch.empty_like(theta2d)
+    r_out = (r2d if inplace else torch.empty_like(r2d)) if hmc else None
     mu_g, mu_s, lam_g, lam_s = (list(sur) + [None] * 4)[:4]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fsgld_update_launch(
             VARIANTS.index(variant), int(hmc),
             _ptr(theta2d), _ptr(r2d), _ptr(g2d), _ptr(mu_g), _ptr(mu_s),
-            _ptr(lam_g), _ptr(lam_s), _ptr(seg_leaf), _ptr(seg_base),
-            _ptr(seeds), _ptr(scalars), _ptr(out), _ptr(r_out),
+            _ptr(lam_g), _ptr(lam_s), _ptr(seg_leaf, 4), _ptr(seg_base, 4),
+            _ptr(seeds, 4), _ptr(scalars, 4), _ptr(out), _ptr(r_out),
             theta2d.shape[0], rows_total, block_rows, num_leaves,
             ctypes.c_void_p(stream))
     if err != 0:
@@ -258,7 +285,8 @@ def fsgld_update_packed(theta2d: torch.Tensor, g2d: torch.Tensor,
                         r2d=None, mu_g=None, mu_s=None, lam_g=None,
                         lam_s=None, seg_leaf=None, seg_base=None,
                         block_rows: int = PACK_BLOCK_ROWS, chains: int = 1):
-    """ONE launch updating every leaf of every chain in a packed buffer.
+    """ONE launch updating every leaf of every chain in a packed buffer,
+    in place.
 
     theta2d/g2d (and r2d for 'sghmc'): (chains * rows_total, 128) float32,
     rows_total = block_rows * len(seg_leaf). seeds: (chains, L) integer
@@ -266,8 +294,8 @@ def fsgld_update_packed(theta2d: torch.Tensor, g2d: torch.Tensor,
     (rows_total, 128) shared; mu_s/lam_s: full height. seg_leaf[j] names
     the leaf of in-chain block j and seg_base[j] its first element's index
     within that leaf: int32 tensors on the operands' device (uploaded once
-    per layout — ``PackedChains.tables``). Returns theta' ('langevin') or
-    (theta', r') ('sghmc').
+    per layout — ``PackedChains.tables``). Writes theta' into theta2d
+    (and r' into r2d for 'sghmc') and returns theta2d (or (theta2d, r2d)).
     """
     bpc = len(seg_leaf)
     rows_total = block_rows * bpc
@@ -280,11 +308,14 @@ def fsgld_update_packed(theta2d: torch.Tensor, g2d: torch.Tensor,
     num_leaves = int(seeds.shape[1])
     dev = theta2d.device
     if dev.type == "cpu":
-        return fsgld_update_packed_plain(
+        res = fsgld_update_packed_plain(
             theta2d, g2d, seeds, scalars, variant=variant, dynamics=dynamics,
             r2d=r2d, mu_g=mu_g, mu_s=mu_s, lam_g=lam_g, lam_s=lam_s,
             seg_leaf=seg_leaf, seg_base=seg_base, block_rows=block_rows,
             chains=chains)
+        if dynamics == "langevin":
+            return theta2d.copy_(res)
+        return theta2d.copy_(res[0]), r2d.copy_(res[1])
     if dev.type != "cuda":
         raise RuntimeError(f"fsgld_update_packed runs on cuda or cpu "
                            f"tensors, not {dev.type}")

@@ -129,8 +129,8 @@ def fused_update_chains_flat(theta: torch.Tensor, g: torch.Tensor,
         buf[:, :n] = x.reshape(C, -1)
         return buf.reshape(-1, LANE)
 
-    def pad_shared(x):  # (P,) -> (rows_c, LANE)
-        return _pad_2d(x.reshape(-1), block_rows)[0]
+    def pad_shared(x):  # (P,) -> (rows_c, LANE), on theta's device
+        return _pad_2d(x.reshape(-1).to(dev), block_rows)[0]
 
     def col(v):
         return torch.broadcast_to(_f32(v, dev), (C,))
@@ -167,7 +167,8 @@ def fused_update_chains_flat(theta: torch.Tensor, g: torch.Tensor,
 
 def _bank_operands(bank, sids, surrogate_kind, num_leaves):
     """Per-leaf (mu_g, mu_s, lam_g, lam_s) lists for the chain-batched
-    path; mu_s/lam_s gathered at the chains' resident clients ``sids``."""
+    path; mu_s/lam_s gathered at the chains' resident clients ``sids``
+    where the means lie (the host, say)."""
     L = num_leaves
     if bank is None:
         return [None] * L, [None] * L, [None] * L, [None] * L
@@ -178,7 +179,7 @@ def _bank_operands(bank, sids, surrogate_kind, num_leaves):
                 [bank.global_.prec], [bank.precs[sids]])
     if surrogate_kind == "scalar":
         return (tu.leaves(bank.global_.mean),
-                [m[sids] for m in tu.leaves(bank.means)],
+                [m[sids.to(m.device)] for m in tu.leaves(bank.means)],
                 tu.leaves(bank.global_.prec),
                 [p[sids] for p in tu.leaves(bank.precs)])
     raise ValueError(surrogate_kind)
@@ -309,28 +310,58 @@ class PackedChains:
                 for t in (self.seg_leaf, self.seg_base))
         return self._tables[device]
 
-    def pack(self, tree: PyTree, out: Optional[torch.Tensor] = None
-             ) -> torch.Tensor:
-        """Leaves (C, *shape) -> (C * rows_total, 128) float32, chain-major.
-        With ``out`` the live elements are copied into that buffer IN
-        PLACE (its pad keeps whatever it held) and it is returned; else a
-        new zero-padded buffer is built."""
+    def pack(self, tree: PyTree, out: Optional[torch.Tensor] = None, *,
+             dtype=torch.float32, device=None) -> torch.Tensor:
+        """Leaves (C, *shape) -> (C * rows_total, 128) ``dtype`` (float32
+        by default), chain-major, on ``device`` (default: the leaves'; the
+        leaves may lie elsewhere, e.g. on the host, and are copied leaf by
+        leaf). With ``out`` the live elements are copied into that buffer
+        IN PLACE (its pad keeps whatever it held) and it is returned; else
+        a new zero-padded buffer is built."""
         leaves, treedef = tu.flatten(tree)
         if treedef != self.treedef:
             raise ValueError(f"tree {treedef} does not match the layout's "
                              f"{self.treedef}")
         c = leaves[0].shape[0]
         if out is None:
-            out = torch.zeros(c * self.rows_total, LANE, dtype=torch.float32,
-                              device=leaves[0].device)
+            out = torch.zeros(c * self.rows_total, LANE, dtype=dtype,
+                              device=device if device is not None
+                              else leaves[0].device)
         flat = out.view(c, self.rows_total * LANE)
         for leaf, off, n in zip(leaves, self.row_offsets, self.sizes):
             flat[:, off * LANE:off * LANE + n].copy_(leaf.reshape(c, n))
         return out
 
-    def pack_shared(self, tree: PyTree) -> torch.Tensor:
-        """Chain-free pytree (global surrogate) -> (rows_total, 128)."""
-        return self.pack(tu.tree_map(lambda t: t[None], tree))
+    def pack_shared(self, tree: PyTree, device=None) -> torch.Tensor:
+        """Chain-free pytree (global surrogate) -> (rows_total, 128)
+        float32 on ``device`` (default: the leaves')."""
+        return self.pack(tu.tree_map(lambda t: t[None], tree),
+                         device=device)
+
+    def views(self, buf: torch.Tensor) -> PyTree:
+        """(C * rows_total, 128) -> leaves (C, *shape), every one a view
+        into ``buf`` in its dtype (writes through them land in it)."""
+        flat = buf.view(-1, self.rows_total * LANE)
+        return tu.unflatten(self.treedef, [
+            flat[:, off * LANE:off * LANE + n].reshape(
+                (flat.shape[0],) + shape)
+            for shape, off, n in zip(self.shapes, self.row_offsets,
+                                     self.sizes)])
+
+    def base_of(self, tree: PyTree) -> Optional[torch.Tensor]:
+        """The packed buffer whose ``views`` ``tree``'s leaves are, or None
+        (then packing it copies)."""
+        leaves, treedef = tu.flatten(tree)
+        base = getattr(leaves[0], "_base", None)
+        if treedef != self.treedef or base is None or base.ndim != 2 \
+                or base.shape[1] != LANE \
+                or base.shape[0] % self.rows_total:
+            return None
+        for t, w in zip(leaves, tu.leaves(self.views(base))):
+            if not (t._base is base and t.data_ptr() == w.data_ptr()
+                    and t.shape == w.shape and t.stride() == w.stride()):
+                return None
+        return base
 
     def unpack(self, buf: torch.Tensor) -> PyTree:
         """(C * rows_total, 128) -> leaves (C, *shape) in their dtypes.
@@ -422,9 +453,9 @@ def packed_step(layout: PackedChains, theta_p: torch.Tensor,
                 scalars: torch.Tensor, *, variant: str, mu_g=None, mu_s=None,
                 lam_g=None, lam_s=None, r_p=None,
                 dynamics: str = "langevin"):
-    """ONE launch updating every leaf of every chain in the block.
-    seeds: (C, L) integer; scalars: (C, L, SCALAR_COLS) from
-    ``packed_scalar_rows``. Returns theta_p' or (theta_p', r_p')."""
+    """ONE launch updating every leaf of every chain in the block, in
+    place: theta_p (and r_p) are updated and returned. seeds: (C, L)
+    integer; scalars: (C, L, SCALAR_COLS) from ``packed_scalar_rows``."""
     seg_leaf, seg_base = layout.tables(theta_p.device)
     return fsgld_update_packed(
         theta_p, g_p, seeds, scalars, variant=variant, dynamics=dynamics,

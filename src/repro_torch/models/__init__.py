@@ -1,12 +1,15 @@
-"""Dense attention transformers for serving (counterpart of
-``repro.models``)."""
+"""Dense attention transformers: the sampling path's log-likelihood and
+serving (counterpart of ``repro.models``)."""
 from repro_torch.models.model import (  # noqa: F401
     ACT_DTYPE,
     broadcast_cache,
+    chunked_log_lik,
     decode_step,
     ensemble_decode_step,
+    forward,
     init_cache,
     init_params,
+    log_lik_fn,
     param_layout,
     prefill_with_cache,
     serving_params,

@@ -1,11 +1,14 @@
 """Layer primitives of the dense attention transformer (counterpart of
-``repro.models.layers``), forward only.
+``repro.models.layers``).
 
 Tensors keep the JAX package's layouts: activations (B, S, D), attention
 (B, S, heads, hd), caches (B, S_cache, K, hd). Two attention modes:
 
-* ``chunked_attention`` — full sequence (prefill), the plain block scan
-  with explicit positions;
+* ``chunked_attention`` — full sequence (training, prefill), the plain
+  block scan with explicit positions and the reference's flash backward
+  (``kernels.flash_attention.attention_scan_bwd``, the port of
+  ``_flash_bwd``), so it differentiates like the reference's
+  ``jax.custom_vjp``;
 * ``decode_attention``  — one token against a (possibly ring) cache.
 
 The MoE FFN, RG-LRU and RWKV-6 blocks are not ported yet (ROADMAP item 15).
@@ -17,7 +20,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.flash_attention import NEG_INF, attention_scan
+from repro_torch.kernels.flash_attention import NEG_INF, scan_attention
 
 
 def cdiv(a: int, b: int) -> int:
@@ -61,14 +64,15 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       window: Optional[int] = None,
                       block_k: int = 512) -> torch.Tensor:
     """Flash-style attention in plain PyTorch: a scan over KV blocks with
-    running max / normaliser (the forward of the reference's
-    ``_flash_fwd_scan``). q (B, Sq, H, hd), k/v (B, Sk, K, hd) with
-    H % K == 0 (KV heads expanded per block); positions (B, Sq) and
-    (B, Sk), -1 marking empty key slots."""
+    running max / normaliser (the reference's ``_flash_fwd_scan``), whose
+    gradient is the reference's flash backward (residuals q, k, v, m,
+    l; per-block probabilities recomputed). q (B, Sq, H, hd), k/v
+    (B, Sk, K, hd) with H % K == 0 (KV heads expanded per block);
+    positions (B, Sq) and (B, Sk), -1 marking empty key slots."""
     if q.shape[2] % k.shape[2]:
         raise ValueError(f"{q.shape[2]} query heads do not split into "
                          f"{k.shape[2]} KV heads")
-    return attention_scan(q, k, v, q_positions, kv_positions, causal=causal,
+    return scan_attention(q, k, v, q_positions, kv_positions, causal=causal,
                           window=window, block_k=block_k)
 
 

@@ -1,6 +1,6 @@
-"""Dense attention language models for serving (counterpart of
-``repro.models.model``): parameters, the cache-populating prefill and the
-single-token decode step, forward only.
+"""Dense attention language models (counterpart of ``repro.models.model``):
+parameters, the training forward and log-likelihood, the cache-populating
+prefill and the single-token decode step.
 
 Parameters are plain nested dicts of tensors in the JAX package's layout:
 ``embed`` (V, D), ``blocks`` with every leaf stacked over the full
@@ -18,8 +18,13 @@ does those casts once for a served draw.
 
 Layer kinds 'attn' and 'swa' (ring cache) run; the MoE FFN, 'rglru',
 'rwkv', 'xattn' (vlm/audio) and the encoder raise NotImplementedError
-(ROADMAP item 15). ``forward`` / ``log_lik_fn`` come with the
-transformer sampling slice.
+(ROADMAP item 15). ``forward`` / ``chunked_log_lik`` / ``log_lik_fn`` are
+the sampling path's likelihood, differentiated by ``torch.func.grad``
+(and vmapped over chains by the engine): their attention is
+``flash_attention_diff``, the kernel with the reference's flash backward.
+No layer is checkpointed: functorch's transforms take no saved-tensor
+hooks, and at the sampling path's 8 x 128 tokens per chain the saved
+activations are a few GB.
 """
 from __future__ import annotations
 
@@ -31,7 +36,8 @@ import torch
 from repro_torch import tree as tu
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.engine import _not_ported
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_diff)
 from repro_torch.models import layers as L
 
 ACT_DTYPE = torch.bfloat16
@@ -192,6 +198,76 @@ def _self_attn(x, p, cfg: ArchConfig, positions, *, window=None,
 def _ffn_residual(x, p, cfg: ArchConfig):
     h = L.rms_norm(x, p["ffn_norm"])
     return x + L.ffn_apply(h, p["ffn"], cfg.ffn_type)
+
+
+# ---------------------------------------------------------------------------
+# training forward and log-likelihood
+# ---------------------------------------------------------------------------
+
+def _layer_trees(params: dict, cfg: ArchConfig):
+    """(layer subtree, kind) of every layer in order. A stacked leaf is
+    unbound once, so that its gradient is one stack of the layers'
+    gradients, not a full-size scatter per layer."""
+    unbound = {}
+    for group, i, key, kind in _layers(cfg):
+        node = params[group][key]
+        if i is None:
+            yield node, kind
+            continue
+        if key not in unbound:
+            leaves, treedef = tu.flatten(node)
+            unbound[key] = (treedef, [t.unbind(0) for t in leaves])
+        treedef, cols = unbound[key]
+        yield tu.unflatten(treedef, [c[i] for c in cols]), kind
+
+
+def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
+            attention: AttentionFn = flash_attention_diff) -> torch.Tensor:
+    """tokens (B, S) integer -> hidden states (B, S, D) before the head
+    (the reference's ``forward`` without its aux loss, which is 0 for the
+    dense layers). Every layer's parameters are cast to bf16 at the point
+    of use, ``final_norm`` is not; activations are bf16. ``attention``
+    (default: the differentiable flash entry) takes q, k, v with implicit
+    positions."""
+    _check_runs(cfg)
+    B, S = tokens.shape
+    x = params["embed"][tokens].to(ACT_DTYPE)
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    for p, kind in _layer_trees(params, cfg):
+        p = _cast_floating(p)
+        window = cfg.swa_window if kind == "swa" else None
+        x, _, _ = _self_attn(x, p, cfg, positions, window=window,
+                             attention=attention)
+        x = _ffn_residual(x, p, cfg)
+    return L.rms_norm(x, params["final_norm"])
+
+
+def chunked_log_lik(hidden: torch.Tensor, head: torch.Tensor,
+                    labels: torch.Tensor, chunk: int = 512) -> torch.Tensor:
+    """sum_t log p(label_t | hidden_t) over sequence chunks, so no (B, S, V)
+    logits exist at once; labels < 0 count nothing. ``head`` (D, V) is
+    used widened to fp32 and the logits are fp32 products and sums (the
+    reference's ``preferred_element_type=float32``)."""
+    head = head.to(torch.float32)
+    tot = hidden.new_zeros((), dtype=torch.float32)
+    for s0 in range(0, hidden.shape[1], chunk):
+        lab = labels[:, s0:s0 + chunk]
+        logits = hidden[:, s0:s0 + chunk].to(torch.float32) @ head
+        ll = torch.gather(logits, -1, lab.clamp_min(0)[..., None])[..., 0] \
+            - torch.logsumexp(logits, -1)
+        tot = tot + torch.where(lab >= 0, ll, 0.0).sum()
+    return tot
+
+
+def log_lik_fn(params: dict, cfg: ArchConfig, batch: dict, *,
+               attention: AttentionFn = flash_attention_diff
+               ) -> torch.Tensor:
+    """Total log-likelihood of a (mini)batch {'tokens', 'labels'} (B, S):
+    the quantity whose gradient SGLD/DSGLD/FSGLD scale by N_s/(f_s m).
+    The head enters in bf16, as in the reference."""
+    hidden = forward(params, cfg, batch["tokens"], attention=attention)
+    return chunked_log_lik(hidden, params["head"].to(ACT_DTYPE),
+                           batch["labels"])
 
 
 # ---------------------------------------------------------------------------

@@ -61,10 +61,11 @@ def test_kernel_matches_plain_version(dev, variant, dynamics):
     sl, sb = layout.tables(dev)
     kw = dict(variant=variant, dynamics=dynamics, seg_leaf=sl, seg_base=sb,
               chains=C, block_rows=layout.block_rows, **ops)
-    fk.reset_launches()
-    out = fk.fsgld_update_packed(th, g, seeds, sc, **kw)
     ref = fk.fsgld_update_packed_plain(th, g, seeds, sc, **kw)
+    fk.reset_launches()
+    out = fk.fsgld_update_packed(th, g, seeds, sc, **kw)  # in place
     assert fk.LAUNCHES["fsgld_update_packed"] == 1
+    assert _pair(out)[0] is th
     for a, b in zip(_pair(out), _pair(ref)):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
 
@@ -241,3 +242,127 @@ def test_serving_prefill_runs_the_kernel_once_per_layer(dev):
                          device=dev)
     res = srv.generate(prompt, gen=6)
     assert torch.equal(res.tokens, torch.stack(want, 1))
+
+
+# ---------------------------------------------------------------------------
+# the training path: the differentiable flash entry and one sampling step
+# ---------------------------------------------------------------------------
+
+# the train shape of qwen3-1.7b (B 8, S 128, H 16/8, hd 128), a ragged
+# multi-tile one with a window, and GQA 8:1
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,Hkv,hd,window", [
+    (8, 128, 16, 8, 128, None), (2, 300, 4, 2, 80, 100),
+    (1, 129, 8, 1, 64, None)])
+def test_differentiable_flash_matches_plain_autograd(dev, dtype, B, S, H,
+                                                     Hkv, hd, window):
+    """Forward: one launch, the output within ``fa.tolerance`` of the
+    plain scan's and bitwise the serving entry's; the row log-sum-exp
+    within 1e-3 of the plain scan's m + log(l) (approximate exp2 in the
+    kernel, another order of sums; rows are O(10)). Backward: dq, dk, dv
+    within ``fa.tolerance`` of autograd through the plain scan
+    ``attention_scan`` on the same values in fp32 (through the bf16 scan
+    autograd rounds the probabilities to bf16 before P V, and its dq
+    strays 6-10x the tolerance from the exact gradient)."""
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=dev).manual_seed(S + hd)
+    q = torch.randn(B, S, H, hd, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, S, Hkv, hd, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, S, Hkv, hd, generator=g, device=dev).to(dtype)
+    dout = torch.randn(B, S, H, hd, generator=g, device=dev).to(dtype)
+    pos = torch.arange(S, device=dev).expand(B, S)
+    fa.reset_launches()
+    out, lse = fa.flash_attention_lse(q, k, v, window=window)
+    assert fa.LAUNCHES["flash_attention"] == 1
+    assert torch.equal(out, fa.flash_attention(q, k, v, window=window))
+    ref, m, l = fa.attention_scan(q, k, v, pos, pos, window=window,
+                                  stats=True)
+    assert bool(((out.float() - ref.float()).abs()
+                 <= fa.tolerance(ref)).all())
+    torch.testing.assert_close(lse, m + torch.log(l), atol=1e-3, rtol=0)
+
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fa.reset_launches()
+    got = torch.autograd.grad(
+        fa.flash_attention_diff(*leaves, window=window), leaves, dout)
+    assert fa.LAUNCHES["flash_attention"] == 1
+    plain = [t.float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(
+        fa.attention_scan(*plain, pos, pos, window=window), plain,
+        dout.float())
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        b = b.to(dtype)
+        assert bool(((a.float() - b.float()).abs()
+                     <= fa.tolerance(b)).all())
+
+
+def test_train_step_launches_the_update_once(dev):
+    """qwen3's smoke config on the card, FSGLD with a bf16 'scalar' bank
+    on the host: each local step (of 2 chains; of 1 chain, whose second
+    step's seeds sit 56 bytes into the round's draw) makes one
+    ``fsgld_update_packed`` launch and one flash launch per layer (the
+    chains folded into one gradient pass); per_leaf gives the same state,
+    bitwise."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import token_shards
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import init_params, log_lik_fn
+    cfg = get_smoke_config("qwen3-1.7b")
+    theta0 = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    data = token_shards(torch.Generator(device=dev).manual_seed(1),
+                        num_shards=2, shard_size=4, seq_len=32,
+                        vocab_size=cfg.vocab_size)
+    ll = lambda p, b: log_lik_fn(p, cfg, b)  # noqa: E731
+    bank = api.fit_bank_local_sgld(
+        ll, data, theta0, torch.Generator(device=dev).manual_seed(2),
+        fit_steps=2, minibatch=2, step_size=1e-5,
+        store_dtype=torch.bfloat16)
+    for C, T in ((2, 1), (1, 2)):
+        out = {}
+        for ex in ("packed", "per_leaf"):
+            s = api.FSGLD(
+                api.Posterior(ll, prior_precision=1.0), data, minibatch=2,
+                step_size=1e-5,
+                surrogate=api.SurrogateSpec(kind="scalar", bank=bank),
+                schedule=api.Schedule(rounds=1, local_steps=T, n_chains=C,
+                                      reassign="permutation"),
+                execution=api.Execution(executor=ex, collect=False,
+                                        bank_device="cpu"))
+            fk.reset_launches()
+            fa.reset_launches()
+            out[ex] = s.sample(torch.Generator(device=dev).manual_seed(3),
+                               theta0)
+            torch.cuda.synchronize()
+            assert fa.LAUNCHES["flash_attention"] == cfg.num_layers * T
+            if ex == "packed":
+                assert fk.LAUNCHES == {"fsgld_update_packed": T,
+                                       "fsgld_update_2d": 0}
+        for a, b in zip(tu.leaves(out["packed"]),
+                        tu.leaves(out["per_leaf"])):
+            assert torch.isfinite(a).all()
+            assert torch.equal(a, b)
+
+
+def test_full_depth_prefill_unchanged_by_the_statistics_entry(dev):
+    """qwen3-1.7b at full width and depth, one draw, 2 x 256 tokens: the
+    serving prefill launches the kernel 28 times, and its logits are
+    bitwise those of a prefill through the statistics entry (the row
+    log-sum-exp written beside changes nothing of the output)."""
+    from repro_torch import models as TM
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    cfg = get_config("qwen3-1.7b")
+    params = TM.serving_params(TM.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev))
+    prompt = torch.randint(0, cfg.vocab_size, (2, 256), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    fa.reset_launches()
+    logits, _ = TM.prefill_with_cache(params, cfg, prompt, 256)
+    assert fa.LAUNCHES["flash_attention"] == cfg.num_layers == 28
+    with_lse, _ = TM.prefill_with_cache(
+        params, cfg, prompt, 256,
+        attention=lambda q, k, v, **kw: fa.flash_attention_lse(q, k, v,
+                                                               **kw)[0])
+    assert torch.equal(logits, with_lse)

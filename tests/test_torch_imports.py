@@ -37,4 +37,7 @@ def test_scan_sees_the_whole_port():
     assert {"api.py", "engine.py", "fsgld_update.py", "ops.py",
             "chip_smoke.py", "flash_planted_faults.py", "sghmc.py",
             "methods.py", "fald.py", "schedule.py", "compress.py",
-            "partition.py", "spec.py", "registry.py"} <= names
+            "partition.py", "spec.py", "registry.py", "train.py",
+            "serve.py", "model.py", "layers.py", "flash_attention.py",
+            "federated.py", "surrogate.py", "synthetic.py",
+            "convert.py"} <= names

@@ -150,14 +150,45 @@ def test_packed_plain_matches_pallas(variant, dynamics):
         seg_leaf=jl.seg_leaf, seg_base=jl.seg_base, chains=C,
         interpret=True, **{k: jnp.asarray(v) for k, v in kw.items()})
     seg_leaf, seg_base = tl.tables("cpu")
+    # the entry updates theta (and r) in place: give it copies
     b = tk.fsgld_update_packed(
-        torch.from_numpy(o["th"]), torch.from_numpy(o["g"]),
+        torch.tensor(o["th"]), torch.from_numpy(o["g"]),
         torch.from_numpy(seeds.astype(np.int64)), torch.from_numpy(sc),
         variant=variant, dynamics=dynamics, seg_leaf=seg_leaf,
         seg_base=seg_base, chains=C,
-        **{k: torch.from_numpy(v) for k, v in kw.items()})
+        **{k: torch.tensor(v) for k, v in kw.items()})
     for x, y in zip(_pair(a), _pair(b)):
         _close(y.numpy(), x)
+
+
+@pytest.mark.parametrize("variant,dynamics", CELLS)
+def test_packed_entry_updates_its_inputs_in_place(variant, dynamics):
+    """The packed entry returns theta2d (and r2d) themselves, holding its
+    plain version's result on the same operands, bitwise; g and the
+    surrogate operands are left as they were."""
+    rng = np.random.default_rng(3)
+    tl = tops.make_packed_layout(
+        {k: torch.from_numpy(v) for k, v in RAGGED.items()})
+    C, L = 2, tl.num_leaves
+    o = _operands(rng, C * tl.rows_total, tl.rows_total)
+    seeds = torch.from_numpy(rng.integers(0, 2**31 - 1, (C, L)))
+    sc = torch.from_numpy((np.abs(rng.standard_normal((C, L, 9))) * 0.1
+                           + 0.05).astype(np.float32))
+    seg_leaf, seg_base = tl.tables("cpu")
+    kw = {k: torch.from_numpy(v)
+          for k, v in _variant_kw(o, variant, dynamics).items()}
+    kw.update(variant=variant, dynamics=dynamics, seg_leaf=seg_leaf,
+              seg_base=seg_base, chains=C, block_rows=tl.block_rows)
+    th, g = torch.from_numpy(o["th"]), torch.from_numpy(o["g"])
+    want = _pair(tk.fsgld_update_packed_plain(th, g, seeds, sc, **kw))
+    keep = {k: v.clone() for k, v in kw.items()
+            if isinstance(v, torch.Tensor) and k != "r2d"}
+    got = _pair(tk.fsgld_update_packed(th, g, seeds, sc, **kw))
+    assert got[0] is th and (dynamics == "langevin" or got[1] is kw["r2d"])
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    for k, v in keep.items():
+        assert torch.equal(kw[k], v)
 
 
 @pytest.mark.parametrize("variant,dynamics", CELLS)
