@@ -12,7 +12,9 @@ Four declarative pieces — :class:`Posterior`, :class:`SurrogateSpec`,
 Runs on CUDA unless ``Execution(device="cpu")`` asks for the CPU; with no
 card and no CPU request, ``Execution()`` raises instead of carrying on on
 the CPU. ``executor='auto'`` is the packed single-launch kernel executor
-on CUDA and the plain ``vmap`` executor on the CPU.
+on CUDA and the plain ``vmap`` executor on the CPU; FSGLD with a 'linear'
+or 'full' bank, which no kernel variant takes, runs on ``vmap`` under
+'auto' and is refused by 'packed' and 'per_leaf'.
 """
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ import torch
 
 from repro_torch import tree as tu
 from repro_torch.configs.base import SamplerConfig
-from repro_torch.core.engine import MeshChainEngine, _not_ported, pad_shards
+from repro_torch.core.engine import (MeshChainEngine, _not_ported,
+                                     check_kernel_kind, pad_shards)
 from repro_torch.core.federated import (fit_bank_fisher, local_sgld_moments,
                                         refresh_bank, sample_local_likelihood)
 from repro_torch.core.sghmc import SGHMCConfig
@@ -69,12 +72,17 @@ class Posterior:
 class SurrogateSpec:
     """How the conducive-gradient surrogates q_s are built.
 
-    kind: 'none' (DSGLD/SGLD), 'diag' (flat-vector params) or 'scalar'
-    (per-tensor isotropic, pytree params). fit (when ``bank`` is None):
-    'auto' ('refresh' for diag, 'local_sgld' for scalar), 'refresh'
-    (gradient-matching Fisher fit at theta0), 'fisher' (Fisher-Laplace at
-    theta0, diag) or 'local_sgld' (short per-client SGLD runs + moment
-    fits, using fit_steps / fit_minibatch / fit_step_size)."""
+    kind: 'none' (DSGLD/SGLD), 'diag' (flat-vector params), 'scalar'
+    (per-tensor isotropic, pytree params), 'linear' (control-variate
+    surrogates, a bounded conducive term; ``core.fit_bank_linear``) or
+    'full' (dense precision, paper-scale models;
+    ``core.fit_bank_from_samples``). 'linear' and 'full' need a prefit
+    ``bank`` and run on the plain 'vmap' executor. fit (when ``bank`` is
+    None): 'auto' ('refresh' for diag, 'local_sgld' for scalar),
+    'refresh' (gradient-matching Fisher fit at theta0), 'fisher'
+    (Fisher-Laplace at theta0, diag) or 'local_sgld' (short per-client
+    SGLD runs + moment fits, using fit_steps / fit_minibatch /
+    fit_step_size)."""
     kind: str = "diag"
     bank: Optional[SurrogateBank] = None
     fit: str = "auto"
@@ -83,10 +91,7 @@ class SurrogateSpec:
     fit_step_size: Optional[float] = None
 
     def __post_init__(self):
-        if self.kind in ("linear", "full"):
-            raise ValueError(f"surrogate kind {self.kind!r} is not ported; "
-                             "the port has 'none', 'diag' and 'scalar'")
-        if self.kind not in ("none", "diag", "scalar"):
+        if self.kind not in ("none", "diag", "scalar", "linear", "full"):
             raise ValueError(f"unknown surrogate kind {self.kind!r}")
         if self.fit not in ("auto", "refresh", "fisher", "local_sgld"):
             raise ValueError(f"unknown surrogate fit {self.fit!r}")
@@ -116,7 +121,8 @@ class Execution:
       pass 'cpu' to run on the CPU.
     executor: 'vmap' (plain reference), 'per_leaf' (one kernel launch per
       leaf per step), 'packed' (one launch per step for the whole chain
-      block) or 'auto' (packed on CUDA, vmap on the CPU).
+      block) or 'auto' (packed on CUDA, vmap on the CPU, and vmap for
+      FSGLD with a 'linear' or 'full' bank, which no kernel takes).
     collect: False returns final chain states instead of a trace.
     dtype: surrogate-mean STORAGE dtype (e.g. torch.bfloat16).
     bank_device: where the surrogate means are stored (None: the run's
@@ -260,6 +266,7 @@ class FSGLD:
         bank = self.surrogate.bank
         self.bank = None if bank is None else self._install(bank)
         self._engine = None
+        self._resolve_executor()  # refuse a kernel executor now, not later
 
     def _install(self, bank: SurrogateBank) -> SurrogateBank:
         bank = bank.to(self.execution.device,
@@ -276,6 +283,11 @@ class FSGLD:
         spec = self.surrogate
         if spec.kind == "none":
             raise ValueError("surrogate kind 'none': nothing to fit")
+        if spec.kind in ("linear", "full"):
+            raise ValueError(
+                f"surrogate kind {spec.kind!r} has no fit here: pass a "
+                "prefit bank (core.fit_bank_linear / "
+                "core.fit_bank_from_samples)")
         theta0 = _to(theta0, self.execution.device)
         fit = spec.fit
         if fit == "auto":
@@ -302,14 +314,24 @@ class FSGLD:
     # -- engine resolution -------------------------------------------------
 
     def _resolve_executor(self) -> tuple[bool, Optional[bool]]:
-        """executor name -> (use_kernel, packed) engine knobs."""
+        """executor name -> (use_kernel, packed) engine knobs. FSGLD with
+        a 'linear' or 'full' bank resolves 'auto' to 'vmap' (no kernel
+        variant takes them, in this port or the reference) and refuses
+        the kernel executors."""
         ex = self.execution.executor
+        kind = None
+        if self.cfg.method == "fsgld":
+            kind = self.bank.kind if self.bank is not None \
+                else self.surrogate.kind
+        plain_only = kind in ("linear", "full")
         if ex == "auto":
-            if self.execution.device.type == "cuda":
+            if self.execution.device.type == "cuda" and not plain_only:
                 return True, None  # packed; per-leaf for non-float leaves
             ex = "vmap"
         if ex == "vmap":
             return False, None
+        if plain_only:
+            check_kernel_kind(kind)
         if ex == "per_leaf":
             return True, False
         return True, True

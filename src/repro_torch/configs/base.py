@@ -157,7 +157,7 @@ class SamplerConfig:
     shard_probs: Optional[Tuple[float, ...]] = None  # None -> uniform
     local_updates: int = 40  # T_local between reassignments (paper Sec 5.3)
     alpha: float = 1.0  # Remark 1 exploration knob; 0 recovers DSGLD
-    surrogate: str = "diag"  # 'diag' | 'scalar'
+    surrogate: str = "diag"  # 'diag' | 'scalar' | 'linear' | 'full'
     prior_precision: float = 1.0  # N(0, lambda^-1 I) prior on params
     temperature: float = 1.0  # noise scale; 0 -> MAP/SGD limit
 

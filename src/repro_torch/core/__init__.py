@@ -1,5 +1,8 @@
 """Conducive gradients + FSGLD in PyTorch."""
-from repro_torch.core.conducive import conducive_gradient  # noqa: F401
+from repro_torch.core.conducive import (  # noqa: F401
+    conducive_gradient,
+    conducive_gradient_from_bank,
+)
 from repro_torch.core.diagnostics import ess, rhat, summarize  # noqa: F401
 from repro_torch.core.engine import (  # noqa: F401
     MeshChainEngine,
@@ -12,7 +15,10 @@ from repro_torch.core.engine import (  # noqa: F401
     pad_shards,
 )
 from repro_torch.core.federated import (  # noqa: F401
+    FederatedSampler,
     fit_bank_fisher,
+    fit_bank_from_samples,
+    fit_bank_linear,
     refresh_bank,
     sample_local_likelihood,
 )

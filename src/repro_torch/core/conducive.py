@@ -11,7 +11,7 @@ from __future__ import annotations
 from typing import Any
 
 from repro_torch import tree as tu
-from repro_torch.core.surrogate import Gaussian
+from repro_torch.core.surrogate import Gaussian, SurrogateBank
 
 PyTree = Any
 
@@ -22,3 +22,9 @@ def conducive_gradient(theta: PyTree, q_global: Gaussian, q_s: Gaussian,
     g_glob = q_global.grad_log(theta)
     g_loc = q_s.grad_log(theta)
     return tu.tree_map(lambda a, b: alpha * (a - b / f_s), g_glob, g_loc)
+
+
+def conducive_gradient_from_bank(theta: PyTree, bank: SurrogateBank, s,
+                                 f_s, alpha: float = 1.0) -> PyTree:
+    """g_s(theta) for client ``s`` of ``bank``."""
+    return conducive_gradient(theta, bank.global_, bank.shard(s), f_s, alpha)

@@ -208,6 +208,15 @@ def _make_batch_sampler(cfg: SamplerConfig, scheme: ShardScheme):
 # round functions (one per executor)
 # ---------------------------------------------------------------------------
 
+def check_kernel_kind(bank_kind: Optional[str]) -> None:
+    """The fused kernel's operands are 'diag' or 'scalar' banks (or none):
+    'linear' and 'full' banks run on the plain 'vmap' executor only."""
+    if bank_kind not in (None, "diag", "scalar"):
+        raise ValueError(f"surrogate kind {bank_kind!r} has no fused-kernel "
+                         "variant (the kernel takes 'diag' or 'scalar' "
+                         "banks); run it on the 'vmap' executor")
+
+
 def make_round_fn(log_lik_fn: LogLikFn, cfg: SamplerConfig,
                   scheme: ShardScheme, minibatch: int,
                   bank: Optional[SurrogateBank] = None,
@@ -255,6 +264,7 @@ def make_chain_round_fn(log_lik_fn: LogLikFn, cfg: SamplerConfig,
     # only FSGLD carries the conducive correction
     use_surrogate = cfg.method == "fsgld"
     bank_kind = bank_kind if use_surrogate else None
+    check_kernel_kind(bank_kind)
     dyn = (dict(dynamics="sghmc", friction=hmc.friction,
                 temperature=hmc.temperature) if hmc
            else dict(temperature=cfg.temperature))
@@ -361,6 +371,7 @@ def make_packed_round_fn(log_lik_fn: LogLikFn, cfg: SamplerConfig,
     grad_v = vmap(grad(log_lik_fn))
     use_surrogate = cfg.method == "fsgld"
     bank_kind = bank_kind if use_surrogate else None
+    check_kernel_kind(bank_kind)
     dynamics = "sghmc" if hmc else "langevin"
 
     def round_fn(state, draws, shard_data, pbank=None, *, on_step=None):

@@ -1,5 +1,6 @@
-"""Client-side surrogate fitting (paper Sec 3.1, App. F.2); counterpart of
-the fitting half of ``repro.core.federated``.
+"""Client-side surrogate fitting (paper Sec 3.1, App. F.2) and the
+host-loop oracle ``FederatedSampler``; counterpart of
+``repro.core.federated``.
 
 ``sample_local_likelihood`` and the Fisher fits are batched over the
 client axis S with ``torch.func.vmap`` and, for per-example gradients,
@@ -10,16 +11,22 @@ moments, for parameter trees too large to hold S chains and their traces
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Any
+from typing import Any, Optional
 
 import torch
 from torch.func import grad, vmap
 
 from repro_torch import tree as tu
-from repro_torch.core.sampler import LogLikFn
+from repro_torch.configs.base import SamplerConfig
+from repro_torch.core.engine import _not_ported, draw_round
+from repro_torch.core.sampler import (LogLikFn, ShardScheme,
+                                      kernel_step_operands, langevin_update,
+                                      make_drift_fn)
+from repro_torch.core.sghmc import SGHMCConfig, init_momentum, sghmc_update
 from repro_torch.core.surrogate import (RunningMoments, SurrogateBank,
-                                        make_bank)
+                                        fit_gaussian, make_bank)
 
 PyTree = Any
 
@@ -147,3 +154,192 @@ def refresh_bank(log_lik_fn: LogLikFn, shard_data: PyTree,
     precs = torch.clamp(centered, min=0.0) + jitter
     mus = theta[None] + gsum / precs
     return make_bank(mus, precs, "diag")
+
+
+def fit_bank_linear(log_lik_fn: LogLikFn, shard_data: PyTree,
+                    theta_ref: PyTree, batch: int = 256) -> SurrogateBank:
+    """Linear (control-variate) surrogates, log q_s(theta) = b_s . theta
+    with b_s = grad log p(x_s | theta_ref): the conducive gradient becomes
+    the CONSTANT sum_s' b_s' - b_s / f_s, zero-mean and bounded. One
+    full-shard gradient pass per client, all clients at once: the
+    gradients of the chunks of ``batch`` rows summed in chunk order, then
+    the tail's added (the reference's order)."""
+    n_s = tu.leaves(shard_data)[0].shape[1]
+    grad_v = vmap(grad(log_lik_fn), in_dims=(None, 0))
+    nb = n_s // batch
+    chunks = [grad_v(theta_ref, tu.tree_map(
+        lambda d: d[:, i * batch:(i + 1) * batch], shard_data))
+        for i in range(nb)]
+    total = (tu.tree_map(lambda *gs: torch.stack(gs).sum(0), *chunks)
+             if chunks else None)
+    if n_s - nb * batch:
+        tail = grad_v(theta_ref, tu.tree_map(lambda d: d[:, nb * batch:],
+                                             shard_data))
+        total = tail if total is None else tu.tree_map(torch.add, total,
+                                                       tail)
+    return make_bank(total, tu.tree_map(torch.zeros_like, total), "linear")
+
+
+def fit_bank_from_samples(samples_flat: torch.Tensor, kind: str,
+                          jitter: float = 1e-6,
+                          max_prec: Optional[float] = None) -> SurrogateBank:
+    """(S, n, P) flat-vector samples -> a 'diag' or 'full' bank, one
+    ``fit_gaussian`` per client. ``max_prec`` clips the precisions
+    elementwise: under-mixed local chains overestimate them, and a too
+    sharp q_s pushes h * Lambda_s / f_s past the Langevin stability limit
+    (a safe choice is ~0.5 * f_min / h); Lemma 1 holds for any q."""
+    fits = [fit_gaussian(s, kind, jitter) for s in samples_flat]
+    mus = torch.stack([m for m, _ in fits])
+    precs = torch.stack([p for _, p in fits])
+    if max_prec is not None:
+        precs = torch.clamp(precs, max=max_prec)
+    return make_bank(mus, precs, kind)
+
+
+# ---------------------------------------------------------------------------
+# the host-loop oracle
+# ---------------------------------------------------------------------------
+
+def _minibatch(shard_data: PyTree, shard_id: int, idx: torch.Tensor
+               ) -> PyTree:
+    """Rows ``idx`` of client ``shard_id``."""
+    return tu.tree_map(lambda d: d[shard_id][idx], shard_data)
+
+
+@dataclasses.dataclass
+class FederatedSampler:
+    """The ``run_vmap`` ORACLE the chain engine is held against: a host
+    loop over rounds, steps and chains, a test fixture (production code
+    goes through ``repro_torch.api.FSGLD``).
+
+    shard_data: pytree with leaves (S, N_s, ...), equally sized shards.
+    Each round takes its randomness from ``core.engine.draw_round`` on the
+    run's generator (client ids, minibatch rows, noise seeds), gathers
+    each chain's minibatch from its client (centralized 'sgld': from the
+    pooled data), and takes the gradients of the chain block under
+    ``torch.func.vmap``. The plain update (``use_kernel=False``) draws its
+    noise from the generator after the round's draws, so the oracle equals
+    the engine's ``vmap`` executor bitwise; ``use_kernel=True`` launches
+    the fused kernel once per chain and leaf with the round's seeds, which
+    equals the ``per_leaf`` executor bitwise (a 'linear' or 'full' bank,
+    which no kernel variant takes, raises ``ValueError`` from the kernel's
+    operands there). ``dynamics='sghmc'`` carries
+    (theta, momentum) chain state (``sghmc`` its config); the trace holds
+    theta only."""
+    log_lik_fn: LogLikFn
+    cfg: SamplerConfig
+    shard_data: PyTree
+    minibatch: int
+    bank: Optional[SurrogateBank] = None
+    use_kernel: bool = False
+    dynamics: str = "langevin"
+    sghmc: Optional[SGHMCConfig] = None
+
+    def __post_init__(self):
+        leaf = tu.leaves(self.shard_data)[0]
+        s, n = leaf.shape[0], leaf.shape[1]
+        if s != self.cfg.num_shards:
+            raise ValueError(f"shard_data holds {s} shards, the config "
+                             f"{self.cfg.num_shards}")
+        if self.dynamics not in ("langevin", "sghmc"):
+            raise ValueError(f"unknown dynamics {self.dynamics!r}")
+        if self.dynamics == "sghmc" and self.sghmc is None:
+            self.sghmc = SGHMCConfig()
+        self.scheme = ShardScheme(sizes=(n,) * s, probs=self.cfg.probs())
+        self.fsgld_bank = self.bank if self.cfg.method == "fsgld" else None
+        self._drift = make_drift_fn(self.log_lik_fn, self.cfg, self.scheme,
+                                    self.fsgld_bank)
+        self._operands = kernel_step_operands(self.cfg, self.scheme,
+                                              self.fsgld_bank)
+
+    def _batch(self, idx: torch.Tensor, sids: torch.Tensor) -> PyTree:
+        """One step's (C, m, ...) minibatch: (C, m) rows of each chain's
+        client, or of the pooled data for centralized SGLD."""
+        if self.cfg.method == "sgld":
+            pooled = tu.tree_map(
+                lambda d: d.reshape((-1,) + tuple(d.shape[2:])),
+                self.shard_data)
+            rows = [tu.tree_map(lambda d: d[i], pooled) for i in idx]
+        else:
+            rows = [_minibatch(self.shard_data, int(s), i)
+                    for s, i in zip(sids.tolist(), idx)]
+        return tu.tree_map(lambda *xs: torch.stack(xs), *rows)
+
+    def _kernel_step(self, thetas, r, g, seeds, sids):
+        """The fused update, one chain at a time."""
+        from repro_torch.kernels import ops as kops
+        hmc = self.sghmc if self.dynamics == "sghmc" else None
+        outs = []
+        for c in range(seeds.shape[0]):
+            one = lambda t: tu.tree_map(lambda a: a[c], t)  # noqa: E731
+            scale, f_s, q_g, q_s = self._operands(sids[c], self.minibatch)
+            outs.append(kops.fused_update_tree(
+                one(thetas), one(g), seeds[c], h=self.cfg.step_size,
+                scale=scale, f_s=f_s, prior_prec=self.cfg.prior_precision,
+                alpha=self.cfg.alpha,
+                temperature=(hmc.temperature if hmc
+                             else self.cfg.temperature),
+                q_global=q_g, q_shard=q_s,
+                surrogate_kind=(self.fsgld_bank.kind
+                                if self.fsgld_bank is not None else None),
+                momentum=one(r) if hmc else None,
+                friction=hmc.friction if hmc else 0.0,
+                dynamics=self.dynamics))
+        stack = lambda *xs: torch.stack(xs)  # noqa: E731
+        if hmc:
+            return (tu.tree_map(stack, *[o[0] for o in outs]),
+                    tu.tree_map(stack, *[o[1] for o in outs]))
+        return tu.tree_map(stack, *outs), None
+
+    def _round(self, thetas, r, draws, generator, collect_every):
+        """Client-side Update: T local steps of every chain; returns the
+        new state and the kept thetas."""
+        m, sids = self.minibatch, draws.sids
+        kept = []
+        for t in range(self.cfg.local_updates):
+            batch = self._batch(draws.idx[t], sids)
+            if self.use_kernel:
+                g = vmap(grad(self.log_lik_fn))(thetas, batch)
+                thetas, r = self._kernel_step(thetas, r, g, draws.seeds[t],
+                                              sids)
+            else:
+                d = vmap(lambda th, b, s: self._drift(th, b, s, m))(
+                    thetas, batch, sids)
+                if self.dynamics == "sghmc":
+                    thetas, r = sghmc_update(thetas, r, d,
+                                             self.cfg.step_size, generator,
+                                             self.sghmc)
+                else:
+                    thetas = langevin_update(thetas, d, self.cfg.step_size,
+                                             generator,
+                                             self.cfg.temperature)
+            if t % collect_every == 0:
+                kept.append(thetas)
+        return thetas, r, tu.tree_map(lambda *xs: torch.stack(xs, 1), *kept)
+
+    def run_vmap(self, generator: torch.Generator, theta0: PyTree,
+                 num_rounds: int, *, n_chains: int = 1,
+                 reassign: str = "categorical", collect_every: int = 1,
+                 refresh_every: Optional[int] = None) -> PyTree:
+        """Server-side loop: ``num_rounds`` rounds of ``n_chains`` chains
+        from ``theta0``. Returns the trace, leaves (n_chains, num_rounds *
+        ceil(T / collect_every), ...)."""
+        if refresh_every and self.dynamics == "sghmc":
+            raise NotImplementedError(
+                "adaptive refresh is not wired for sghmc dynamics")
+        if refresh_every:
+            raise _not_ported("refresh_every (adaptive refresh)", 8)
+        C = n_chains
+        thetas = tu.tree_map(
+            lambda t: torch.broadcast_to(t, (C,) + t.shape).clone(), theta0)
+        r = init_momentum(thetas) if self.dynamics == "sghmc" else None
+        num_leaves = len(tu.leaves(thetas))
+        out = []
+        for _ in range(num_rounds):
+            draws = draw_round(generator, self.cfg, self.scheme, n_chains=C,
+                               minibatch=self.minibatch,
+                               num_leaves=num_leaves, reassign=reassign)
+            thetas, r, trace = self._round(thetas, r, draws, generator,
+                                           collect_every)
+            out.append(trace)
+        return tu.tree_map(lambda *xs: torch.cat(xs, 1), *out)

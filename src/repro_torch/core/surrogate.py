@@ -1,15 +1,18 @@
-"""Gaussian surrogates q_s(theta) ~= p(x_s | theta) (paper Sec 3.1);
-counterpart of ``repro.core.surrogate``.
+"""Exponential-family surrogates q_s(theta) ~= p(x_s | theta) (paper Sec
+3.1); counterpart of ``repro.core.surrogate``.
 
-Two precision structures in this port so far:
+Four structures:
 
-  'diag'   — mean (P,), precision (P,).     flat-vector parameters.
+  'full'   — mean (P,), precision (P, P).     paper-scale models.
+  'diag'   — mean (P,), precision (P,).       flat-vector parameters.
   'scalar' — pytree means + ONE precision scalar per tensor.
+  'linear' — log q(theta) = b . theta, b stored as the mean (a pytree),
+             zero precision: a control-variate surrogate.
 
 Gaussians are closed under products, so the global surrogate
 q = prod_s q_s has precision sum(Lambda_s) and natural parameter
-sum(Lambda_s mu_s). A ``SurrogateBank`` stacks the S shard surrogates
-along a leading axis.
+sum(Lambda_s mu_s); the product of linear members is b_g = sum_s b_s. A
+``SurrogateBank`` stacks the S shard surrogates along a leading axis.
 """
 from __future__ import annotations
 
@@ -21,30 +24,53 @@ import torch
 from repro_torch import tree as tu
 
 PyTree = Any
-KINDS = ("diag", "scalar")
+KINDS = ("diag", "scalar", "linear", "full")
 
 
 def _kind_check(kind: str) -> None:
     if kind not in KINDS:
-        raise ValueError(f"surrogate kind {kind!r} is not ported; the port "
-                         f"has {KINDS}")
+        raise ValueError(f"unknown surrogate kind {kind!r}; pick from "
+                         f"{KINDS}")
 
 
 @dataclasses.dataclass
 class Gaussian:
-    """One Gaussian surrogate: flat ``mean``/``prec`` vectors ('diag') or
-    a pytree of means with a scalar precision per leaf ('scalar')."""
+    """One surrogate: flat ``mean``/``prec`` vectors ('diag'), a flat mean
+    and a (P, P) precision ('full'), a pytree of means with a scalar
+    precision per leaf ('scalar'), or the pytree b of log q = b . theta in
+    ``mean`` ('linear')."""
     mean: PyTree
     prec: PyTree
     kind: str = "diag"
 
     def grad_log(self, theta: PyTree) -> PyTree:
-        """grad log q(theta) = -Lambda (theta - mu)."""
+        """grad log q(theta) = -Lambda (theta - mu); 'linear': b."""
         _kind_check(self.kind)
+        if self.kind == "linear":
+            return self.mean
+        if self.kind == "full":
+            return -(self.prec @ (theta - self.mean))
         if self.kind == "diag":
             return -self.prec * (theta - self.mean)
         return tu.tree_map(lambda th, mu, lam: -lam * (th - mu.to(th.dtype)),
                            theta, self.mean, self.prec)
+
+    def log_density(self, theta: PyTree) -> torch.Tensor:
+        """Unnormalised log q(theta) (for diagnostics)."""
+        _kind_check(self.kind)
+        if self.kind == "linear":
+            return sum(tu.leaves(tu.tree_map(lambda b, t: torch.sum(b * t),
+                                             self.mean, theta)))
+        if self.kind == "full":
+            d = theta - self.mean
+            return -0.5 * d @ (self.prec @ d)
+        if self.kind == "diag":
+            d = theta - self.mean
+            return -0.5 * torch.sum(self.prec * d * d)
+        return sum(tu.leaves(tu.tree_map(
+            lambda th, mu, lam:
+            -0.5 * lam * torch.sum((th - mu.to(th.dtype)) ** 2),
+            theta, self.mean, self.prec)))
 
 
 @dataclasses.dataclass
@@ -92,7 +118,17 @@ def make_bank(means: PyTree, precs: PyTree, kind: str,
     Gaussian global surrogate computed in the input dtype before any
     ``store_dtype`` cast of the means."""
     _kind_check(kind)
-    if kind == "diag":
+    if kind == "linear":
+        # the product of linear members: b_g = sum_s b_s
+        mean_g = tu.tree_map(lambda b: b.sum(0), means)
+        prec_g = tu.tree_map(lambda b: torch.zeros(b.shape[1:],
+                                                   dtype=b.dtype,
+                                                   device=b.device), means)
+    elif kind == "full":
+        prec_g = precs.sum(0)                              # (P, P)
+        nat = torch.einsum("spq,sq->p", precs, means)
+        mean_g = torch.linalg.solve(prec_g, nat)
+    elif kind == "diag":
         prec_g = precs.sum(0)
         mean_g = (precs * means).sum(0) / torch.clamp(prec_g, min=1e-12)
     else:
@@ -112,11 +148,24 @@ def make_bank(means: PyTree, precs: PyTree, kind: str,
 
 def fit_gaussian(samples: torch.Tensor, kind: str, jitter: float = 1e-6,
                  likelihood_only: bool = True, prior_prec: float = 0.0):
-    """Fit one diagonal Gaussian to (n_samples, P) draws. With
-    ``likelihood_only=False`` and ``prior_prec > 0`` the prior precision
-    is subtracted in natural parameters (the draws targeted
-    prior * likelihood). Returns (mean, precision)."""
+    """Fit one Gaussian, 'full' (the unbiased sample covariance + jitter,
+    inverted) or 'diag' (the population variance + jitter), to
+    (n_samples, P) draws. With ``likelihood_only=False`` and
+    ``prior_prec > 0`` the zero-mean prior's precision is subtracted in
+    natural parameters (the draws targeted prior * likelihood). Returns
+    (mean, precision)."""
     mu = samples.mean(0)
+    if kind == "full":
+        eye = torch.eye(samples.shape[1], dtype=samples.dtype,
+                        device=samples.device)
+        cov = torch.atleast_2d(torch.cov(samples.T)) + jitter * eye
+        prec = torch.linalg.inv(cov)
+        if not likelihood_only and prior_prec > 0:
+            prec_l = prec - prior_prec * eye
+            nat = prec @ mu
+            mu = torch.linalg.solve(prec_l + jitter * eye, nat)
+            prec = prec_l
+        return mu, prec
     if kind == "diag":
         prec = 1.0 / (samples.var(0, unbiased=False) + jitter)
         if not likelihood_only and prior_prec > 0:
@@ -150,7 +199,9 @@ class RunningMoments:
     leaf's mean variance)."""
 
     def __init__(self, kind: str, shift: PyTree = None):
-        _kind_check(kind)
+        if kind not in ("diag", "scalar"):
+            raise ValueError(f"running moments fit 'diag' or 'scalar', "
+                             f"not {kind!r}")
         self.kind = kind
         self.shift = shift
         self.n = 0

@@ -26,9 +26,9 @@ ll/token per chain at theta0 and after sampling, and the chain-steps/s.
 
 The flags of the reference that wait for other parts of the port raise
 NotImplementedError naming their ROADMAP item: ``--clients`` /
-``--resident`` (13), ``--draw-bank`` / ``--ckpt`` / ``--snapshot-*`` /
-``--resume`` (11), ``--metrics-dir`` / ``--log-every`` (12) and
-``--multi-pod`` (8).
+``--resident`` (13), ``--draw-bank`` / ``--bank-every`` other than 1 /
+``--ckpt`` / ``--snapshot-*`` / ``--resume`` (11), ``--metrics-dir`` /
+``--log-every`` (12) and ``--multi-pod`` (8).
 """
 from __future__ import annotations
 
@@ -97,6 +97,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="not ported (item 8)")
     ap.add_argument("--ckpt", default=None, help="not ported (item 11)")
     ap.add_argument("--draw-bank", default=None, help="not ported (item 11)")
+    ap.add_argument("--bank-every", type=int, default=1,
+                    help="rounds per draw-bank segment; only 1 (no draw "
+                         "bank) is ported (item 11)")
     ap.add_argument("--snapshot-every", type=int, default=None,
                     help="not ported (item 11)")
     ap.add_argument("--snapshot-dir", default=None,
@@ -111,6 +114,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     for flag, item in _REFUSED:
         if getattr(args, flag) not in (None, False):
             raise _not_ported(f"--{flag.replace('_', '-')}", item)
+    if args.bank_every != 1:
+        raise _not_ported(f"--bank-every {args.bank_every}", 11)
     return args
 
 

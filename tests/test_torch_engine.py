@@ -239,8 +239,76 @@ def test_refusals_name_the_roadmap_item():
             s.engine.run(g, theta0, 1, **kw)
     with pytest.raises(NotImplementedError, match="item 8"):
         api.Serving(mesh=object(), device="cpu")
-    with pytest.raises(ValueError, match="not ported"):
-        api.SurrogateSpec(kind="full")
+
+
+def _plain_only_bank(kind, S=3, P=4):
+    g = torch.Generator().manual_seed(0)
+    means = torch.randn((S, P), generator=g)
+    if kind == "linear":
+        return make_bank(means, torch.zeros(S, P), "linear")
+    a = torch.randn((S, P, P), generator=g)
+    return make_bank(means, a @ a.transpose(1, 2) + P * torch.eye(P),
+                     "full")
+
+
+def _gauss_sampler(kind, executor):
+    """A Gaussian mean on 3 clients of 10 points in 4 dimensions."""
+    x = torch.randn((3, 10, 4), generator=torch.Generator().manual_seed(1))
+    return api.FSGLD(
+        api.Posterior(lambda th, b: -0.5 * torch.sum((b["x"] - th) ** 2)),
+        {"x": x}, minibatch=4, step_size=1e-4,
+        surrogate=api.SurrogateSpec(kind=kind, bank=_plain_only_bank(kind)),
+        schedule=api.Schedule(rounds=2, local_steps=3, n_chains=2),
+        execution=api.Execution(device="cpu", executor=executor))
+
+
+@pytest.mark.parametrize("kind", ["full", "linear"])
+def test_linear_and_full_kinds_build_and_run_on_vmap(kind):
+    """The 'linear' and 'full' kinds build, 'auto' runs them on the plain
+    vmap executor (the only one the reference runs them on), bitwise as
+    an explicit 'vmap'."""
+    assert api.SurrogateSpec(kind=kind).kind == kind
+    out = {}
+    for ex in ("auto", "vmap"):
+        s = _gauss_sampler(kind, ex)
+        assert s._resolve_executor() == (False, None)
+        out[ex] = s.sample(torch.Generator().manual_seed(2), torch.zeros(4))
+        assert out[ex].shape == (2, 6, 4)
+        assert bool(torch.isfinite(out[ex]).all())
+    assert torch.equal(out["auto"], out["vmap"])
+
+
+@pytest.mark.parametrize("kind", ["full", "linear"])
+@pytest.mark.parametrize("executor", ["packed", "per_leaf"])
+def test_linear_and_full_kinds_refuse_the_kernel_executors(kind, executor):
+    """No kernel variant takes them: an explicit kernel executor raises
+    ValueError naming the kind at construction, as does the engine's
+    round, and the facade cannot fit them (a prefit bank is needed)."""
+    with pytest.raises(ValueError, match=kind):
+        _gauss_sampler(kind, executor)
+    cfg = TCfg(method="fsgld", num_shards=3, local_updates=1)
+    eng = teng.MeshChainEngine(
+        lambda th, b: -0.5 * torch.sum((b["x"] - th) ** 2), cfg,
+        {"x": torch.zeros(3, 10, 4)}, 4, bank=_plain_only_bank(kind),
+        use_kernel=True, packed=executor == "packed")
+    with pytest.raises(ValueError, match=kind):
+        eng.run(torch.Generator(), torch.zeros(4), 1)
+    s = _gauss_sampler(kind, "vmap")
+    s.surrogate = api.SurrogateSpec(kind=kind)
+    with pytest.raises(ValueError, match="prefit bank"):
+        s.fit(torch.Generator(), torch.zeros(4))
+
+
+def test_auto_on_cuda_resolves_by_the_bank_kind():
+    """'auto' on a CUDA execution is packed for a 'diag' bank and vmap for
+    'linear' / 'full' (resolved in the facade, not deep in pack_bank)."""
+    for kind, want in (("linear", (False, None)), ("full", (False, None)),
+                       ("diag", (True, None))):
+        s = _gauss_sampler("full" if kind == "diag" else kind, "vmap")
+        if kind == "diag":
+            s.bank = make_bank(torch.zeros(3, 4), torch.ones(3, 4), "diag")
+        s.execution = api.Execution(device="cuda", executor="auto")
+        assert s._resolve_executor() == want
 
 
 def test_draws_stay_in_the_live_prefix_and_follow_reassign():

@@ -40,4 +40,5 @@ def test_scan_sees_the_whole_port():
             "partition.py", "spec.py", "registry.py", "train.py",
             "serve.py", "model.py", "layers.py", "flash_attention.py",
             "federated.py", "surrogate.py", "synthetic.py",
-            "convert.py"} <= names
+            "convert.py", "calibration.py", "workloads.py",
+            "paper_runs.py"} <= names

@@ -581,10 +581,16 @@ def test_train_cli_on_the_cpu_prints_finite_ll_per_chain(extra, capsys):
     (["--draw-bank", "d"], 11), (["--ckpt", "c"], 11),
     (["--snapshot-every", "2"], 11), (["--snapshot-dir", "d"], 11),
     (["--resume"], 11), (["--metrics-dir", "m"], 12),
-    (["--log-every", "1"], 12), (["--multi-pod"], 8)])
+    (["--log-every", "1"], 12), (["--multi-pod"], 8),
+    (["--bank-every", "2"], 11)])
 def test_train_cli_refuses_flags_naming_their_item(flag, item):
     with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
         ttrain.main(SMALL + flag)
+
+
+def test_train_cli_runs_with_bank_every_one_the_reference_default():
+    assert ttrain.parse_args(SMALL).bank_every == 1
+    assert ttrain.main(SMALL + ["--bank-every", "1"]) == 0
 
 
 def test_train_cli_needs_cuda_unless_asked_for_the_cpu(monkeypatch):
