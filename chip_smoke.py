@@ -48,6 +48,16 @@ nvcc per source, in parallel) and drives its two paths through the
   (the chain axis folded into the flash kernel's batch, the first update
   against the plain version) and the differentiable flash entry against
   plain autograd at the train shape;
+* fault tolerance: the Table-1 BNN under chaos plans (a NaN chain under
+  quarantine and respawn, the divergence detector, a NaN compressed
+  payload) on packed and per-leaf, each against the fault-free run
+  bitwise, and the health check's cost per round; kill and resume,
+  bitwise, on Table 1 (without a federation and under a hard one) and at
+  [train-c2]'s size (6.59 GB of chain state per snapshot), the snapshot
+  I/O timed; the train -> draw bank -> serve pipeline at qwen3-1.7b's full
+  width and depth through both drivers (the freshest draw bitwise the
+  final chain state; one flash launch per layer per request, none in
+  decode), then a refresh hot-swap and a corrupt draw at 2 layers;
 
 and times each kernel beside its bound, its plain version and, where one
 PyTorch call computes the same function, that call. Exits non-zero,
@@ -61,9 +71,12 @@ import dataclasses
 import itertools
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -151,15 +164,35 @@ QWEN3_P = 2_031_739_904
 TRAIN_ATTN = (8, 128, 16, 8, 128)
 # the reduced-depth phase: full width, C2_LAYERS of 28 layers, C2_CHAINS
 C2_LAYERS, C2_CHAINS = 4, 2
+# Fault tolerance. [chaos]: the Table-1 run under chaos plans; the
+# detector's threshold in nats, far above the spread of the probe (a
+# 50-point minibatch log-likelihood), and the timing's repetitions.
+# [resume]: Table-1 RESUME_ROUNDS rounds, a snapshot every RESUME_EVERY;
+# [train-c2]'s model C2_RESUME_ROUNDS rounds, every C2_RESUME_EVERY.
+# [bank]: the train driver at full width and depth, BANK_ROUNDS rounds,
+# a draw every BANK_EVERY; the refresh checks at BANK_LAYERS layers.
+CHAOS_THRESHOLD, CHAOS_REPS, CHAOS_TIME_ROUNDS = 1e4, 3, 200
+RESUME_ROUNDS, RESUME_EVERY = 7, 3
+C2_RESUME_ROUNDS, C2_RESUME_EVERY = 4, 2
+BANK_ROUNDS, BANK_EVERY, BANK_LAYERS = 4, 2, 2
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+_PHASE_START = []
+
+
 def phase(title: str) -> None:
-    """A phase's header, with the device memory held when it starts."""
-    log(f"{title} ({torch.cuda.memory_allocated() / 1e9:.2f} GB allocated)")
+    """A phase's header, with the device memory held when it starts and
+    the host seconds since the previous header."""
+    now = time.perf_counter()
+    since = (f"; {now - _PHASE_START[-1]:.1f} s since the last header"
+             if _PHASE_START else "")
+    _PHASE_START.append(now)
+    log(f"{title} ({torch.cuda.memory_allocated() / 1e9:.2f} GB allocated"
+        f"{since})")
 
 
 def cuda_sync() -> None:
@@ -587,22 +620,35 @@ def time_small_fit(dev, shards, theta0):
     return ms
 
 
+def _counted(name, fn, expect, flash=None):
+    """Run ``fn`` with the launch counts set to 0 just before it and read
+    just after; ``expect`` maps update entry -> launches it must make,
+    ``flash`` the flash-attention launches (when given). Returns (fn's
+    result, host seconds, update counts, flash launches)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fsgld_update as fk
+    cuda_sync()
+    fk.reset_launches()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    cuda_sync()
+    dt = time.perf_counter() - t0
+    counts, n_flash = dict(fk.LAUNCHES), fa.LAUNCHES["flash_attention"]
+    if any(counts[k] != v for k, v in expect.items()) or \
+            (flash is not None and n_flash != flash):
+        raise AssertionError(f"{name}: launches {counts}, flash {n_flash}; "
+                             f"expected {expect}, flash {flash}")
+    return out, dt, counts, n_flash
+
+
 def run_path(name, sampler, gen, theta0, expect, dynamics=None):
     """Drive one path with the launch counts set to 0 just before it and
     read just after; ``expect`` maps entry -> launches it must make (and
     every one of them with ``dynamics``, when given)."""
     from repro_torch.kernels import fsgld_update as fk
-    cuda_sync()
-    fk.reset_launches()
-    t0 = time.perf_counter()
-    out = sampler.sample(gen, theta0)
-    cuda_sync()
-    dt = time.perf_counter() - t0
-    counts = dict(fk.LAUNCHES)
-    for entry, want in expect.items():
-        if counts[entry] != want:
-            raise AssertionError(f"{name}: {entry} launched "
-                                 f"{counts[entry]} times, expected {want}")
+    out, dt, counts, _ = _counted(name, lambda: sampler.sample(gen, theta0),
+                                  expect)
     if dynamics is not None and \
             fk.DYNAMICS_LAUNCHES[dynamics] != sum(counts.values()):
         raise AssertionError(f"{name}: launches by dynamics "
@@ -690,8 +736,9 @@ class ExchangeTimer:
 
 def t1_sampler(dev, shards, bank, executor, *, rounds=T1_ROUNDS,
                local_steps=T1_T, thin=20, method="fsgld", step_size=T1_H,
-               **kw):
-    """The Table-1 BNN through the facade (a Fisher bank for FSGLD)."""
+               exe=None, **kw):
+    """The Table-1 BNN through the facade (a Fisher bank for FSGLD);
+    ``exe``: more ``Execution`` fields."""
     from repro_torch import api
     from repro_torch.workloads import table1_log_lik
     return api.FSGLD(
@@ -701,7 +748,8 @@ def t1_sampler(dev, shards, bank, executor, *, rounds=T1_ROUNDS,
                    if method == "fsgld" else None),
         schedule=api.Schedule(rounds=rounds, local_steps=local_steps,
                               n_chains=T1_CHAINS, thin=thin),
-        execution=api.Execution(device=dev, executor=executor), **kw)
+        execution=api.Execution(device=dev, executor=executor,
+                                **(exe or {})), **kw)
 
 
 def _gen(dev, seed):
@@ -1626,21 +1674,10 @@ def phase_train_c2(dev):
     (one launch per layer per pass) and the packed buffer holds both;
     the first step's update held against the plain version."""
     from repro_torch import api
-    from repro_torch.configs import get_config
-    from repro_torch.data import token_shards
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fsgld_update as fk
-    from repro_torch.models import init_params, log_lik_fn
     from repro_torch import tree as tu
-    cfg = dataclasses.replace(get_config("qwen3-1.7b"), num_layers=C2_LAYERS)
-    theta0 = init_params(cfg, _gen(dev, 31), device=dev)
-    data = token_shards(_gen(dev, 37), num_shards=TRAIN_S, shard_size=64,
-                        seq_len=128, vocab_size=cfg.vocab_size)
-    ll = lambda p, b: log_lik_fn(p, cfg, b)  # noqa: E731
-    bank = api.fit_bank_local_sgld(ll, data, theta0, _gen(dev, 41),
-                                   fit_steps=4, minibatch=8,
-                                   step_size=TRAIN_H,
-                                   store_dtype=torch.bfloat16)
+    cfg, theta0, data, bank, ll = _c2_problem(dev)
     T = 2
     s = api.FSGLD(api.Posterior(ll, prior_precision=1.0), data, minibatch=8,
                   step_size=TRAIN_H,
@@ -1669,6 +1706,453 @@ def phase_train_c2(dev):
         f"{n_flash} flash_attention ({C2_LAYERS} per gradient pass, chains "
         f"folded); first update max|kernel-plain| {chk.err:.3e}")
     return chk.err
+
+
+# ---------------------------------------------------------------------------
+# fault tolerance: chain health and chaos, run snapshots, the draw bank
+# ---------------------------------------------------------------------------
+
+class Timed:
+    """While in a ``with`` block: every call of ``obj.name`` is timed
+    (host clock, the device synchronised before and after) into
+    ``seconds``."""
+
+    def __init__(self, obj, name):
+        self.obj, self.name, self.seconds = obj, name, []
+
+    def __enter__(self):
+        self._real = real = getattr(self.obj, self.name)
+
+        def timed(*a, **k):
+            cuda_sync()
+            t0 = time.perf_counter()
+            out = real(*a, **k)
+            cuda_sync()
+            self.seconds.append(time.perf_counter() - t0)
+            return out
+
+        setattr(self.obj, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.obj, self.name, self._real)
+
+
+class RequestLaunches:
+    """While in a ``with`` block: each ``EnsembleServer.generate`` call's
+    result, and its flash launches in the prefill and in the decode."""
+
+    def __init__(self):
+        self.results, self.prefill, self.decode = [], [], []
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.serve import server as srv
+        self._gen, self._pre = srv.EnsembleServer.generate, \
+            srv.ensemble_prefill
+        real_gen, real_pre, mark = self._gen, self._pre, []
+
+        def prefill(*a, **k):
+            out = real_pre(*a, **k)
+            mark.append(fa.LAUNCHES["flash_attention"])
+            return out
+
+        def generate(server, *a, **k):
+            n0 = fa.LAUNCHES["flash_attention"]
+            res = real_gen(server, *a, **k)
+            self.results.append(res)
+            self.prefill.append(mark[-1] - n0)
+            self.decode.append(fa.LAUNCHES["flash_attention"] - mark[-1])
+            return res
+
+        srv.ensemble_prefill, srv.EnsembleServer.generate = prefill, generate
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.serve import server as srv
+        srv.EnsembleServer.generate, srv.ensemble_prefill = self._gen, \
+            self._pre
+
+
+def in_scratch(fn, *args):
+    """``fn(*args, root)`` with ``root`` a new temporary directory, deleted
+    when ``fn`` returns or raises."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        return fn(*args, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _need_disk(root: str, need: float, what: str) -> None:
+    """Print the free space at ``root`` and the bytes ``what`` needs;
+    raise, naming both, when the disk is short."""
+    free = shutil.disk_usage(root).free
+    log(f"  disk at {root}: {free / 1e9:.2f} GB free; {what} needs "
+        f"{need / 1e9:.2f} GB")
+    if free < need:
+        raise AssertionError(f"{what} needs {need / 1e9:.2f} GB of disk, "
+                             f"{root} has {free / 1e9:.2f} GB free")
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch import tree as tu
+    return sum(t.numel() * t.element_size() for t in tu.leaves(tree))
+
+
+def phase_chaos(dev, shards, theta0, bank):
+    """Table-1 BNN, T1_ROUNDS x T1_T steps, C = T1_CHAINS, every step in
+    the trace, through the engine's ``run`` (chaos is a test harness of
+    the engine, as in the reference), on packed and per_leaf: quarantine,
+    respawn, the detector and a corrupted payload, each against the
+    fault-free run; then, on packed, the health check's cost."""
+    from repro_torch.core.health import Recovery
+    from repro_torch.fed import CommSchedule, Compression, Federation
+    from repro_torch.testing import ChaosSpec
+    C, steps = T1_CHAINS, T1_ROUNDS * T1_T
+    nan = ChaosSpec(nan_chains=(1,), nan_rounds=(2,))
+    fed = Federation(schedule=CommSchedule(delay=2),
+                     compression=Compression(kind="topk", frac=0.5,
+                                             error_feedback=True))
+    for ex in ("packed", "per_leaf"):
+        eng = t1_sampler(dev, shards, bank, ex).engine
+        want = _expect(ex, steps)
+
+        def run(ex=ex, eng=eng, **kw):
+            return eng.run(_gen(dev, 20), theta0, T1_ROUNDS, n_chains=C,
+                           **kw)
+
+        base, t_off, _, _ = _counted(f"chaos/{ex}", run, want)
+        (out, h), _, counts, _ = _counted(
+            f"chaos/{ex} quarantine",
+            lambda: run(recovery=Recovery("quarantine"), chaos=nan), want)
+        k = 2 * T1_T  # round 2's first step
+        if h.word.tolist() != [0, 3, 0, 0]:
+            raise AssertionError(f"quarantine word {h.word.tolist()}")
+        same(f"chaos/{ex}: chains 0, 2, 3 under quarantine == fault-free",
+             base[[0, 2, 3]], out[[0, 2, 3]])
+        if not (torch.equal(out[1, :k], base[1, :k])
+                and torch.equal(out[1, k:], base[1, k - 1].expand(
+                    steps - k, -1))
+                and bool(torch.isfinite(out).all())):
+            raise AssertionError(f"chaos/{ex}: chain 1 does not repeat its "
+                                 "post-round-1 state")
+        log(f"  chaos/{ex} quarantine: word {h.word.tolist()}, "
+            f"{sum(counts.values())} update launches ({steps} steps); "
+            f"chain 1 finite, its "
+            f"{steps - k} steps from round 2 on = its state after round 1")
+        resp = [_counted(f"chaos/{ex} respawn", lambda: run(
+            recovery=Recovery("respawn"), chaos=nan), want)[0]
+            for _ in range(2)]
+        if [r[1].word.tolist() for r in resp] != [[0, 1, 0, 0]] * 2:
+            raise AssertionError(f"respawn words "
+                                 f"{[r[1].word.tolist() for r in resp]}")
+        same(f"chaos/{ex}: respawn, run twice", resp[0][0], resp[1][0])
+        if not bool(torch.isfinite(resp[0][0]).all()):
+            raise AssertionError("respawn: non-finite trace")
+        (det, hd), _, _, _ = _counted(f"chaos/{ex} detector", lambda: run(
+            recovery=Recovery("quarantine",
+                              divergence_threshold=CHAOS_THRESHOLD)), want)
+        if hd.n_healthy != C:
+            raise AssertionError(f"detector tripped: {hd.word.tolist()}")
+        same(f"chaos/{ex}: detector (threshold {CHAOS_THRESHOLD:g} nats) "
+             "on a fault-free run == recovery off", det, base)
+        log(f"  chaos/{ex} detector: window reference lp_ref "
+            f"{[round(float(x), 3) for x in hd.lp_ref]}")
+        fbase, _, _, _ = _counted(f"chaos/{ex} fed", lambda: run(
+            federation=fed), want)
+        (fout, hf), _, _, _ = _counted(f"chaos/{ex} payload", lambda: run(
+            federation=fed, recovery=Recovery("quarantine"),
+            chaos=ChaosSpec(payload_nan_chains=(1,),
+                            payload_nan_rounds=(2,))), want)
+        if hf.word.tolist() != [0, 3, 0, 0]:
+            raise AssertionError(f"payload word {hf.word.tolist()}")
+        same(f"chaos/{ex}: a NaN payload (delay 2, top-k 0.5, error "
+             "feedback) quarantines chain 1 alone, word [0, 3, 0, 0]; "
+             "chains 0, 2, 3", fbase[[0, 2, 3]], fout[[0, 2, 3]])
+
+        # the cost, on the main (packed) path: recovery off / on / on with
+        # the detector, in turns, on this run and on CHAOS_TIME_ROUNDS
+        # one-step rounds (where a round's check is not lost in the noise
+        # of 40 steps)
+        if ex != "packed":
+            continue
+        kws = {"off": {}, "on": dict(recovery=Recovery("quarantine")),
+               "detector": dict(recovery=Recovery(
+                   "quarantine", divergence_threshold=CHAOS_THRESHOLD))}
+        short = t1_sampler(dev, shards, bank, ex, rounds=CHAOS_TIME_ROUNDS,
+                           local_steps=1).engine
+        reps = {n: ([], []) for n in kws}
+        for _ in range(CHAOS_REPS):
+            for name, kw in kws.items():
+                reps[name][0].append(_counted("chaos timing", lambda: run(
+                    **kw), want)[1])
+                reps[name][1].append(_counted(
+                    "chaos timing", lambda: short.run(
+                        _gen(dev, 20), theta0, CHAOS_TIME_ROUNDS,
+                        n_chains=C, **kw),
+                    _expect(ex, CHAOS_TIME_ROUNDS))[1])
+        med = {n: [statistics.median(v) for v in r] for n, r in reps.items()}
+        per_round = {n: 1e3 * (med[n][1] - med["off"][1]) / CHAOS_TIME_ROUNDS
+                     for n in ("on", "detector")}
+        log(f"  chaos/{ex} chain-steps/s (median of {CHAOS_REPS}, in turns):"
+            + "".join(f" {n} {steps * C / med[n][0]:.1f};" for n in med)
+            + f" health check per round (from {CHAOS_TIME_ROUNDS} one-step "
+            f"rounds: off {1e3 * med['off'][1] / CHAOS_TIME_ROUNDS:.4f} ms "
+            f"per round) {per_round['on']:.4f} ms, with the detector "
+            f"{per_round['detector']:.4f} ms ({card_line()})")
+
+
+def phase_resume_t1(dev, shards, theta0, bank, root):
+    """Table-1, RESUME_ROUNDS rounds, snapshots every RESUME_EVERY, packed,
+    through the facade, without a federation and under HARD_FED: the
+    snapshotted run and the killed (newest snapshot deleted) and resumed
+    run == the uninterrupted run, bitwise."""
+    from repro_torch.checkpoint import list_snapshots
+    from repro_torch.core import engine as teng
+    from repro_torch.fed import CommSchedule, Compression, Federation
+    hard = Federation(
+        schedule=CommSchedule(delay=2, participation=0.6,
+                              straggler_prob=0.2),
+        compression=Compression(kind="topk", frac=0.5, error_feedback=True))
+    steps = RESUME_ROUNDS * T1_T
+    for name, fed in (("identity", None), ("HARD_FED", hard)):
+        snaps = os.path.join(root, f"t1-{name}")
+
+        def sample(fed=fed, **exe):
+            s = t1_sampler(dev, shards, bank, "packed",
+                           rounds=RESUME_ROUNDS, federation=fed, exe=exe)
+            return s.sample(_gen(dev, 24), theta0)
+
+        ref = _counted(name, sample, _expect("packed", steps))[0]
+        kw = dict(snapshot_every=RESUME_EVERY, snapshot_path=snaps)
+        with Timed(teng, "save_snapshot") as saves:
+            a = _counted(name, lambda: sample(**kw),
+                         _expect("packed", steps))[0]
+        same(f"resume/table1 {name}: snapshots every {RESUME_EVERY} == "
+             "uninterrupted", ref, a)
+        kept = [r for r, _ in list_snapshots(snaps)]
+        shutil.rmtree(list_snapshots(snaps)[-1][1])
+        left = RESUME_ROUNDS - kept[-2]
+        with Timed(teng, "latest_snapshot") as loads:
+            b = _counted(name, lambda: sample(resume=True, **kw),
+                         _expect("packed", left * T1_T))[0]
+        same(f"resume/table1 {name}: snapshots {kept}, the newest deleted, "
+             f"resumed from round {kept[-2]} ({left * T1_T} launches) == "
+             "uninterrupted", ref, b)
+        log(f"  save_snapshot {[round(s, 4) for s in saves.seconds]} s, "
+            f"latest_snapshot {loads.seconds[0]:.4f} s")
+
+
+def _c2_problem(dev):
+    """[train-c2]'s model and data: qwen3-1.7b at full width, C2_LAYERS
+    layers, 4 token clients, a bf16 'scalar' bank from 4 fit steps."""
+    from repro_torch import api
+    from repro_torch.configs import get_config
+    from repro_torch.data import token_shards
+    from repro_torch.models import init_params, log_lik_fn
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"), num_layers=C2_LAYERS)
+    theta0 = init_params(cfg, _gen(dev, 31), device=dev)
+    data = token_shards(_gen(dev, 37), num_shards=TRAIN_S, shard_size=64,
+                        seq_len=128, vocab_size=cfg.vocab_size)
+    ll = lambda p, b: log_lik_fn(p, cfg, b)  # noqa: E731
+    bank = api.fit_bank_local_sgld(ll, data, theta0, _gen(dev, 41),
+                                   fit_steps=4, minibatch=8,
+                                   step_size=TRAIN_H,
+                                   store_dtype=torch.bfloat16)
+    return cfg, theta0, data, bank, ll
+
+
+def phase_resume_c2(dev, root):
+    """[train-c2]'s model, C = C2_CHAINS, collect=False, C2_RESUME_ROUNDS
+    rounds x 2 steps, snapshots every C2_RESUME_EVERY: the killed and
+    resumed run's final states == the uninterrupted run's, bitwise; the
+    snapshot I/O timed."""
+    from repro_torch import api
+    from repro_torch import tree as tu
+    from repro_torch.checkpoint import list_snapshots
+    from repro_torch.core import engine as teng
+    cfg, theta0, data, bank, ll = _c2_problem(dev)
+    T = 2
+    state_b = C2_CHAINS * _tree_bytes(theta0)
+    _need_disk(root, 3 * state_b, f"{C2_RESUME_ROUNDS // C2_RESUME_EVERY} "
+               "snapshots kept and one being written")
+
+    def sample(**exe):
+        s = api.FSGLD(
+            api.Posterior(ll, prior_precision=1.0), data, minibatch=8,
+            step_size=TRAIN_H,
+            surrogate=api.SurrogateSpec(kind="scalar", bank=bank),
+            schedule=api.Schedule(rounds=C2_RESUME_ROUNDS, local_steps=T,
+                                  n_chains=C2_CHAINS, reassign="permutation"),
+            execution=api.Execution(device=dev, executor="packed",
+                                    collect=False, dtype=torch.bfloat16,
+                                    **exe))
+        return s.sample(_gen(dev, 43), theta0)
+
+    steps = C2_RESUME_ROUNDS * T
+    flash = C2_LAYERS * steps
+    ref, dt, _, _ = _counted("resume/c2", sample,
+                             _expect("packed", steps), flash)
+    ref = tu.tree_map(lambda t: t.cpu(), ref)
+    snaps = os.path.join(root, "c2")
+    kw = dict(snapshot_every=C2_RESUME_EVERY, snapshot_path=snaps)
+    with Timed(teng, "save_snapshot") as saves:
+        _counted("resume/c2 snapshots", lambda: sample(**kw),
+                 _expect("packed", steps), flash)
+    kept = [r for r, _ in list_snapshots(snaps)]
+    shutil.rmtree(list_snapshots(snaps)[-1][1])
+    left = C2_RESUME_ROUNDS - kept[-2]
+    with Timed(teng, "latest_snapshot") as loads, \
+            Timed(teng, "save_snapshot") as saves2:
+        b, _, _, _ = _counted("resume/c2 resumed",
+                              lambda: sample(resume=True, **kw),
+                              _expect("packed", left * T), C2_LAYERS * left * T)
+    same(f"resume/c2 ({C2_LAYERS} layers, C={C2_CHAINS}, "
+         f"{state_b / 1e9:.2f} GB of fp32 chain state): snapshots {kept}, "
+         f"the newest deleted, resumed from round {kept[-2]}: final states "
+         "== uninterrupted", ref, tu.tree_map(lambda t: t.cpu(), b))
+    del b, ref
+    shutil.rmtree(snaps)
+    w = saves.seconds + saves2.seconds
+    log(f"  uninterrupted run {dt:.2f} s; save_snapshot of {state_b / 1e9:.2f}"
+        f" GB: {[round(s, 2) for s in w]} s = "
+        f"{[round(state_b / s / 1e9, 3) for s in w]} GB/s; latest_snapshot "
+        f"(restore, hash, move back): {loads.seconds[0]:.2f} s = "
+        f"{state_b / loads.seconds[0] / 1e9:.3f} GB/s ({card_line()})")
+
+
+def phase_bank(dev, root):
+    """The reference's train -> draw bank -> serve pipeline at qwen3-1.7b's
+    full width and depth through both drivers, then a refresh hot-swap
+    and a corrupt draw at full width with BANK_LAYERS layers."""
+    import gc
+    from repro_torch import checkpoint
+    from repro_torch import tree as tu
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import train
+    from repro_torch.models import init_params
+    from repro_torch.serve import EnsembleServer
+    from repro_torch.serve.server import skeleton
+    from repro_torch.testing import corrupt_draw
+    n_draws = BANK_ROUNDS // BANK_EVERY
+    _need_disk(root, n_draws * QWEN3_P * 4,
+               f"{n_draws} fp32 draws of {QWEN3_P} parameters")
+    D = os.path.join(root, "bank")
+    args = train.parse_args(_train_argv() + [
+        "--rounds", str(BANK_ROUNDS), "--draw-bank", D, "--bank-every",
+        str(BANK_EVERY)])
+    steps = BANK_ROUNDS * TRAIN_T
+    passes = TRAIN_S * TRAIN_FIT + steps + 1 + args.chains
+    tr, dt, _, n_flash = _counted(
+        "bank/train", lambda: train.run(args), _expect("packed", steps),
+        QWEN3_WIDTH[0] * passes)
+    like = skeleton(get_config("qwen3-1.7b"))
+    want = checkpoint.tree_fingerprint(like)
+    metas = [checkpoint.read_meta(p) for p in checkpoint.list_draws(D)]
+    if [(m.arch, m.round, m.dtype, m.config_hash) for m in metas] != [
+            ("qwen3-1.7b", r, "float32", want)
+            for r in range(BANK_EVERY, BANK_ROUNDS + 1, BANK_EVERY)]:
+        raise AssertionError(f"bank metas {metas}")
+    t0 = time.perf_counter()
+    fresh, _, _ = checkpoint.restore(tr.draws[-1], like)
+    read_s = time.perf_counter() - t0
+    same(f"bank: the freshest draw (round {metas[-1].round}) == the run's "
+         "final chain state", fresh,
+         tu.tree_map(lambda t: t[0].cpu(), tr.finals))
+    log(f"  train --draw-bank: {steps} update and {n_flash} flash launches "
+        f"in {dt:.2f} s; {n_draws} draws of {QWEN3_P} fp32 parameters "
+        f"({QWEN3_P * 4 / 1e9:.2f} GB each): write "
+        f"{[round(s, 2) for s in tr.draw_write_s]} s = "
+        f"{[round(QWEN3_P * 4 / s / 1e9, 3) for s in tr.draw_write_s]} GB/s;"
+        f" a draw read back (restore: hash + parse) {read_s:.2f} s; metas "
+        f"arch qwen3-1.7b, rounds {[m.round for m in metas]}, float32, "
+        f"config_hash {want} (the skeleton's)")
+    del tr, fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with Timed(EnsembleServer, "_load") as loads, \
+            RequestLaunches() as req:
+        _, dt, _, _ = _counted("bank/serve", lambda: serve_cli.main([
+            "--arch", "qwen3-1.7b", "--bank", D, "--draws", str(n_draws),
+            "--device", str(dev), "--batch", str(SERVE_B), "--prompt-len",
+            str(SERVE_S),
+            "--gen", str(SERVE_GEN)]), {}, QWEN3_WIDTH[0])
+    res, = req.results
+    if (req.prefill, req.decode) != ([QWEN3_WIDTH[0]], [0]) or \
+            tuple(res.tokens.shape) != (SERVE_B, SERVE_GEN) or \
+            res.n_draws != n_draws:
+        raise AssertionError(f"bank/serve: flash prefill {req.prefill}, "
+                             f"decode {req.decode}, tokens {res.tokens.shape}")
+    _check_signals("bank/serve", res, n_draws)
+    log(f"  launch.serve --bank --draws {n_draws}: load {loads.seconds[0]:.2f}"
+        f" s ({n_draws} draws read, moved and cast one at a time); one "
+        f"request of {SERVE_B} x {SERVE_S}, {SERVE_GEN} tokens: prefill "
+        f"{res.prefill_s:.3f} s, decode {res.decode_s:.3f} s; flash launches"
+        f" prefill {req.prefill[0]}, decode {req.decode[0]}; the command "
+        f"{dt:.2f} s")
+    del res, req
+    shutil.rmtree(D)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"),
+                              num_layers=BANK_LAYERS)
+    draw_b = _tree_bytes(skeleton(cfg))
+    _need_disk(root, 4 * draw_b, f"4 fp32 draws of {BANK_LAYERS} layers")
+    D2 = os.path.join(root, "bank2")
+
+    def append(r):
+        p = init_params(cfg, _gen(dev, 60 + r), device=dev)
+        with Timed(checkpoint, "save_draw") as t:
+            checkpoint.save_draw(D2, p, checkpoint.DrawMeta(
+                round=r, arch=cfg.name, dtype="float32"), step=r)
+        return t.seconds[0]
+
+    writes = [append(r) for r in (1, 2)]
+    gen = _gen(dev, 17)
+
+    def request(server, what):
+        res, _, _, n = _counted(f"bank2/{what}", lambda: server.generate(
+            generator=gen, gen=8, batch=2, prompt_len=512), {},
+            BANK_LAYERS)
+        _check_signals(f"bank2/{what}", res, server.n_draws)
+        return n
+
+    with Timed(EnsembleServer, "_load") as loads:
+        server = EnsembleServer(cfg, bank=D2, n_draws=2, device=dev)
+    request(server, "initial")
+    writes.append(append(3))
+    with Timed(EnsembleServer, "refresh") as refresh:
+        swapped = server.refresh()
+    if not swapped or [m.round for m in server.metas] != [2, 3]:
+        raise AssertionError(f"refresh: {swapped}, {server.metas}")
+    request(server, "hot-swapped")
+    writes.append(append(4))
+    corrupt_draw(checkpoint.list_draws(D2)[-2], mode="truncate")
+    import warnings
+    with Timed(EnsembleServer, "refresh") as refresh2, \
+            warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        swapped = server.refresh(backoff_s=0.0)
+    if not swapped or [m.round for m in server.metas] != [2, 4] or \
+            not any("corrupt" in str(w.message) for w in caught):
+        raise AssertionError(f"refresh past a corrupt draw: {swapped}, "
+                             f"{server.metas}")
+    n = request(server, "degraded")
+    del server
+    shutil.rmtree(D2)
+    log(f"  {BANK_LAYERS} layers ({draw_b / 4:.0f} parameters, "
+        f"{draw_b / 1e9:.2f} GB per fp32 draw): save_draw "
+        f"{[round(s, 2) for s in writes]} s = "
+        f"{[round(draw_b / s / 1e9, 3) for s in writes]} GB/s; initial "
+        f"load of 2 draws {loads.seconds[0]:.2f} s; refresh() hot-swap to "
+        f"rounds [2, 3] {refresh.seconds[0]:.2f} s; round 3's draw "
+        f"truncated, refresh() serves rounds [2, 4] with a warning in "
+        f"{refresh2.seconds[0]:.2f} s; {n} flash launches per request "
+        f"({card_line()})")
 
 
 def main() -> int:
@@ -1796,6 +2280,16 @@ def main() -> int:
           f"C={T1_CHAINS}")
     phase_oracle(dev, shards, theta0, bank)
 
+    phase(f"[chaos] Table-1 BNN, {T1_ROUNDS} rounds x {T1_T} steps, "
+          f"C={T1_CHAINS}, every step kept: quarantine, respawn, the "
+          "detector and a NaN payload against the fault-free run, on packed"
+          " and per_leaf")
+    phase_chaos(dev, shards, theta0, bank)
+    phase(f"[resume] Table-1 BNN, {RESUME_ROUNDS} rounds x {T1_T} steps, a "
+          f"snapshot every {RESUME_EVERY}, packed, without a federation and "
+          "under HARD_FED")
+    in_scratch(phase_resume_t1, dev, shards, theta0, bank)
+
     phase("[profile] one packed Table-1 round (40 steps) under "
         "torch.profiler")
     prof_sampler = t1("packed")
@@ -1822,6 +2316,16 @@ def main() -> int:
           f"C={C2_CHAINS}, packed")
     phase_train_c2(dev)
     check_flash_diff(dev)
+    torch.cuda.empty_cache()
+    phase(f"[resume] qwen3-1.7b at full width, {C2_LAYERS} of 28 layers, "
+          f"C={C2_CHAINS}, collect=False, {C2_RESUME_ROUNDS} rounds x 2 "
+          f"steps, a snapshot every {C2_RESUME_EVERY}")
+    in_scratch(phase_resume_c2, dev)
+    torch.cuda.empty_cache()
+    phase(f"[bank] repro_torch.launch.train at full width and depth, "
+          f"{BANK_ROUNDS} rounds, --draw-bank --bank-every {BANK_EVERY} -> "
+          f"launch.serve --bank; refresh at {BANK_LAYERS} layers")
+    in_scratch(phase_bank, dev)
     torch.cuda.empty_cache()
 
     phase("[times] device time per launch: CUDA graphs of back-to-back "
@@ -1857,6 +2361,8 @@ def main() -> int:
                  "launches": serve_launches, "max_abs_err": flash_worst,
                  "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                  "bound_by": b_by, "library_ms": sdpa_ms})
+    log(f"[end] {time.perf_counter() - _PHASE_START[-1]:.1f} s since the "
+        "last header")
     if failures:
         raise AssertionError("; ".join(failures))
     print(json.dumps({"kernels": rows}), flush=True)

@@ -29,6 +29,7 @@ from repro_torch.core.engine import (MeshChainEngine, _not_ported,
                                      check_kernel_kind, pad_shards)
 from repro_torch.core.federated import (fit_bank_fisher, local_sgld_moments,
                                         refresh_bank, sample_local_likelihood)
+from repro_torch.core.health import Recovery, RunHealth
 from repro_torch.core.sghmc import SGHMCConfig
 from repro_torch.core.surrogate import (Gaussian, SurrogateBank,
                                         fit_scalar_tree, make_bank)
@@ -41,7 +42,7 @@ PyTree = Any
 LogLikFn = Callable[[PyTree, PyTree], torch.Tensor]
 
 __all__ = ["Posterior", "SurrogateSpec", "Schedule", "Execution", "Serving",
-           "FSGLD", "fit_bank_local_sgld"]
+           "FSGLD", "fit_bank_local_sgld", "Recovery", "RunHealth"]
 
 _EXECUTORS = ("auto", "vmap", "per_leaf", "packed")
 _FIT_SEED_SALT = 0x5357
@@ -128,17 +129,32 @@ class Execution:
     bank_device: where the surrogate means are stored (None: the run's
       device). 'cpu' keeps them on the host, the server's side of the
       federation: each round brings only the chains' clients' rows to the
-      device (at qwen3-1.7b's width the 4 clients' bf16 means are 16 GB)."""
+      device (at qwen3-1.7b's width the 4 clients' bf16 means are 16 GB).
+    recovery: a :class:`Recovery` policy (``core.health``): the per-round
+      chain health check; ``sample`` then returns ``(result, RunHealth)``.
+      None: no health tracking (a fault-free run is bitwise the same
+      either way).
+    snapshot_every / snapshot_path: atomically save the run's whole carry
+      every that many rounds into the directory (preemption-safe).
+      resume: continue from the newest valid snapshot in
+      ``snapshot_path``, bitwise the uninterrupted run."""
     device: Any = None
     executor: str = "auto"
     collect: bool = True
     dtype: Any = None
     bank_device: Any = None
+    recovery: Optional[Recovery] = None
+    snapshot_every: Optional[int] = None
+    snapshot_path: Optional[str] = None
+    resume: bool = False
 
     def __post_init__(self):
         if self.executor not in _EXECUTORS:
             raise ValueError(f"unknown executor {self.executor!r}; pick "
                              f"from {_EXECUTORS}")
+        if (self.snapshot_every or self.resume) and not self.snapshot_path:
+            raise ValueError(
+                "Execution.snapshot_every/resume need snapshot_path")
         object.__setattr__(self, "device", _device(self.device))
 
 
@@ -359,7 +375,8 @@ class FSGLD:
         """Run the schedule; returns samples with leading axes
         (n_chains, rounds * ceil(local_steps / thin), ...), or the final
         chain states when ``Execution.collect`` is False ((theta,
-        momentum) pairs for SGHMC). ``theta0`` may lie on the host: the
+        momentum) pairs for SGHMC); ``(result, RunHealth)`` under
+        ``Execution.recovery``. ``theta0`` may lie on the host: the
         engine copies it into its state on the run's device and never
         writes it. ``generator`` (on the run's device)
         drives sampling; a surrogate fit still needed draws from a
@@ -384,13 +401,15 @@ class FSGLD:
                     "sample(federation=...) cannot re-partition: the data "
                     "was split at construction; pass the partition "
                     "scenario to the FSGLD constructor instead")
-        sched = self.schedule
+        sched, exe = self.schedule, self.execution
         return self.engine.run(
             generator, tu.tree_map(torch.as_tensor, theta0),
             rounds if rounds is not None else sched.rounds,
             n_chains=n_chains if n_chains is not None else sched.n_chains,
             reassign=sched.reassign, collect_every=sched.thin,
-            collect=self.execution.collect, federation=fed)
+            collect=exe.collect, federation=fed, recovery=exe.recovery,
+            snapshot_every=exe.snapshot_every,
+            snapshot_path=exe.snapshot_path, resume=exe.resume)
 
     # -- phase 3: serving the posterior ------------------------------------
 
@@ -398,17 +417,32 @@ class FSGLD:
     def serve(spec: Serving, *, bank: Optional[str] = None,
               draws: Any = None, seed: int = 0):
         """Stand up an ensemble server for this posterior (phase 3) on
-        ``spec.device``. One draw source: ``draws=`` an already-stacked
-        (K, ...) parameter tree, or none — ``spec.draws`` fresh inits
-        from ``seed`` (shape smoke, no posterior). ``bank=`` (draw-bank
-        directories) needs the checkpoint package (ROADMAP item 11)."""
+        ``spec.device``. One draw source: ``bank=`` a draw-bank directory
+        written by ``repro_torch.launch.train --draw-bank`` (or by the
+        JAX package's; a legacy single-checkpoint dir serves as one
+        draw), whose freshest ``spec.draws`` are served and which
+        ``refresh()`` keeps tracking; ``draws=`` an already-stacked
+        (K, ...) parameter tree (from :meth:`load_bank`, say); or neither
+        — ``spec.draws`` fresh inits from ``seed`` (shape smoke, no
+        posterior)."""
         from repro_torch.configs import get_config, get_smoke_config
         from repro_torch.serve import EnsembleServer
         cfg = (get_smoke_config(spec.arch) if spec.smoke
                else get_config(spec.arch))
-        return EnsembleServer(cfg, bank=bank, draws=draws,
-                              n_draws=spec.draws, seed=seed,
-                              device=spec.device)
+        n = None if (bank is None and draws is not None) else spec.draws
+        return EnsembleServer(cfg, bank=bank, draws=draws, n_draws=n,
+                              seed=seed, device=spec.device)
+
+    @staticmethod
+    def load_bank(path: str, like: PyTree, *, k: Optional[int] = None,
+                  expect_arch: Optional[str] = None):
+        """The freshest ``k`` draws of a draw bank as one stacked (K, ...)
+        tree on the host, plus their ``checkpoint.DrawMeta`` provenance.
+        Every draw is fingerprint-checked against ``like`` (meta tensors
+        do; and against ``expect_arch`` when given): a mismatched bank is
+        refused with a ValueError, never a shape error."""
+        from repro_torch import checkpoint
+        return checkpoint.load_bank(path, like, k=k, expect_arch=expect_arch)
 
 
 # ---------------------------------------------------------------------------

@@ -45,13 +45,16 @@ back and their trace repeats it.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Any, Optional
 
 import torch
 from torch.func import grad, vmap
 
 from repro_torch import tree as tu
+from repro_torch.checkpoint.snapshot import latest_snapshot, save_snapshot
 from repro_torch.configs.base import SamplerConfig
+from repro_torch.core.health import HEALTH_PROBE_SALT, RunHealth
 from repro_torch.core.sampler import (LogLikFn, ShardScheme, chain_scales,
                                       langevin_update, make_drift_fn)
 from repro_torch.core.sghmc import SGHMCConfig, init_momentum, sghmc_update
@@ -126,7 +129,8 @@ def draw_round(generator: torch.Generator, cfg: SamplerConfig,
                num_leaves: int, reassign: str = "categorical",
                federation: Optional[Federation] = None, r: int = 0,
                held: Optional[torch.Tensor] = None,
-               dim: int = 0) -> RoundDraws:
+               dim: int = 0,
+               live: Optional[torch.Tensor] = None) -> RoundDraws:
     """One round's draws, on the generator's device, in the fixed order
     of the module docstring. Centralized SGLD draws no client ids and
     indexes the virtual concatenation of all shards.
@@ -135,7 +139,9 @@ def draw_round(generator: torch.Generator, cfg: SamplerConfig,
     ``dim`` the flat parameter count P) the scenario's uniforms follow the
     seeds, and the minibatch rows are drawn for the client each chain
     holds this round: its proposed one where it exchanges, else
-    ``held``."""
+    ``held``. ``live`` (C,) bool masks chains out of the exchange (the
+    quarantined ones): they hold their client, and nothing drawn
+    changes."""
     dev = generator.device
     C, T, S = n_chains, cfg.local_updates, cfg.num_shards
     sizes = scheme.sizes_array(dev)
@@ -171,8 +177,10 @@ def draw_round(generator: torch.Generator, cfg: SamplerConfig,
                 draws.primal_u = unif(C, dim)
             if comp.use_dual:
                 draws.dual_u = unif(C, dim)
-        hold = torch.where(exchanging(sched, r, draws.part_u, sids), sids,
-                           held)
+        exch = exchanging(sched, r, draws.part_u, sids)
+        if live is not None:
+            exch = exch & live
+        hold = torch.where(exch, sids, held)
     if cfg.method == "sgld":
         bound = torch.tensor(scheme.total, device=dev)
     else:
@@ -439,7 +447,7 @@ def make_exchange(comp: Compression, agg: bool, thetas: PyTree):
     """The exchange of a communication round over (C, ...) chain leaves
     shaped like ``thetas``. Returns (exchange, carry0):
 
-      exchange(th, cst, exch, draws) -> (th', cst')
+      exchange(th, cst, exch, draws, poison=None) -> (th', cst')
       carry0(th) -> the initial error-feedback carry (ref, err[, derr]),
                     None without compression
 
@@ -448,7 +456,9 @@ def make_exchange(comp: Compression, agg: bool, thetas: PyTree):
     C(m - ref + derr) -> the exchanging chains take the result, cast back
     to their storage dtypes; the other chains' leaves are returned as
     they came, and their carry rows are not written. Masks, counts and
-    averages stay on the device."""
+    averages stay on the device. ``poison`` (C,) bool NaNs those chains'
+    payload (the compressed delta, or the model itself without primal
+    compression) before the server applies it: a corrupted upload."""
     flatten, unflatten, dim = make_flattener(thetas)
     compress = None if comp.identity else make_compressor(comp, dim)
 
@@ -459,17 +469,21 @@ def make_exchange(comp: Compression, agg: bool, thetas: PyTree):
         cst = (ref, torch.zeros_like(ref))
         return cst + (torch.zeros_like(ref),) if comp.use_dual else cst
 
-    def exchange(th, cst, exch, draws):
+    def exchange(th, cst, exch, draws, poison=None):
         flat = flatten(th)
         ref = cst[0] if cst is not None else None
         if comp.use_primal:
             upd = flat - ref + cst[1]
             dhat = compress(upd, draws.primal_u)
+            if poison is not None:
+                dhat = torch.where(poison[:, None], float("nan"), dhat)
             m_flat = ref + dhat
             err_new = (upd - dhat if comp.error_feedback
                        else torch.zeros_like(upd))
         else:
             m_flat = flat
+            if poison is not None:
+                m_flat = torch.where(poison[:, None], float("nan"), m_flat)
         if agg:
             w = exch[:, None]
             cnt = exch.to(torch.float32).sum()
@@ -499,15 +513,118 @@ def make_exchange(comp: Compression, agg: bool, thetas: PyTree):
     return exchange, carry0
 
 
-# ---------------------------------------------------------------------------
-# the engine
-# ---------------------------------------------------------------------------
-
 def _not_ported(what: str, item: int):
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet (ROADMAP.md open item "
         f"{item})")
 
+
+# ---------------------------------------------------------------------------
+# chain health (core.health) and chaos, applied once per round
+# ---------------------------------------------------------------------------
+
+def probe_generator(generator: torch.Generator, r: int) -> torch.Generator:
+    """The divergence probe's generator for round ``r``, on the run's
+    device, seeded from a hash of the run generator's state bytes,
+    ``HEALTH_PROBE_SALT`` and ``r``. ``get_state`` reads the state
+    without advancing it, so the probe consumes nothing of the sampling
+    stream, and a resumed run (its generator state restored) gets the
+    same probes with no extra snapshot field."""
+    h = hashlib.blake2b(generator.get_state().numpy().tobytes(),
+                        digest_size=8)
+    h.update(HEALTH_PROBE_SALT.to_bytes(4, "little"))
+    h.update(int(r).to_bytes(8, "little"))
+    probe = torch.Generator(device=generator.device)
+    probe.manual_seed(int.from_bytes(h.digest(), "little") >> 1)
+    return probe
+
+
+def _finite_rows(tensors, c: int) -> torch.Tensor:
+    """(c,) bool: every element of each chain's rows is finite."""
+    ok = None
+    for t in tensors:
+        f = torch.isfinite(t.reshape(c, -1)).all(1)
+        ok = f if ok is None else ok & f
+    return ok
+
+
+def _respawn(mask: torch.Tensor, donor: torch.Tensor, any_h: torch.Tensor,
+             new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+    """Per chain where ``mask``: the donor chain's row of ``new`` (or its
+    own ``old`` row when no chain is healthy), else its ``new`` row."""
+    c = mask.shape[0]
+    n2, o2 = new.reshape(c, -1), old.reshape(c, -1)
+    cand = torch.where(any_h, n2[donor][None], o2)
+    return torch.where(mask[:, None], cand, n2).reshape(new.shape)
+
+
+def _chain_mask(chains: tuple, c: int, device) -> torch.Tensor:
+    return torch.isin(torch.arange(c, device=device),
+                      torch.tensor(chains, dtype=torch.int64, device=device))
+
+
+class _Health:
+    """One run's chain health (a ``core.health.Recovery``) on the device:
+    the health word (C,) int32 and the probe ring (C, window) fp32,
+    -inf padded. ``check`` is the reference's per-round update."""
+
+    def __init__(self, rec, c: int, device, probe_fn):
+        self.rec = rec
+        self.word = torch.zeros(c, dtype=torch.int32, device=device)
+        self.lp_win = torch.full((c, rec.window), float("-inf"),
+                                 dtype=torch.float32, device=device)
+        # nearest-rank quantile, not torch.quantile: a lerp between -inf
+        # (warm-up padding) and a finite probe would be NaN
+        self.q_idx = min(rec.window - 1,
+                         int(rec.quantile * (rec.window - 1)))
+        self.probe_fn = probe_fn
+
+    def lp_ref(self) -> torch.Tensor:
+        return torch.sort(self.lp_win, dim=1).values[:, self.q_idx]
+
+    def check(self, r: int, bad_new: torch.Tensor, probe_args):
+        """Update the word (and ring) from round ``r``'s finite check
+        ``bad_new`` and, with the detector, the probe; returns (chains to
+        replace, donor, any healthy) — donor and any_h for respawn."""
+        rec, word = self.rec, self.word
+        lp = None
+        if rec.use_detector:
+            lp = self.probe_fn(*probe_args)
+            bad_new = bad_new | ~torch.isfinite(lp) | \
+                (lp < self.lp_ref() - rec.divergence_threshold)
+            pushed = torch.cat([self.lp_win[:, 1:], lp[:, None]], dim=1)
+        if rec.policy == "quarantine":
+            bad = (word != 0) | bad_new
+            self.word = torch.where((word == 0) & bad_new, r + 1, word)
+            if lp is not None:
+                # quarantined chains' windows freeze with them
+                self.lp_win = torch.where(
+                    (bad | ~torch.isfinite(lp))[:, None], self.lp_win,
+                    pushed)
+            return bad, None, None
+        self.word = word + bad_new.to(word.dtype)
+        healthy = ~bad_new
+        donor = torch.argmax(healthy.to(torch.int32))
+        if lp is not None:
+            # respawned chains restart an empty window (their donor's
+            # plateau is not theirs)
+            self.lp_win = torch.where(
+                (healthy & torch.isfinite(lp))[:, None], pushed,
+                self.lp_win)
+            self.lp_win = torch.where(bad_new[:, None], float("-inf"),
+                                      self.lp_win)
+        return bad_new, donor, healthy.any()
+
+    def report(self) -> RunHealth:
+        return RunHealth(
+            word=self.word.cpu().numpy(), policy=self.rec.policy,
+            lp_ref=(self.lp_ref().cpu().numpy() if self.rec.use_detector
+                    else None))
+
+
+# ---------------------------------------------------------------------------
+# the engine
+# ---------------------------------------------------------------------------
 
 @dataclasses.dataclass
 class MeshChainEngine:
@@ -606,17 +723,37 @@ class MeshChainEngine:
         ``federation`` (a ``repro_torch.fed.Federation`` or a registry
         name) applies the scenario's schedule and compression to the
         rounds; its partition is the facade's job. An engine-identity
-        spec runs the path without a federation, bitwise."""
+        spec runs the path without a federation, bitwise.
+
+        Fault tolerance. ``recovery`` (a ``core.health.Recovery``) checks
+        every chain once per round, after the local steps, the straggler
+        restore and any chaos: a non-finite theta (or momentum, SGHMC
+        with ``check_momentum``) or, with the detector, a probed
+        log-posterior below its window quantile by more than the
+        threshold, quarantines the chain (frozen at its pre-round state,
+        out of the exchange, its round's trace columns repeating the
+        frozen state) or respawns it from the first healthy chain; the
+        call then returns ``(result, RunHealth)``. A fault-free run with
+        recovery on is bitwise the run with it off (the probe draws from
+        ``probe_generator``). ``chaos`` (a ``testing.ChaosSpec``,
+        duck-typed) NaNs the chosen chains' post-round theta, or their
+        compressed payload, at the chosen absolute rounds.
+
+        ``snapshot_every=k, snapshot_path=dir`` saves the whole carry
+        (chains, the generator's state, the federation carry, the health
+        state, the trace so far) after every k rounds and at the end;
+        ``resume=True`` continues from the newest valid snapshot in
+        ``snapshot_path`` at its absolute round (a fresh run when there is
+        none), bitwise the uninterrupted run."""
         hmc = self.sghmc if self.dynamics == "sghmc" else None
+        if (snapshot_every or resume) and not snapshot_path:
+            raise ValueError(
+                "snapshot_every/resume need a snapshot_path directory")
         if hmc is not None and refresh_every:
             raise NotImplementedError(
                 "adaptive refresh is not wired for sghmc dynamics")
         if refresh_every:
             raise _not_ported("refresh_every (adaptive refresh)", 8)
-        if recovery is not None or chaos is not None:
-            raise _not_ported("recovery / chaos", 11)
-        if snapshot_every or snapshot_path or resume:
-            raise _not_ported("snapshots / resume", 11)
         if telemetry is not None:
             raise _not_ported("telemetry", 12)
         if stream is not None:
@@ -626,6 +763,7 @@ class MeshChainEngine:
         if generator.device.type != self.device.type:
             raise ValueError(f"the generator is on {generator.device}, the "
                              f"run on {self.device}")
+        chaos = chaos if chaos is not None and chaos.active else None
         agg = self.aggregation == "fald"
         fed = get_scenario(federation) if federation is not None else None
         if fed is not None and fed.engine_identity:
@@ -664,11 +802,15 @@ class MeshChainEngine:
             round_fn = make_packed_round_fn(
                 self.log_lik_fn, cfg, self.scheme, self.minibatch,
                 bank_kind, layout, hmc)
-            th_p = layout.pack(chains, device=dev)
-            chains = layout.unpack(th_p)
-            state = ((th_p, torch.zeros_like(th_p), chains) if hmc
-                     else (th_p, chains))
             bank_arg = pack_bank(layout, fsgld_bank, dev)
+
+            def from_chains(th, mom=None):
+                # SGHMC momenta: zero unless given
+                th_p = layout.pack(th, device=dev)
+                r_p = (torch.zeros_like(th_p) if mom is None
+                       else layout.pack(mom, device=dev))
+                return ((th_p, r_p, layout.unpack(th_p)) if hmc
+                        else (th_p, layout.unpack(th_p)))
 
             def snapshot(st):
                 # the round updates the buffers in place: copy them
@@ -682,10 +824,12 @@ class MeshChainEngine:
                 th_p = layout.pack(th)
                 return (th_p,) + st[1:-1] + (layout.unpack(th_p),)
 
-            def restore(st, pre, m):
-                bufs = tuple(_keep(m, a, b) for a, b in zip(st[:-1],
-                                                            pre[:-1]))
+            def mapstate(fn, st, pre):
+                bufs = tuple(fn(a, b) for a, b in zip(st[:-1], pre[:-1]))
                 return bufs + (layout.unpack(bufs[0]),)
+
+            def finite(st, momentum):
+                return _finite_rows(st[:2] if momentum else st[:1], C)
 
             def final(st):
                 return (st[-1], layout.unpack(st[1])) if hmc else st[-1]
@@ -703,7 +847,11 @@ class MeshChainEngine:
                     hmc)
                 bank_arg = None
                 kw["generator"] = generator
-            state = (chains, init_momentum(chains)) if hmc else chains
+
+            def from_chains(th, mom=None):
+                if hmc:
+                    return (th, init_momentum(th) if mom is None else mom)
+                return th
 
             def thetas_of(st):
                 return st[0] if hmc else st
@@ -711,8 +859,12 @@ class MeshChainEngine:
             def with_thetas(st, th):
                 return (th, st[1]) if hmc else th
 
-            def restore(st, pre, m):
-                return tu.tree_map(lambda a, b: _keep(m, a, b), st, pre)
+            def mapstate(fn, st, pre):
+                return tu.tree_map(fn, st, pre)
+
+            def finite(st, momentum):
+                return _finite_rows(tu.leaves(st if momentum
+                                              else thetas_of(st)), C)
 
             def final(st):
                 return st
@@ -720,6 +872,11 @@ class MeshChainEngine:
             def snapshot(st):
                 return st
 
+        def restore(st, pre, m):
+            return mapstate(lambda a, b: _keep(m, a, b), st, pre)
+
+        state = from_chains(chains)
+        chains = thetas_of(state)
         per_round = -(-T // collect_every)
         trace = None
         if collect:
@@ -727,7 +884,7 @@ class MeshChainEngine:
                 lambda t: torch.empty((C, num_rounds * per_round)
                                       + tuple(t.shape[1:]), dtype=t.dtype,
                                       device=t.device), chains)
-        sids, dim = None, 0
+        sids, cst, dim = None, None, 0
         if fed is not None:
             sched = fed.schedule
             exchange, carry0 = make_exchange(fed.compression, agg, chains)
@@ -735,7 +892,73 @@ class MeshChainEngine:
             cst = carry0(chains)
             sids = torch.zeros(C, dtype=torch.int64, device=self.device)
             dim = sum(l[0].numel() for l in tu.leaves(chains))
-        for r in range(num_rounds):
+        health = None
+        if recovery is not None:
+            sample = _make_batch_sampler(self.cfg, self.scheme)
+            lp_v = vmap(self.log_lik_fn)
+
+            def probe(pgen, th, run_sids):
+                """log p(x | th) on one probe minibatch per chain minus
+                the prior's 1/2 prec |th|^2, fp32."""
+                u = torch.rand((C, self.minibatch), generator=pgen,
+                               device=dev, dtype=torch.float64)
+                bound = (torch.tensor(self.scheme.total, device=dev)
+                         if self.cfg.method == "sgld" else
+                         self.scheme.sizes_array(dev)[run_sids][:, None])
+                idx = torch.minimum((u * bound).floor().to(torch.int64),
+                                    bound - 1)
+                with torch.no_grad():
+                    lp = lp_v(th, sample(idx, run_sids, self.shard_data))
+                    sq = sum(l.to(torch.float32).square().reshape(C, -1)
+                             .sum(1) for l in tu.leaves(th))
+                return lp.to(torch.float32) \
+                    - 0.5 * self.cfg.prior_precision * sq
+
+            health = _Health(recovery, C, dev, probe)
+        check_mom = hmc is not None and recovery is not None \
+            and recovery.check_momentum
+
+        def payload(st, rounds_done):
+            """The whole carry after ``rounds_done`` rounds: everything a
+            resumed run needs to be bitwise the uninterrupted one."""
+            p = {"chains": final(st), "key": generator.get_state()}
+            if fed is not None:
+                p["sids"] = sids.to(torch.int32)
+                if cst is not None:
+                    p["ref"], p["err"] = cst[0], cst[1]
+                    if len(cst) == 3:
+                        p["derr"] = cst[2]
+            if health is not None:
+                p["word"], p["lp_ref"] = health.word, health.lp_win
+            if collect:
+                p["trace"] = tu.tree_map(
+                    lambda t: t[:, :rounds_done * per_round], trace)
+            return p
+
+        r_start = 0
+        if resume:
+            snap, r_start = latest_snapshot(snapshot_path,
+                                            payload(state, 0))
+            if snap is None:
+                r_start = 0       # nothing to resume: a fresh run
+            else:
+                ch = tu.tree_map(lambda t: t.to(dev), snap["chains"])
+                state = from_chains(*ch) if hmc else from_chains(ch)
+                generator.set_state(snap["key"])
+                if fed is not None:
+                    sids = snap["sids"].to(dev, torch.int64)
+                    if cst is not None:
+                        cst = tuple(snap[k].to(dev) for k in
+                                    ("ref", "err", "derr")[:len(cst)])
+                if health is not None:
+                    health.word = snap["word"].to(dev)
+                    health.lp_win = snap["lp_ref"].to(dev)
+                if collect:
+                    tu.tree_map(
+                        lambda dst, src: dst[:, :src.shape[1]].copy_(src),
+                        trace, snap["trace"])
+        quarantine = recovery is not None and recovery.policy == "quarantine"
+        for r in range(r_start, num_rounds):
             def keep(t, thetas, r=r):
                 if t % collect_every == 0:
                     k = r * per_round + t // collect_every
@@ -743,33 +966,73 @@ class MeshChainEngine:
                                 trace, thetas)
 
             on_step = keep if collect else None
+            pgen = (probe_generator(generator, r) if health is not None
+                    and recovery.use_detector else None)
+            live = health.word == 0 if quarantine else None
             draws = draw_round(generator, self.cfg, self.scheme, n_chains=C,
                                minibatch=self.minibatch,
                                num_leaves=num_leaves, reassign=reassign,
-                               federation=fed, r=r, held=sids, dim=dim)
-            strag = None
+                               federation=fed, r=r, held=sids, dim=dim,
+                               live=live)
+            strag = pre = None
             if fed is not None:
                 exch = exchanging(sched, r, draws.part_u, sids)
+                if live is not None:
+                    # quarantined chains neither reassign nor exchange
+                    exch = exch & live
                 sids = torch.where(exch, draws.sids, sids)
                 draws.sids = sids
                 if exchanges and fsched.comm_mask(sched, r):
-                    th, cst = exchange(thetas_of(state), cst, exch, draws)
+                    poison = None
+                    if chaos is not None and chaos.poisons_payload \
+                            and r in chaos.payload_nan_rounds:
+                        poison = _chain_mask(chaos.payload_nan_chains, C,
+                                             dev)
+                    th, cst = exchange(thetas_of(state), cst, exch, draws,
+                                       poison)
                     state = with_thetas(state, th)
                 if draws.strag_u is not None:
                     # dropped updates: the state goes back to its
                     # pre-round value and the trace repeats it
                     strag = fsched.straggler_mask(sched, draws.strag_u)
-                    pre = snapshot(state)
-                    if on_step is not None:
-                        def on_step(t, thetas, keep=keep,
-                                    frozen=thetas_of(pre), strag=strag):
-                            keep(t, tu.tree_map(
-                                lambda a, b: _keep(strag, a, b), thetas,
-                                frozen))
+            if strag is not None or health is not None:
+                pre = snapshot(state)
+            if strag is not None and on_step is not None:
+                def on_step(t, thetas, keep=keep, frozen=thetas_of(pre),
+                            strag=strag):
+                    keep(t, tu.tree_map(lambda a, b: _keep(strag, a, b),
+                                        thetas, frozen))
             state = round_fn(state, draws, self.shard_data, bank_arg,
                              on_step=on_step, **kw)
             if strag is not None:
                 state = restore(state, pre, strag)
-        if collect:
-            return trace
-        return final(state)
+            if chaos is not None and chaos.poisons_state \
+                    and r in chaos.nan_rounds:
+                m = _chain_mask(chaos.nan_chains, C, dev)
+                state = with_thetas(state, tu.tree_map(
+                    lambda l: _keep(m, l, torch.full_like(l, float("nan")))
+                    if l.dtype.is_floating_point else l, thetas_of(state)))
+            if health is not None:
+                repl, donor, any_h = health.check(
+                    r, ~finite(state, check_mom),
+                    (pgen, thetas_of(state), draws.sids))
+                if donor is None:
+                    state = restore(state, pre, repl)
+                else:
+                    state = mapstate(
+                        lambda a, b: _respawn(repl, donor, any_h, a, b),
+                        state, pre)
+                if collect:
+                    k0 = r * per_round
+                    tu.tree_map(
+                        lambda dst, f: dst[:, k0:k0 + per_round].copy_(
+                            torch.where(
+                                repl.view((C, 1) + (1,) * (f.ndim - 1)),
+                                f[:, None], dst[:, k0:k0 + per_round])),
+                        trace, thetas_of(state))
+            if snapshot_every and ((r + 1 - r_start) % snapshot_every == 0
+                                   or r + 1 == num_rounds):
+                save_snapshot(snapshot_path, payload(state, r + 1),
+                              rounds_done=r + 1)
+        res = trace if collect else final(state)
+        return res if health is None else (res, health.report())

@@ -14,6 +14,16 @@ facade:
      each round, and every chain takes ``--local-updates`` Langevin (or
      SGHMC) steps per round with the conducive correction.
 
+Streaming to a server: ``--draw-bank DIR --bank-every N`` runs the
+schedule in segments of N rounds, one generator continuing across them,
+and appends chain 0's parameters to the draw bank after each segment
+(``repro_torch.launch.serve --bank DIR`` serves them, hot-swapping fresh
+ones in between requests). Preemption: ``--snapshot-every N
+--snapshot-dir DIR`` saves the run's whole carry every N rounds, and
+``--resume`` continues from the newest valid snapshot, bitwise the
+uninterrupted run. ``--ckpt PATH`` saves chain 0's final parameters as
+one checkpoint (a legacy one-draw bank).
+
 Runs on CUDA unless ``--device cpu`` asks for the CPU. The executor is
 ``auto`` (the packed single-launch kernel executor on CUDA, the plain vmap
 one on the CPU) unless ``--use-kernel`` / ``--no-use-kernel`` /
@@ -26,9 +36,8 @@ ll/token per chain at theta0 and after sampling, and the chain-steps/s.
 
 The flags of the reference that wait for other parts of the port raise
 NotImplementedError naming their ROADMAP item: ``--clients`` /
-``--resident`` (13), ``--draw-bank`` / ``--bank-every`` other than 1 /
-``--ckpt`` / ``--snapshot-*`` / ``--resume`` (11), ``--metrics-dir`` /
-``--log-every`` (12) and ``--multi-pod`` (8).
+``--resident`` (13), ``--metrics-dir`` / ``--log-every`` (12) and
+``--multi-pod`` (8).
 """
 from __future__ import annotations
 
@@ -40,7 +49,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch import api
+from repro_torch import api, checkpoint
 from repro_torch import tree as tu
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.engine import _not_ported
@@ -48,10 +57,8 @@ from repro_torch.data import token_shards
 from repro_torch.models import init_params, log_lik_fn
 
 # flag -> the ROADMAP item its port waits for
-_REFUSED = (("clients", 13), ("resident", 13), ("draw_bank", 11),
-            ("ckpt", 11), ("snapshot_every", 11), ("snapshot_dir", 11),
-            ("resume", 11), ("metrics_dir", 12), ("log_every", 12),
-            ("multi_pod", 8))
+_REFUSED = (("clients", 13), ("resident", 13), ("metrics_dir", 12),
+            ("log_every", 12), ("multi_pod", 8))
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -95,17 +102,27 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="not ported (item 13)")
     ap.add_argument("--multi-pod", action="store_true",
                     help="not ported (item 8)")
-    ap.add_argument("--ckpt", default=None, help="not ported (item 11)")
-    ap.add_argument("--draw-bank", default=None, help="not ported (item 11)")
+    ap.add_argument("--ckpt", default=None,
+                    help="save chain 0's final parameters as one "
+                         "checkpoint (served as a one-draw bank)")
+    ap.add_argument("--draw-bank", default=None,
+                    help="draw-bank DIRECTORY: sample in segments of "
+                         "--bank-every rounds and append chain 0's "
+                         "parameters as one DrawMeta-enveloped draw per "
+                         "segment, for repro_torch.launch.serve --bank")
     ap.add_argument("--bank-every", type=int, default=1,
-                    help="rounds per draw-bank segment; only 1 (no draw "
-                         "bank) is ported (item 11)")
+                    help="rounds per draw-bank segment (one draw every "
+                         "this many rounds)")
     ap.add_argument("--snapshot-every", type=int, default=None,
-                    help="not ported (item 11)")
+                    help="save the run's whole carry (chains, generator, "
+                         "federation state, trace) every N rounds into "
+                         "--snapshot-dir, atomically")
     ap.add_argument("--snapshot-dir", default=None,
-                    help="not ported (item 11)")
+                    help="directory for --snapshot-every / --resume")
     ap.add_argument("--resume", action="store_true",
-                    help="not ported (item 11)")
+                    help="continue from the newest valid snapshot in "
+                         "--snapshot-dir (a fresh run when none exists), "
+                         "bitwise the uninterrupted run")
     ap.add_argument("--metrics-dir", default=None,
                     help="not ported (item 12)")
     ap.add_argument("--log-every", type=int, default=None,
@@ -114,8 +131,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     for flag, item in _REFUSED:
         if getattr(args, flag) not in (None, False):
             raise _not_ported(f"--{flag.replace('_', '-')}", item)
-    if args.bank_every != 1:
-        raise _not_ported(f"--bank-every {args.bank_every}", 11)
+    if (args.snapshot_every or args.resume) and not args.snapshot_dir:
+        raise SystemExit("--snapshot-every/--resume need --snapshot-dir")
+    if (args.snapshot_every or args.resume) and args.draw_bank:
+        raise SystemExit(
+            "--snapshot-every/--resume run the schedule as one resumable "
+            "engine run; --draw-bank runs its own segment loop — pick one")
     return args
 
 
@@ -137,6 +158,49 @@ def _generator(device, seed: int, stream: int) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(s)
 
 
+def _sample_into_bank(fsgld, gen, params, cfg, args, federation):
+    """Sample in SEGMENTS of ``--bank-every`` rounds, carrying the stacked
+    per-chain states across them (``engine.run(stacked=True)``), and
+    append chain 0's parameters to the draw bank after every segment:
+    one thinned posterior draw per segment, which a server watching the
+    directory hot-swaps in. The segments continue ONE generator, so a
+    Langevin run without a federation ends where one monolithic run ends,
+    bitwise; SGHMC momenta and a federation's carry restart per segment.
+    Between segments the states wait on the host. Returns (final stacked
+    (C, ...) parameter states, on the run's device; the draws' paths and
+    write seconds)."""
+    seg = max(1, args.bank_every)
+    state, stacked = params, False
+    done, paths, write_s = 0, [], []
+    while True:
+        r = min(seg, args.rounds - done)
+        finals = fsgld.engine.run(
+            gen, state, r, n_chains=args.chains, reassign="permutation",
+            collect=False, stacked=stacked, federation=federation)
+        # a draw is parameters, not a chain state: SGHMC's momenta stay
+        theta = finals[0] if args.kernel == "sghmc" else finals
+        del finals
+        done += r
+        draw = tu.tree_map(lambda t: t[0], theta)
+        meta = checkpoint.DrawMeta(
+            method=args.method, round=done,
+            scenario=(args.federation or "identity"), seed=args.seed,
+            dtype=checkpoint.dtype_name(tu.leaves(draw)[0].dtype),
+            arch=cfg.name, chain=0)
+        t0 = time.perf_counter()
+        paths.append(checkpoint.save_draw(args.draw_bank, draw, meta,
+                                          step=done))
+        write_s.append(time.perf_counter() - t0)
+        del draw
+        print(f"draw {len(paths) - 1} (round {done}) -> {paths[-1]} "
+              f"({write_s[-1]:.2f} s)", flush=True)
+        if done >= args.rounds:
+            return theta, paths, write_s
+        state = tu.tree_map(lambda t: t.to("cpu"), theta)
+        stacked = True
+        del theta
+
+
 @dataclasses.dataclass
 class TrainRun:
     """What one run of the driver produced (``main`` prints it)."""
@@ -149,6 +213,8 @@ class TrainRun:
     fit_s: Optional[float]
     sample_s: float
     peak_gb: dict          # CUDA: peak device memory of 'fit', 'sampling'
+    draws: list = dataclasses.field(default_factory=list)  # bank paths
+    draw_write_s: list = dataclasses.field(default_factory=list)
 
 
 def ll_per_token(params, cfg, probe) -> float:
@@ -198,7 +264,10 @@ def run(args: argparse.Namespace) -> TrainRun:
         execution=api.Execution(device=dev, executor=executor,
                                 collect=False,
                                 dtype=getattr(torch, cfg.surrogate_dtype),
-                                bank_device="cpu"),
+                                bank_device="cpu",
+                                snapshot_every=args.snapshot_every,
+                                snapshot_path=args.snapshot_dir,
+                                resume=args.resume),
         federation=federation)
     probe = tu.tree_map(lambda d: d[0][:args.batch], shards)
     ll0 = ll_per_token(params, cfg, probe)
@@ -221,12 +290,18 @@ def run(args: argparse.Namespace) -> TrainRun:
     params = tu.tree_map(lambda t: t.to("cpu"), params)
     _reset_peak(dev)
     t0 = time.perf_counter()
-    finals = fsgld.sample(_generator(dev, args.seed, 3), params)
+    paths, write_s = [], []
+    if args.draw_bank:
+        finals, paths, write_s = _sample_into_bank(
+            fsgld, _generator(dev, args.seed, 3), params, cfg, args,
+            federation)
+    else:
+        finals = fsgld.sample(_generator(dev, args.seed, 3), params)
+        if args.kernel == "sghmc":
+            finals = finals[0]  # (theta, momentum) chain states
     _sync(dev)
     dt = time.perf_counter() - t0
     _peak(dev, "sampling", peak_gb)
-    if args.kernel == "sghmc":
-        finals = finals[0]  # (theta, momentum) chain states
     lls = [ll_per_token(tu.tree_map(lambda t: t[c], finals), cfg, probe)
            for c in range(args.chains)]
     for c, ll in enumerate(lls):
@@ -236,10 +311,16 @@ def run(args: argparse.Namespace) -> TrainRun:
           f"chain-steps) in {dt:.1f}s = {steps / dt:.1f} steps/s "
           f"[reassign=permutation executor={executor}"
           f"{' federation=' + args.federation if args.federation else ''}]")
+    if args.ckpt:
+        checkpoint.save(args.ckpt, tu.tree_map(lambda t: t[0], finals),
+                        step=args.rounds,
+                        extra={"method": args.method, "arch": cfg.name,
+                               "chains": args.chains})
+        print(f"checkpoint -> {args.ckpt}")
     print(f"final ll/token {float(np.mean(lls)):.4f}", flush=True)
     return TrainRun(cfg=cfg, sampler=fsgld, theta0=params, finals=finals,
                     ll0=ll0, lls=lls, fit_s=fit_s, sample_s=dt,
-                    peak_gb=peak_gb)
+                    peak_gb=peak_gb, draws=paths, draw_write_s=write_s)
 
 
 def _sync(dev: torch.device) -> None:

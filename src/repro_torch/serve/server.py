@@ -1,28 +1,36 @@
-"""The ensemble posterior server: K draws, one prefill per request
-(counterpart of ``repro.serve.server``).
+"""The ensemble posterior server: K draws, one prefill per request,
+hot-swapped draw banks (counterpart of ``repro.serve.server``).
 
 ``EnsembleServer`` is the object behind ``repro_torch.api.FSGLD.serve``
 and ``repro_torch.launch.serve``: it holds the stacked (K, ...) posterior
-draws, cast once for serving (``repro_torch.models.serving_params``), and
+draws, cast once for serving (``repro_torch.models.serving_params``),
 answers a request with one shared prefill plus a per-token decode
-fan-out (``repro_torch.serve.ensemble``).
+fan-out (``repro_torch.serve.ensemble``), and between requests polls its
+draw-bank directory for fresh draws written by a still-running sampler
+(``repro_torch.launch.train --draw-bank``): ``refresh()`` hot-swaps the
+newest K draws in without restarting the server.
 
-Draw banks (``bank=``, ``refresh()``) need the checkpoint package (ROADMAP
-item 11) and raise NotImplementedError; the trace spans of the reference
-come with observability (item 12).
+A bank's draws are fingerprint-checked against a skeleton of meta
+tensors built from ``models.param_layout`` (no parameter is made), and
+loaded, moved to the device and cast one draw at a time, so two fp32
+full-width draws never sit on the card at once. The request spans of the
+reference come with observability (ROADMAP item 12).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
-from typing import Any, Optional
+import warnings
+from typing import Any, List, Optional
 
 import torch
 
+from repro_torch import checkpoint
 from repro_torch import tree as tu
-from repro_torch.core.engine import _not_ported
 from repro_torch.models import (ensemble_decode_step, init_params,
-                                serving_params)
+                                param_layout, serving_params)
+from repro_torch.obs import trace as obs_trace
 from repro_torch.serve.ensemble import ensemble_prefill, predictive_stats
 
 PyTree = Any
@@ -49,47 +57,154 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def skeleton(cfg) -> PyTree:
+    """The parameter tree of ``cfg`` as meta tensors (names, shapes and
+    dtypes, no memory): what draws are fingerprint-checked against."""
+    dtype = getattr(torch, cfg.param_dtype)
+    return tu.tree_map(lambda leaf: torch.empty(leaf.shape, dtype=dtype,
+                                                device="meta"),
+                       param_layout(cfg))
+
+
+def _stack_into(stacked: Optional[PyTree], k: int, i: int,
+                draw: PyTree) -> PyTree:
+    """Write ``draw`` into slot ``i`` of a (k, ...) stack shaped like it,
+    allocated on first use."""
+    if stacked is None:
+        stacked = tu.tree_map(
+            lambda t: t.new_empty((k,) + tuple(t.shape)), draw)
+    tu.tree_map(lambda s, t: s[i].copy_(t), stacked, draw)
+    return stacked
+
+
 class EnsembleServer:
     """Serve K posterior draws as one Bayesian-model-averaged model.
 
-    One draw source: ``draws=`` an already-stacked (K, ...) parameter tree
-    (moved to ``device`` and cast for serving), or none: ``n_draws`` fresh
-    inits from a generator seeded with ``seed`` (shape smoke, no
-    posterior), made one at a time so that two fp32 draws never coexist.
+    One draw source:
+      * ``bank=`` a draw-bank directory (or a legacy single-checkpoint
+        dir): its freshest ``n_draws`` (all when None) are loaded,
+        fingerprint-checked against this arch's skeleton, and
+        ``refresh()`` keeps tracking the directory;
+      * ``draws=`` an already-stacked (K, ...) parameter tree (moved to
+        ``device`` and cast for serving);
+      * neither: ``n_draws`` fresh inits from a generator seeded with
+        ``seed`` (shape smoke, no posterior).
+    Draws are cast one at a time, so two fp32 draws never coexist.
     """
 
     def __init__(self, cfg, *, bank: Optional[str] = None,
                  draws: Optional[PyTree] = None,
                  n_draws: Optional[int] = None, seed: int = 0,
                  device: Any = "cuda"):
-        if bank is not None:
-            raise _not_ported("serving from a draw bank (bank=)", 11)
         self.cfg = cfg
         self.device = torch.device(device)
-        if draws is not None:
+        self.bank = bank
+        self.metas: List[Optional[checkpoint.DrawMeta]] = []
+        self._seen_draws = 0
+        if bank is not None:
+            if draws is not None:
+                raise ValueError("pass bank= or draws=, not both")
+            self._like = skeleton(cfg)
+            self._want = n_draws
+            self.draws = None
+            if not self.refresh():
+                raise ValueError(f"no draws in bank {bank!r}")
+        elif draws is not None:
             self.draws = serving_params(
                 tu.tree_map(lambda t: t.to(self.device), draws))
+            self.metas = [None] * self.n_draws
         else:
             self.draws = self._fresh(n_draws or 1, seed)
+            self.metas = [None] * self.n_draws
 
     def _fresh(self, k: int, seed: int) -> PyTree:
         gen = torch.Generator(device=self.device).manual_seed(seed)
         stacked = None
         for i in range(k):
             draw = serving_params(init_params(self.cfg, gen, self.device))
-            if stacked is None:
-                stacked = tu.tree_map(
-                    lambda t: t.new_empty((k,) + tuple(t.shape)), draw)
-            tu.tree_map(lambda s, t: s[i].copy_(t), stacked, draw)
+            stacked = _stack_into(stacked, k, i, draw)
             del draw
         return stacked
+
+    def _load(self, k: int):
+        """The freshest ``k`` servable draws of the bank, stacked on the
+        device and cast, oldest first, with their metas: each draw is
+        read on the host, moved, cast and written into its slot before
+        the next is read."""
+        stacked, metas, i = None, [], k
+        for tree, meta in checkpoint.iter_bank(
+                self.bank, self._like, k=k, expect_arch=self.cfg.name):
+            i -= 1
+            draw = serving_params(
+                tu.tree_map(lambda t: t.to(self.device), tree))
+            del tree
+            stacked = _stack_into(stacked, k, i, draw)
+            del draw
+            metas.insert(0, meta)
+        if i:          # corrupt draws skipped: fewer than k were served
+            stacked = tu.tree_map(lambda t: t[i:].clone(), stacked)
+        return stacked, metas
 
     @property
     def n_draws(self) -> int:
         return int(tu.leaves(self.draws)[0].shape[0])
 
-    def refresh(self, **_) -> bool:
-        raise _not_ported("draw-bank refresh()", 11)
+    def refresh(self, *, retries: int = 2,
+                backoff_s: float = 0.05) -> bool:
+        """Poll the draw bank; when new complete draws appeared since the
+        last load, hot-swap the freshest ``n_draws`` in. Returns True when
+        the ensemble changed; False (a no-op) for servers without a bank.
+
+        Transient read failures (``OSError``, a torn-write
+        ``CorruptCheckpointError``) are retried ``retries`` times with
+        exponential backoff from ``backoff_s``; refusals (arch or
+        fingerprint mismatch, a wholly corrupt bank) are not. Once an
+        ensemble is live a failed refresh keeps it serving (a warning and
+        False): only the INITIAL load raises."""
+        if self.bank is None:
+            return False
+        avail = len(checkpoint.list_draws(self.bank))
+        if avail == 0 and os.path.exists(
+                os.path.join(self.bank, "manifest.json")):
+            avail = 1  # legacy single-checkpoint fallback: one draw
+        if avail == 0 or (avail == self._seen_draws
+                          and self.draws is not None):
+            return False
+        k = self._want if self._want is not None else avail
+        k = min(k, avail)  # sampler still filling the bank: serve what exists
+        loaded = None
+        last_exc: Optional[Exception] = None
+        with obs_trace.span("server.refresh", bank=self.bank, avail=avail):
+            for attempt in range(retries + 1):
+                try:
+                    loaded = self._load(k)
+                    last_exc = None
+                    break
+                except (checkpoint.CorruptCheckpointError, OSError) as e:
+                    last_exc = e
+                    obs_trace.event(
+                        "server.refresh_retry", attempt=attempt,
+                        retries=retries, error=str(e),
+                        backoff_s=(backoff_s * (2 ** attempt)
+                                   if attempt < retries else 0.0))
+                    if attempt < retries:
+                        time.sleep(backoff_s * (2 ** attempt))
+                except ValueError as e:  # refusal: retrying cannot help
+                    last_exc = e
+                    obs_trace.event("server.refresh_refused", error=str(e))
+                    break
+        if last_exc is not None:
+            if self.draws is not None:
+                warnings.warn(
+                    f"draw-bank refresh failed ({last_exc}); keeping the "
+                    f"previous {self.n_draws}-draw ensemble live")
+                obs_trace.event("server.refresh_failed", error=str(last_exc),
+                                kept_draws=self.n_draws)
+                return False
+            raise last_exc
+        self.draws, self.metas = loaded
+        self._seen_draws = avail
+        return True
 
     def generate(self, prompt: Optional[torch.Tensor] = None, *,
                  generator: Optional[torch.Generator] = None, gen: int = 16,

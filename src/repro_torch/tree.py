@@ -60,6 +60,26 @@ def leaves(tree: PyTree) -> list:
     return flatten(tree)[0]
 
 
+def _walk_paths(t, prefix: tuple, out: list):
+    if isinstance(t, dict):
+        for k in sorted(t):
+            _walk_paths(t[k], prefix + (str(k),), out)
+    elif isinstance(t, (list, tuple)):
+        for i, c in enumerate(t):
+            _walk_paths(c, prefix + (str(i),), out)
+    elif t is not None:
+        out.append(("/".join(prefix), t))
+
+
+def leaves_with_names(tree: PyTree) -> list:
+    """(name, leaf) pairs in ``flatten`` order; a name is the leaf's key
+    path joined by '/' (dict keys, then list and tuple indices), as the
+    JAX package names leaves from ``tree_flatten_with_path``."""
+    out: list = []
+    _walk_paths(tree, (), out)
+    return out
+
+
 def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
     """fn over corresponding leaves of trees with the same structure."""
     lv, td = flatten(tree)

@@ -366,3 +366,75 @@ def test_full_depth_prefill_unchanged_by_the_statistics_entry(dev):
         attention=lambda q, k, v, **kw: fa.flash_attention_lse(q, k, v,
                                                                **kw)[0])
     assert torch.equal(logits, with_lse)
+
+
+def _mlp_sampler(dev, **exe):
+    g = torch.Generator(device=dev).manual_seed(3)
+    data, bank, theta0 = mlp_problem(g, S=3, n=64, din=6, hid=9, dout=2)
+    s = api.FSGLD(api.Posterior(mlp_log_lik), data, minibatch=8,
+                  step_size=1e-4,
+                  surrogate=api.SurrogateSpec(kind="scalar", bank=bank),
+                  schedule=api.Schedule(rounds=4, local_steps=5, n_chains=4,
+                                        reassign="permutation"),
+                  execution=api.Execution(executor="packed", **exe))
+    return s, theta0
+
+
+def test_quarantine_on_the_packed_kernel_path(dev):
+    """Chaos NaN on chain 1 after round 1 under quarantine: word
+    [0, 2, 0, 0], the other chains the fault-free run's bitwise, still
+    one update launch per step; recovery with the detector on a
+    fault-free run is bitwise recovery off."""
+    from repro_torch.core.health import Recovery
+    from repro_torch.testing import ChaosSpec
+    s, theta0 = _mlp_sampler(dev)
+    base = s.sample(torch.Generator(device=dev).manual_seed(1), theta0)
+    fk.reset_launches()
+    out, h = s.engine.run(torch.Generator(device=dev).manual_seed(1),
+                          theta0, 4, n_chains=4, reassign="permutation",
+                          recovery=Recovery("quarantine"),
+                          chaos=ChaosSpec(nan_chains=(1,), nan_rounds=(1,)))
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES["fsgld_update_packed"] == 20
+    assert h.word.tolist() == [0, 2, 0, 0]
+    for a, b in zip(tu.leaves(base), tu.leaves(out)):
+        assert torch.equal(a[[0, 2, 3]], b[[0, 2, 3]])
+        assert torch.isfinite(b).all()
+    clean, h2 = s.engine.run(torch.Generator(device=dev).manual_seed(1),
+                             theta0, 4, n_chains=4, reassign="permutation",
+                             recovery=Recovery("respawn",
+                                               divergence_threshold=1e6))
+    assert h2.n_healthy == 4
+    assert all(torch.equal(a, b) for a, b in zip(tu.leaves(base),
+                                                 tu.leaves(clean)))
+
+
+def test_resume_on_the_packed_kernel_path(dev, tmp_path):
+    """Snapshots every round, the newest deleted, resume: the card's
+    generator state rides the snapshot and the trace is bitwise the
+    uninterrupted run's."""
+    import shutil
+    from repro_torch.checkpoint import list_snapshots
+    s, theta0 = _mlp_sampler(dev)
+    ref = s.sample(torch.Generator(device=dev).manual_seed(1), theta0)
+    snaps = str(tmp_path / "snaps")
+    kw = dict(snapshot_every=1, snapshot_path=snaps)
+    _mlp_sampler(dev, **kw)[0].sample(
+        torch.Generator(device=dev).manual_seed(1), theta0)
+    shutil.rmtree(list_snapshots(snaps)[-1][1])
+    out = _mlp_sampler(dev, resume=True, **kw)[0].sample(
+        torch.Generator(device=dev).manual_seed(1), theta0)
+    assert all(torch.equal(a, b) for a, b in zip(tu.leaves(ref),
+                                                 tu.leaves(out)))
+
+
+def test_bf16_leaf_saves_and_restores_from_the_card(dev, tmp_path):
+    from repro_torch import checkpoint
+    g = torch.Generator(device=dev).manual_seed(0)
+    tree = {"w": torch.randn(300, 7, generator=g, device=dev),
+            "b": torch.randn(5, generator=g, device=dev).to(torch.bfloat16)}
+    checkpoint.save(str(tmp_path / "ck"), tree)
+    got, _, _ = checkpoint.restore(str(tmp_path / "ck"), tree)
+    for k in tree:
+        assert got[k].device.type == "cpu" and got[k].dtype == tree[k].dtype
+        assert torch.equal(got[k], tree[k].cpu())

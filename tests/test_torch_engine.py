@@ -230,9 +230,7 @@ def test_execution_refuses_to_fall_back_to_cpu(monkeypatch):
 def test_refusals_name_the_roadmap_item():
     s, theta0 = _mlp_sampler("packed")
     g = torch.Generator()
-    for kw, item in ((dict(recovery=object()), "11"),
-                     (dict(snapshot_every=2, snapshot_path="x"), "11"),
-                     (dict(telemetry=object()), "12"),
+    for kw, item in ((dict(telemetry=object()), "12"),
                      (dict(stream=object()), "13"),
                      (dict(refresh_every=2), "8")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):

@@ -41,4 +41,5 @@ def test_scan_sees_the_whole_port():
             "serve.py", "model.py", "layers.py", "flash_attention.py",
             "federated.py", "surrogate.py", "synthetic.py",
             "convert.py", "calibration.py", "workloads.py",
-            "paper_runs.py"} <= names
+            "paper_runs.py", "np_checkpoint.py", "snapshot.py",
+            "draw_bank.py", "health.py", "chaos.py", "trace.py"} <= names

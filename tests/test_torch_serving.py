@@ -209,16 +209,24 @@ def test_unported_kinds_are_refused(arch):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--bank", "/nonexistent"], 11), (["--ckpt", "/nonexistent"], 11),
-    (["--watch", "2"], 11), (["--log-jsonl", "/nonexistent"], 12)])
+    (["--log-jsonl", "/nonexistent"], 12)])
 def test_unported_serving_options_are_refused(argv, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         serve_cli.main(["--smoke", "--device", "cpu"] + argv)
-    cfg = get_smoke_config("h2o-danube-1.8b")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        EnsembleServer(cfg, bank="/nonexistent", device="cpu")
     with pytest.raises(NotImplementedError, match="item 8"):
         api.Serving(device="cpu", mesh=object())
+
+
+@pytest.mark.parametrize("argv", [["--bank", "/nonexistent"],
+                                  ["--ckpt", "/nonexistent"]])
+def test_a_missing_bank_is_refused_naming_it(argv):
+    """Draw banks are served (``tests/test_torch_checkpoint.py``); one
+    that does not exist is refused up front, by the CLI and the server."""
+    with pytest.raises(ValueError, match="no draws in bank"):
+        serve_cli.main(["--smoke", "--device", "cpu"] + argv)
+    cfg = get_smoke_config("h2o-danube-1.8b")
+    with pytest.raises(ValueError, match="no draws in bank"):
+        EnsembleServer(cfg, bank="/nonexistent", device="cpu")
 
 
 @pytest.mark.parametrize("arch", sorted(jax_arch_names))

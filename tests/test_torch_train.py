@@ -578,14 +578,24 @@ def test_train_cli_on_the_cpu_prints_finite_ll_per_chain(extra, capsys):
 
 @pytest.mark.parametrize("flag,item", [
     (["--clients", "8"], 13), (["--resident", "2"], 13),
-    (["--draw-bank", "d"], 11), (["--ckpt", "c"], 11),
-    (["--snapshot-every", "2"], 11), (["--snapshot-dir", "d"], 11),
-    (["--resume"], 11), (["--metrics-dir", "m"], 12),
-    (["--log-every", "1"], 12), (["--multi-pod"], 8),
-    (["--bank-every", "2"], 11)])
+    (["--metrics-dir", "m"], 12), (["--log-every", "1"], 12),
+    (["--multi-pod"], 8)])
 def test_train_cli_refuses_flags_naming_their_item(flag, item):
     with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
         ttrain.main(SMALL + flag)
+
+
+@pytest.mark.parametrize("flag,match", [
+    (["--snapshot-every", "2"], "need --snapshot-dir"),
+    (["--resume"], "need --snapshot-dir"),
+    (["--draw-bank", "d", "--snapshot-every", "2", "--snapshot-dir", "s"],
+     "pick one"),
+    (["--draw-bank", "d", "--resume", "--snapshot-dir", "s"], "pick one")])
+def test_train_cli_refuses_the_reference_combinations(flag, match):
+    """The reference driver's combination refusals of the fault-tolerance
+    flags (which themselves run: ``tests/test_torch_resume.py``)."""
+    with pytest.raises(SystemExit, match=match):
+        ttrain.parse_args(SMALL + flag)
 
 
 def test_train_cli_runs_with_bank_every_one_the_reference_default():
