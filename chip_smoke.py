@@ -55,9 +55,24 @@ nvcc per source, in parallel) and drives its two paths through the
   bitwise, on Table 1 (without a federation and under a hard one) and at
   [train-c2]'s size (6.59 GB of chain state per snapshot), the snapshot
   I/O timed; the train -> draw bank -> serve pipeline at qwen3-1.7b's full
-  width and depth through both drivers (the freshest draw bitwise the
+  width and 2 layers through both drivers (the freshest draw bitwise the
   final chain state; one flash launch per layer per request, none in
-  decode), then a refresh hot-swap and a corrupt draw at 2 layers;
+  decode; the request's spans through ``launch.serve --log-jsonl``),
+  then a refresh hot-swap and a corrupt draw;
+* observability: the Table-1 BNN with per-round telemetry on packed and
+  per-leaf, bitwise the run without it (no federation, partial
+  participation with top-k, quarantine of a NaN chain), its rows against
+  the schedule, ``log_every`` progress events, the JSONL / Prometheus
+  files, telemetry's cost per round; the ``[train]`` run with
+  ``--metrics-dir --log-every 1`` and ``[train-c2]`` with and without
+  telemetry, bitwise;
+* the streamed client axis: Table 1's clients through resident windows
+  of 4 and 6 (DSGLD, FSGLD, a delayed partial schedule; prefetch on and
+  off), bitwise the resident runs; qwen3-1.7b at full width and depth
+  over 10^6 lazy clients with 4 resident (each window's rows built on the
+  host and copied on a side stream while the previous window runs); the
+  train driver at [train-c2]'s size with ``--resident 2``, bitwise the
+  resident run;
 
 and times each kernel beside its bound, its plain version and, where one
 PyTorch call computes the same function, that call. Exits non-zero,
@@ -175,6 +190,17 @@ CHAOS_THRESHOLD, CHAOS_REPS, CHAOS_TIME_ROUNDS = 1e4, 3, 200
 RESUME_ROUNDS, RESUME_EVERY = 7, 3
 C2_RESUME_ROUNDS, C2_RESUME_EVERY = 4, 2
 BANK_ROUNDS, BANK_EVERY, BANK_LAYERS = 4, 2, 2
+# a serving span closes right after the request's own timer: at most this
+# many seconds apart
+SPAN_SLACK_S = 0.05
+# Observability. [telemetry]: the Table-1 run with Telemetry(probe=True);
+# its cost on TEL_TIME_ROUNDS one-step rounds, TEL_REPS times in turns.
+# The streamed client axis. [stream]: qwen3-1.7b at full width and depth
+# over STREAM_CLIENTS lazy clients, 4 resident, DSGLD at STREAM_H: the
+# gradient scale S N_s / m is 10^6 x 64 / 8 = 8e6 against [train]'s 32,
+# so h S N_s / m equals [train]'s TRAIN_H x 32.
+TEL_TIME_ROUNDS, TEL_REPS = 100, 3
+STREAM_CLIENTS, STREAM_H = 1_000_000, 4e-13
 
 
 def log(msg: str) -> None:
@@ -1395,12 +1421,20 @@ def phase_train(dev, failures):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fsgld_update as fk
     from repro_torch.launch import train
-    args = train.parse_args(_train_argv())
+    from repro_torch.obs import read_jsonl, read_metrics_jsonl
+    mdir = tempfile.mkdtemp(prefix="chip_smoke_metrics_")
+    args = train.parse_args(_train_argv() + ["--metrics-dir", mdir,
+                                             "--log-every", "1"])
     cuda_sync()
     fk.reset_launches()
     fa.reset_launches()  # the main path: the driver's whole run
-    tr = train.run(args)
-    cuda_sync()
+    try:
+        tr = train.run(args)
+        cuda_sync()
+        frame = read_metrics_jsonl(os.path.join(mdir, "metrics.jsonl"))
+        events = read_jsonl(os.path.join(mdir, "trace.jsonl"))
+    finally:
+        shutil.rmtree(mdir, ignore_errors=True)
     counts, n_flash = dict(fk.LAUNCHES), fa.LAUNCHES["flash_attention"]
     cfg = tr.cfg
     if (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
@@ -1410,9 +1444,10 @@ def phase_train(dev, failures):
     if n_params != QWEN3_P:
         raise AssertionError(f"{n_params} parameters, expected {QWEN3_P}")
     steps = TRAIN_R * TRAIN_T
-    # gradient passes: the fit's and the sampling's; forwards: the probes
-    # at theta0 and at each chain's final state
-    passes = TRAIN_S * TRAIN_FIT + steps + 1 + args.chains
+    # gradient passes: the fit's, the sampling's and telemetry's probe
+    # (one per round); forwards: the probes at theta0 and at each chain's
+    # final state
+    passes = TRAIN_S * TRAIN_FIT + steps + TRAIN_R + 1 + args.chains
     if counts != {"fsgld_update_packed": steps, "fsgld_update_2d": 0} or \
             n_flash != cfg.num_layers * passes:
         raise AssertionError(f"train: launches {counts}, flash {n_flash}; "
@@ -1433,7 +1468,29 @@ def phase_train(dev, failures):
     log(f"  main path launches: fsgld_update_packed {counts['fsgld_update_packed']}"
         f" (1 per step), flash_attention {n_flash} = {cfg.num_layers} x "
         f"{passes} passes ({TRAIN_S} x {TRAIN_FIT} fit + {steps} sampling "
-        f"gradient passes, {1 + args.chains} probe forwards)")
+        f"gradient passes + {TRAIN_R} telemetry probe passes, "
+        f"{1 + args.chains} probe forwards)")
+    import numpy as np
+    _finite_frame("train telemetry", frame, TRAIN_R, args.chains)
+    if len(frame.names) != 9 or \
+            [e["round"] for e in events if e["name"] == "engine.progress"] \
+            != list(range(1, TRAIN_R + 1)):
+        raise AssertionError(f"train telemetry: {frame.names}")
+    m = frame.metrics
+    tokens = args.batch * args.seq
+    probe_ll = (m["log_post"][:, 0].astype(np.float64) + 0.5
+                * m["theta_norm"][:, 0].astype(np.float64) ** 2) / tokens
+    if abs(probe_ll[-1] - tr.lls[0]) > TRAIN_GUARD:
+        raise AssertionError(f"train telemetry: probe ll/token "
+                             f"{probe_ll.tolist()} against the driver's "
+                             f"{tr.lls}")
+    log(f"  telemetry ({TRAIN_R} x {args.chains} x {len(frame.names)} "
+        "frame, --log-every 1): " + "; ".join(
+            f"{n} {np.round(m[n][:, 0], 6).tolist()}" for n in
+            ("drift_norm", "conducive_norm", "grad_norm", "log_post",
+             "theta_norm")) + f"; probe ll/token "
+        f"{np.round(probe_ll, 4).tolist()} (the driver's final "
+        f"{tr.lls[0]:.4f})")
 
     s = tr.sampler
     per_leaf = api.FSGLD(
@@ -1458,7 +1515,8 @@ def phase_train(dev, failures):
     log(f"  per_leaf: {steps * L} fsgld_update_2d launches ({L} leaves), "
         f"{fa.LAUNCHES['flash_attention']} flash_attention ({cfg.num_layers}"
         f" per gradient pass), {steps / dt:.3f} chain-steps/s")
-    same("train: packed == per_leaf", tr.finals, out)
+    same("train: packed with telemetry == per_leaf without",
+         tr.finals, out)
     del out
     tr.finals = None
     split = step_split(dev, tr)
@@ -1705,6 +1763,16 @@ def phase_train_c2(dev):
         f"(C*P = {C2_CHAINS * P}): {T} fsgld_update_packed launches, "
         f"{n_flash} flash_attention ({C2_LAYERS} per gradient pass, chains "
         f"folded); first update max|kernel-plain| {chk.err:.3e}")
+    from repro_torch.obs import Telemetry
+    (on, frame), _, _, _ = _counted(
+        "train-c2 telemetry", lambda: s.sample(_gen(dev, 43), theta0,
+                                               telemetry=Telemetry()),
+        _expect("packed", T), C2_LAYERS * (T + 1))
+    same("train-c2: telemetry on == off", out, on)
+    _finite_frame("train-c2 telemetry", frame, 1, C2_CHAINS)
+    log(f"  train-c2 telemetry: {T} update and {C2_LAYERS * (T + 1)} flash "
+        "launches (one probe pass); " + ", ".join(
+            f"{n} {frame.metrics[n][0].tolist()}" for n in frame.names))
     return chk.err
 
 
@@ -2024,35 +2092,47 @@ def phase_resume_c2(dev, root):
 
 def phase_bank(dev, root):
     """The reference's train -> draw bank -> serve pipeline at qwen3-1.7b's
-    full width and depth through both drivers, then a refresh hot-swap
-    and a corrupt draw at full width with BANK_LAYERS layers."""
+    full width and BANK_LAYERS of its layers through both drivers (the
+    served request through ``launch.serve --log-jsonl``: its prefill and
+    decode spans against the request's own times), then a refresh
+    hot-swap and a corrupt draw at the same size. Full depth runs in
+    [train]; the draws' I/O at full depth is PR 17's (PERF.md)."""
     import gc
-    from repro_torch import checkpoint
+    from repro_torch import checkpoint, configs
     from repro_torch import tree as tu
-    from repro_torch.configs import get_config
     from repro_torch.launch import serve as serve_cli
     from repro_torch.launch import train
     from repro_torch.models import init_params
+    from repro_torch.obs import read_jsonl
     from repro_torch.serve import EnsembleServer
     from repro_torch.serve.server import skeleton
     from repro_torch.testing import corrupt_draw
     n_draws = BANK_ROUNDS // BANK_EVERY
-    _need_disk(root, n_draws * QWEN3_P * 4,
-               f"{n_draws} fp32 draws of {QWEN3_P} parameters")
+    cfg = dataclasses.replace(configs.get_config("qwen3-1.7b"),
+                              num_layers=BANK_LAYERS)
+    like = skeleton(cfg)
+    draw_b = _tree_bytes(like)
+    P = draw_b // 4
+    _need_disk(root, n_draws * draw_b,
+               f"{n_draws} fp32 draws of {P} parameters")
     D = os.path.join(root, "bank")
     args = train.parse_args(_train_argv() + [
         "--rounds", str(BANK_ROUNDS), "--draw-bank", D, "--bank-every",
         str(BANK_EVERY)])
     steps = BANK_ROUNDS * TRAIN_T
     passes = TRAIN_S * TRAIN_FIT + steps + 1 + args.chains
-    tr, dt, _, n_flash = _counted(
-        "bank/train", lambda: train.run(args), _expect("packed", steps),
-        QWEN3_WIDTH[0] * passes)
-    like = skeleton(get_config("qwen3-1.7b"))
+    real_cfg = (train.get_config, configs.get_config)
+    train.get_config = configs.get_config = lambda arch: cfg
+    try:
+        tr, dt, _, n_flash = _counted(
+            "bank/train", lambda: train.run(args), _expect("packed", steps),
+            BANK_LAYERS * passes)
+    finally:
+        train.get_config, configs.get_config = real_cfg
     want = checkpoint.tree_fingerprint(like)
     metas = [checkpoint.read_meta(p) for p in checkpoint.list_draws(D)]
     if [(m.arch, m.round, m.dtype, m.config_hash) for m in metas] != [
-            ("qwen3-1.7b", r, "float32", want)
+            (cfg.name, r, "float32", want)
             for r in range(BANK_EVERY, BANK_ROUNDS + 1, BANK_EVERY)]:
         raise AssertionError(f"bank metas {metas}")
     t0 = time.perf_counter()
@@ -2061,46 +2141,59 @@ def phase_bank(dev, root):
     same(f"bank: the freshest draw (round {metas[-1].round}) == the run's "
          "final chain state", fresh,
          tu.tree_map(lambda t: t[0].cpu(), tr.finals))
-    log(f"  train --draw-bank: {steps} update and {n_flash} flash launches "
-        f"in {dt:.2f} s; {n_draws} draws of {QWEN3_P} fp32 parameters "
-        f"({QWEN3_P * 4 / 1e9:.2f} GB each): write "
+    log(f"  train --draw-bank ({BANK_LAYERS} layers): {steps} update and "
+        f"{n_flash} flash launches in {dt:.2f} s; {n_draws} draws of {P} "
+        f"fp32 parameters ({draw_b / 1e9:.2f} GB each): write "
         f"{[round(s, 2) for s in tr.draw_write_s]} s = "
-        f"{[round(QWEN3_P * 4 / s / 1e9, 3) for s in tr.draw_write_s]} GB/s;"
+        f"{[round(draw_b / s / 1e9, 3) for s in tr.draw_write_s]} GB/s;"
         f" a draw read back (restore: hash + parse) {read_s:.2f} s; metas "
-        f"arch qwen3-1.7b, rounds {[m.round for m in metas]}, float32, "
+        f"arch {cfg.name}, rounds {[m.round for m in metas]}, float32, "
         f"config_hash {want} (the skeleton's)")
     del tr, fresh
     gc.collect()
     torch.cuda.empty_cache()
 
-    with Timed(EnsembleServer, "_load") as loads, \
-            RequestLaunches() as req:
-        _, dt, _, _ = _counted("bank/serve", lambda: serve_cli.main([
-            "--arch", "qwen3-1.7b", "--bank", D, "--draws", str(n_draws),
-            "--device", str(dev), "--batch", str(SERVE_B), "--prompt-len",
-            str(SERVE_S),
-            "--gen", str(SERVE_GEN)]), {}, QWEN3_WIDTH[0])
+    log_path = os.path.join(root, "serve.jsonl")
+    configs.get_config = lambda arch: cfg
+    try:
+        with Timed(EnsembleServer, "_load") as loads, \
+                RequestLaunches() as req:
+            _, dt, _, _ = _counted("bank/serve", lambda: serve_cli.main([
+                "--arch", "qwen3-1.7b", "--bank", D, "--draws",
+                str(n_draws), "--device", str(dev), "--batch", str(SERVE_B),
+                "--prompt-len", str(SERVE_S), "--gen", str(SERVE_GEN),
+                "--log-jsonl", log_path]), {}, BANK_LAYERS)
+    finally:
+        configs.get_config = real_cfg[1]
     res, = req.results
-    if (req.prefill, req.decode) != ([QWEN3_WIDTH[0]], [0]) or \
+    if (req.prefill, req.decode) != ([BANK_LAYERS], [0]) or \
             tuple(res.tokens.shape) != (SERVE_B, SERVE_GEN) or \
             res.n_draws != n_draws:
         raise AssertionError(f"bank/serve: flash prefill {req.prefill}, "
                              f"decode {req.decode}, tokens {res.tokens.shape}")
     _check_signals("bank/serve", res, n_draws)
-    log(f"  launch.serve --bank --draws {n_draws}: load {loads.seconds[0]:.2f}"
-        f" s ({n_draws} draws read, moved and cast one at a time); one "
-        f"request of {SERVE_B} x {SERVE_S}, {SERVE_GEN} tokens: prefill "
-        f"{res.prefill_s:.3f} s, decode {res.decode_s:.3f} s; flash launches"
-        f" prefill {req.prefill[0]}, decode {req.decode[0]}; the command "
-        f"{dt:.2f} s")
+    spans = {r["name"]: r for r in read_jsonl(log_path)
+             if r["type"] == "span"}
+    for name, s in (("serve.prefill", res.prefill_s),
+                    ("serve.decode", res.decode_s)):
+        if name not in spans or not (
+                s <= spans[name]["dur_s"] + 1e-6
+                and spans[name]["dur_s"] - s < SPAN_SLACK_S):
+            raise AssertionError(f"bank/serve --log-jsonl: {name} "
+                                 f"{spans.get(name)} against {s} s")
+    log(f"  launch.serve --bank --draws {n_draws} --log-jsonl: load "
+        f"{loads.seconds[0]:.2f} s ({n_draws} draws read, moved and cast one "
+        f"at a time); one request of {SERVE_B} x {SERVE_S}, {SERVE_GEN} "
+        f"tokens: prefill {res.prefill_s:.4f} s (span "
+        f"{spans['serve.prefill']['dur_s']:.4f}), decode "
+        f"{res.decode_s:.4f} s (span {spans['serve.decode']['dur_s']:.4f});"
+        f" flash launches prefill {req.prefill[0]}, decode "
+        f"{req.decode[0]}; the command {dt:.2f} s")
     del res, req
     shutil.rmtree(D)
     gc.collect()
     torch.cuda.empty_cache()
 
-    cfg = dataclasses.replace(get_config("qwen3-1.7b"),
-                              num_layers=BANK_LAYERS)
-    draw_b = _tree_bytes(skeleton(cfg))
     _need_disk(root, 4 * draw_b, f"4 fp32 draws of {BANK_LAYERS} layers")
     D2 = os.path.join(root, "bank2")
 
@@ -2153,6 +2246,323 @@ def phase_bank(dev, root):
         f"truncated, refresh() serves rounds [2, 4] with a warning in "
         f"{refresh2.seconds[0]:.2f} s; {n} flash launches per request "
         f"({card_line()})")
+
+
+# ---------------------------------------------------------------------------
+# observability and the streamed client axis
+# ---------------------------------------------------------------------------
+
+class Traced:
+    """While in a ``with`` block: the process-wide tracer writes to a JSONL
+    file in a new temporary directory; ``records`` reads it back."""
+
+    def __enter__(self):
+        from repro_torch.obs import trace as obs_trace
+        self.root = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+        self.path = os.path.join(self.root, "trace.jsonl")
+        obs_trace.configure(self.path)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.obs import trace as obs_trace
+        obs_trace.configure()
+        self.records = (obs_trace.read_jsonl(self.path)
+                        if os.path.exists(self.path) else [])
+        shutil.rmtree(self.root, ignore_errors=True)
+
+    def named(self, name):
+        return [r for r in self.records if r["name"] == name]
+
+
+def _finite_frame(name, frame, rounds, chains):
+    import numpy as np
+    finite = {n: bool(np.isfinite(a).all()) for n, a in frame.metrics.items()}
+    if (frame.rounds, frame.n_chains) != (rounds, chains) or \
+            not all(finite.values()):
+        raise AssertionError(f"{name}: frame {frame.rounds} x "
+                             f"{frame.n_chains}, finite rows {finite}")
+
+
+def phase_telemetry(dev, shards, theta0, bank):
+    """Table-1 BNN with ``Telemetry(probe=True)`` on packed and per_leaf:
+    bitwise the run without it under no federation, a federation with
+    partial participation and top-k, and recovery with a NaN chain (its
+    health_word non-zero); participation / bytes_per_round against the
+    schedule; log_every=2's progress events; the JSONL / Prometheus files
+    read back; telemetry's cost per round, off against on."""
+    import numpy as np
+    from repro_torch.core.health import Recovery
+    from repro_torch.fed import CommSchedule, Compression, Federation
+    from repro_torch.obs import (Telemetry, parse_prometheus,
+                                 read_metrics_jsonl, write_metrics_jsonl,
+                                 write_prometheus)
+    from repro_torch.testing import ChaosSpec
+    C, steps, R = T1_CHAINS, T1_ROUNDS * T1_T, T1_ROUNDS
+    tel = Telemetry(probe=True)
+    fed = Federation(schedule=CommSchedule(participation=0.6),
+                     compression=Compression(kind="topk", frac=0.01))
+    wire = fed.compression.bytes_per_round(854)
+    nan = ChaosSpec(nan_chains=(1,), nan_rounds=(2,))
+    for ex in ("packed", "per_leaf"):
+        eng = t1_sampler(dev, shards, bank, ex).engine
+        want = _expect(ex, steps)
+
+        def run(ex=ex, eng=eng, **kw):
+            return eng.run(_gen(dev, 20), theta0, R, n_chains=C, **kw)
+
+        for what, kw in (("no federation", {}),
+                         ("participation 0.6 + top-k 1%",
+                          dict(federation=fed)),
+                         ("quarantine, NaN chain 1 at round 2",
+                          dict(recovery=Recovery("quarantine"),
+                               chaos=nan))):
+            off = _counted(f"telemetry/{ex} off", lambda: run(**kw), want)[0]
+            on = _counted(f"telemetry/{ex} {what}",
+                          lambda: run(telemetry=tel, **kw), want)[0]
+            frame = on[-1]
+            same(f"telemetry/{ex} {what}: on == off",
+                 off if isinstance(off, torch.Tensor) else off[0], on[0])
+            _finite_frame(f"telemetry/{ex} {what}", frame, R, C)
+            m = frame.metrics
+            if "federation" in kw:
+                part = m["participation"]
+                if not (set(np.unique(part)) <= {0.0, 1.0}
+                        and (part[0] == 1).all() and 0 < part.mean() < 1
+                        and np.array_equal(m["bytes_per_round"],
+                                           part * np.float32(wire))):
+                    raise AssertionError(f"participation {part.tolist()}")
+                log(f"  telemetry/{ex} {what}: participation per round "
+                    f"{part.sum(1).tolist()} of {C}, bytes_per_round "
+                    f"{wire:g} per exchange")
+            if "recovery" in kw:
+                hw = m["health_word"]
+                if hw[:, 1].tolist() != [0, 0, 3, 3, 3] or \
+                        hw[:, [0, 2, 3]].any() or \
+                        on[1].word.tolist() != [0, 3, 0, 0]:
+                    raise AssertionError(f"health_word {hw.tolist()}")
+                log(f"  telemetry/{ex} {what}: health_word chain 1 "
+                    f"{hw[:, 1].tolist()}, the others 0; drift_norm chain 1 "
+                    f"{m['drift_norm'][:, 1].tolist()}")
+            if not kw:
+                one = on
+                log(f"  telemetry/{ex}: last round " + ", ".join(
+                    f"{n} {np.round(m[n][-1], 6).tolist()}"
+                    for n in frame.names))
+        # log_every=2: 3 segments, their progress events, bitwise
+        with Traced() as tr:
+            seg = _counted(f"telemetry/{ex} log_every", lambda: run(
+                telemetry=Telemetry(log_every=2)), want)[0]
+        same(f"telemetry/{ex}: log_every=2 == one segment", one[0], seg[0])
+        for n in tel.names:
+            if not np.array_equal(one[1].metrics[n], seg[1].metrics[n]):
+                raise AssertionError(f"log_every frame row {n}")
+        prog = tr.named("engine.progress")
+        if [p["round"] for p in prog] != [2, 4, 5]:
+            raise AssertionError(f"progress events {prog}")
+        log(f"  telemetry/{ex}: log_every=2 progress events at rounds "
+            f"{[p['round'] for p in prog]}, steps/s "
+            f"{[p['steps_per_s'] for p in prog]}")
+    root = tempfile.mkdtemp(prefix="chip_smoke_metrics_")
+    try:
+        frame = one[1]
+        write_metrics_jsonl(frame, os.path.join(root, "m.jsonl"))
+        write_prometheus(frame, os.path.join(root, "m.prom"))
+        back = read_metrics_jsonl(os.path.join(root, "m.jsonl"))
+        prom = parse_prometheus(os.path.join(root, "m.prom"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for n in frame.names:
+        if not np.array_equal(back.metrics[n], frame.metrics[n]):
+            raise AssertionError(f"metrics.jsonl row {n} does not read back")
+    if prom["fsgld_rounds_total"] != R or len(prom) != 1 + len(
+            frame.names) * (C + 1):
+        raise AssertionError(f"metrics.prom: {len(prom)} samples")
+    log(f"  metrics.jsonl read back bitwise; metrics.prom {len(prom)} "
+        "samples")
+
+    # the cost: TEL_TIME_ROUNDS one-step packed rounds, off / probe-free /
+    # with the probe, in turns
+    short = t1_sampler(dev, shards, bank, "packed", rounds=TEL_TIME_ROUNDS,
+                       local_steps=1).engine
+    kws = {"off": {}, "on, no probe": dict(telemetry=Telemetry(probe=False)),
+           "on": dict(telemetry=tel)}
+    reps = {n: [] for n in kws}
+    for _ in range(TEL_REPS):
+        for name, kw in kws.items():
+            reps[name].append(_counted("telemetry timing", lambda: short.run(
+                _gen(dev, 20), theta0, TEL_TIME_ROUNDS, n_chains=C, **kw),
+                _expect("packed", TEL_TIME_ROUNDS))[1])
+    med = {n: statistics.median(v) for n, v in reps.items()}
+    ms = {n: 1e3 * med[n] / TEL_TIME_ROUNDS for n in med}
+    log(f"  telemetry cost on {TEL_TIME_ROUNDS} one-step packed rounds "
+        f"(median of {TEL_REPS}, in turns): ms per round " + ", ".join(
+            f"{n} {v:.4f}" for n, v in ms.items())
+        + f"; telemetry {ms['on'] - ms['off']:.4f} ms per round "
+        f"({ms['on, no probe'] - ms['off']:.4f} without the probe) "
+        f"({card_line()})")
+    return ms
+
+
+def _t1_perm(dev, shards, bank, executor, method, federation=None,
+             stream=None):
+    """The Table-1 BNN with permutation reassignment (the streamed axis
+    replays it), through the facade."""
+    from repro_torch import api
+    from repro_torch.workloads import table1_log_lik
+    return api.FSGLD(
+        api.Posterior(table1_log_lik, prior_precision=1.0), shards,
+        minibatch=T1_M, step_size=T1_H, method=method,
+        surrogate=(api.SurrogateSpec(kind="diag", bank=bank)
+                   if method == "fsgld" else None),
+        schedule=api.Schedule(rounds=T1_ROUNDS, local_steps=T1_T,
+                              n_chains=T1_CHAINS, reassign="permutation",
+                              thin=20),
+        execution=api.Execution(device=dev, executor=executor,
+                                stream=stream),
+        federation=federation)
+
+
+def phase_stream_t1(dev, shards, theta0, bank):
+    """Table 1's 10 clients streamed through Stream(4, 1) and 2-round
+    windows, C = 4, on packed and per_leaf, for DSGLD, FSGLD with the
+    Fisher bank and under delay 2 / participation 0.6: each streamed run
+    bitwise the resident run; chain-steps/s streamed against resident and
+    with the prefetch on against off. The 2-round windows are Stream(6, 2)
+    where the plan fits: under the delayed schedule it always does (rounds
+    2r + 1 keep round 2r's clients); where every round reassigns two
+    rounds may touch 8 clients, the planner then refuses Stream(6, 2)
+    naming that minimum, and the run takes Stream(8, 2)."""
+    from repro_torch.fed import CommSchedule, Federation, Stream
+    steps = T1_ROUNDS * T1_T
+    sched = Federation(schedule=CommSchedule(delay=2, participation=0.6))
+    cases = (("dsgld", "dsgld", None), ("fsgld", "fsgld", None),
+             ("delay 2 / participation 0.6", "fsgld", sched))
+    rate = {}
+    for ex in ("packed", "per_leaf"):
+        want = _expect(ex, steps)
+        for name, method, fed in cases:
+            ref, dt, _, _ = _counted(
+                f"stream/{ex} {name} resident", lambda: _t1_perm(
+                    dev, shards, bank, ex, method, fed).sample(
+                    _gen(dev, 30), theta0), want)
+            rate.setdefault((ex, "resident"), []).append(dt)
+            K2 = 6
+            try:
+                _t1_perm(dev, shards, bank, ex, method, fed,
+                         Stream(resident=6, window=2)).sample(
+                    _gen(dev, 30), theta0)
+            except ValueError as e:
+                if fed is not None or \
+                        "raise resident to at least 8" not in str(e):
+                    raise
+                log(f"  stream/{ex} {name}: Stream(6, 2) refused: {e}")
+                K2 = 8
+            for K, W in ((4, 1), (K2, 2)):
+                for pf in (True, False):
+                    got, dt, _, _ = _counted(
+                        f"stream/{ex} {name} ({K}, {W})", lambda: _t1_perm(
+                            dev, shards, bank, ex, method, fed,
+                            Stream(resident=K, window=W, prefetch=pf)
+                        ).sample(_gen(dev, 30), theta0), want)
+                    if not torch.equal(ref, got):
+                        raise AssertionError(f"stream/{ex} {name} "
+                                             f"Stream({K}, {W}, {pf}) != "
+                                             "resident")
+                    rate.setdefault((ex, f"window {W} prefetch "
+                                     f"{'on' if pf else 'off'}"),
+                                    []).append(dt)
+        log(f"  stream/{ex}: Stream(4, 1) and 2-round windows, prefetch on "
+            "and off, == resident bitwise for dsgld, fsgld (Fisher bank), "
+            "delay 2 / participation 0.6")
+    log("  stream chain-steps/s (median over the 3 cases): " + "; ".join(
+        f"{ex} {what} {T1_CHAINS * steps / statistics.median(v):.1f}"
+        for (ex, what), v in rate.items()) + f" ({card_line()})")
+
+
+def phase_stream_qwen3(dev):
+    """qwen3-1.7b at full width and depth through the train driver with
+    10^6 lazy clients and 4 resident: one update launch per step, one
+    flash launch per layer per pass, at most 4 clients' rows built per
+    window, the chain finite and within TRAIN_GUARD of theta0; the stage
+    ms per window, overlap_frac, peak device memory, chain-steps/s."""
+    from repro_torch.fed import SyntheticClientSource
+    from repro_torch.launch import train
+    argv = ["--arch", "qwen3-1.7b", "--method", "dsgld", "--clients",
+            str(STREAM_CLIENTS), "--resident", "4", "--step-size",
+            repr(STREAM_H)]
+    args = train.parse_args(argv)
+    built = []
+    real = SyntheticClientSource.rows
+
+    def rows(src, ids):
+        built.append(len(ids))
+        return real(src, ids)
+
+    steps = TRAIN_R * TRAIN_T
+    passes = steps + 1 + args.chains
+    SyntheticClientSource.rows = rows
+    try:
+        with Traced() as tr_trace:
+            tr, dt, _, n_flash = _counted(
+                "stream/qwen3", lambda: train.run(args),
+                _expect("packed", steps), QWEN3_WIDTH[0] * passes)
+    finally:
+        SyntheticClientSource.rows = real
+    stage = [1e3 * r["dur_s"] for r in tr_trace.named("stream.stage")]
+    disp = [1e3 * r["dur_s"] for r in tr_trace.named("stream.dispatch")]
+    ov, = tr_trace.named("stream.prefetch_overlap")
+    # the windows' rows (one per window) and the ll probe's one client
+    if sorted(built) != [1] + [4] * TRAIN_R:
+        raise AssertionError(f"client rows built: {built}")
+    if not (all(math.isfinite(x) for x in tr.lls)
+            and min(tr.lls) >= tr.ll0 - TRAIN_GUARD):
+        raise AssertionError(f"stream/qwen3: ll/token {tr.lls} against "
+                             f"{tr.ll0} at theta0")
+    log(f"  {STREAM_CLIENTS} clients, resident 4, dsgld, h {STREAM_H:g} "
+        f"(h S N_s / m = {STREAM_H * STREAM_CLIENTS * 64 / 8:g}): "
+        f"{steps} update and {n_flash} flash launches ({QWEN3_WIDTH[0]} x "
+        f"{passes} passes); client rows built per call {built} (never "
+        f"{STREAM_CLIENTS}); ll/token theta0 {tr.ll0:.4f}, chains "
+        f"{[round(x, 4) for x in tr.lls]}; sampling {tr.sample_s:.2f} s = "
+        f"{steps / tr.sample_s:.3f} chain-steps/s; peak device memory "
+        f"sampling {tr.peak_gb['sampling']:.2f} GB; stage ms per window "
+        f"{[round(x, 2) for x in stage]}, dispatch ms per window "
+        f"{[round(x, 1) for x in disp]}; overlap_frac "
+        f"{ov['overlap_frac']} (stage {ov['stage_s']} s of wall "
+        f"{ov['wall_s']} s) ({card_line()})")
+    if tr.peak_gb["sampling"] > 79.18 * 2**30 / 1e9:
+        raise AssertionError(f"peak {tr.peak_gb}")
+    return {"stage_ms": stage, "overlap_frac": ov["overlap_frac"],
+            "peak_gb": tr.peak_gb["sampling"],
+            "steps_per_s": steps / tr.sample_s}
+
+
+def phase_stream_c2(dev):
+    """The train driver at [train-c2]'s size (full width, C2_LAYERS
+    layers, C = C2_CHAINS) on 8 token shards, FSGLD: ``--resident 2``
+    bitwise the same run without it."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    real = train.get_config
+    train.get_config = lambda arch: dataclasses.replace(
+        get_config(arch), num_layers=C2_LAYERS)
+    base = _train_argv() + ["--num-shards", "8", "--chains",
+                            str(C2_CHAINS)]
+    steps = TRAIN_R * TRAIN_T
+    try:
+        runs = [_counted(f"stream/c2 {what}", lambda: train.run(
+            train.parse_args(base + extra)), _expect("packed", steps))
+            for what, extra in (("resident", []),
+                                ("--resident 2", ["--resident", "2"]))]
+    finally:
+        train.get_config = real
+    (a, dta, _, _), (b, dtb, _, _) = runs
+    same(f"stream/c2: {C2_LAYERS} layers, C={C2_CHAINS}, 8 shards, "
+         "--resident 2 == resident", a.finals, b.finals)
+    log(f"  stream/c2: ll/token {[round(x, 4) for x in b.lls]}; sampling "
+        f"{a.sample_s:.2f} s resident, {b.sample_s:.2f} s streamed "
+        f"({steps * C2_CHAINS / a.sample_s:.3f} / "
+        f"{steps * C2_CHAINS / b.sample_s:.3f} chain-steps/s)")
 
 
 def main() -> int:
@@ -2289,6 +2699,13 @@ def main() -> int:
           f"snapshot every {RESUME_EVERY}, packed, without a federation and "
           "under HARD_FED")
     in_scratch(phase_resume_t1, dev, shards, theta0, bank)
+    phase(f"[telemetry] Table-1 BNN, {T1_ROUNDS} rounds x {T1_T} steps, "
+          f"C={T1_CHAINS}, Telemetry(probe=True) on packed and per_leaf: "
+          "bitwise off, the rows, log_every, the files, the cost")
+    phase_telemetry(dev, shards, theta0, bank)
+    phase(f"[stream] Table-1 BNN, {T1_S} clients, Stream(4, 1) and 2-round "
+          f"windows, C={T1_CHAINS}, permutation, packed and per_leaf")
+    phase_stream_t1(dev, shards, theta0, bank)
 
     phase("[profile] one packed Table-1 round (40 steps) under "
         "torch.profiler")
@@ -2317,14 +2734,25 @@ def main() -> int:
     phase_train_c2(dev)
     check_flash_diff(dev)
     torch.cuda.empty_cache()
+    phase(f"[stream] qwen3-1.7b at full width and depth through "
+          f"repro_torch.launch.train --method dsgld --clients "
+          f"{STREAM_CLIENTS} --resident 4 --step-size {STREAM_H:g}: C=1, "
+          f"{TRAIN_R} rounds x {TRAIN_T} steps, packed")
+    phase_stream_qwen3(dev)
+    torch.cuda.empty_cache()
+    phase(f"[stream] the train driver at {C2_LAYERS} of 28 layers, "
+          f"C={C2_CHAINS}, --num-shards 8 --resident 2 against the "
+          "resident run")
+    phase_stream_c2(dev)
+    torch.cuda.empty_cache()
     phase(f"[resume] qwen3-1.7b at full width, {C2_LAYERS} of 28 layers, "
           f"C={C2_CHAINS}, collect=False, {C2_RESUME_ROUNDS} rounds x 2 "
           f"steps, a snapshot every {C2_RESUME_EVERY}")
     in_scratch(phase_resume_c2, dev)
     torch.cuda.empty_cache()
-    phase(f"[bank] repro_torch.launch.train at full width and depth, "
-          f"{BANK_ROUNDS} rounds, --draw-bank --bank-every {BANK_EVERY} -> "
-          f"launch.serve --bank; refresh at {BANK_LAYERS} layers")
+    phase(f"[bank] repro_torch.launch.train at full width, {BANK_LAYERS} "
+          f"of 28 layers, {BANK_ROUNDS} rounds, --draw-bank --bank-every "
+          f"{BANK_EVERY} -> launch.serve --bank --log-jsonl; refresh")
     in_scratch(phase_bank, dev)
     torch.cuda.empty_cache()
 

@@ -21,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 
 from repro_torch import tree as tu
@@ -33,16 +34,21 @@ from repro_torch.core.health import Recovery, RunHealth
 from repro_torch.core.sghmc import SGHMCConfig
 from repro_torch.core.surrogate import (Gaussian, SurrogateBank,
                                         fit_scalar_tree, make_bank)
+from repro_torch.fed.partition import is_client_source
 from repro_torch.fed.partition import partition as partition_clients
+from repro_torch.fed.partition import resolve_shard_probs
 from repro_torch.fed.registry import get_scenario
+from repro_torch.fed.spec import Stream
 from repro_torch.kernels.ops import make_packed_layout
+from repro_torch.obs.telemetry import MetricsFrame, Telemetry
 from repro_torch.rivals.methods import get_method
 
 PyTree = Any
 LogLikFn = Callable[[PyTree, PyTree], torch.Tensor]
 
 __all__ = ["Posterior", "SurrogateSpec", "Schedule", "Execution", "Serving",
-           "FSGLD", "fit_bank_local_sgld", "Recovery", "RunHealth"]
+           "FSGLD", "fit_bank_local_sgld", "Recovery", "RunHealth",
+           "Stream", "Telemetry", "MetricsFrame"]
 
 _EXECUTORS = ("auto", "vmap", "per_leaf", "packed")
 _FIT_SEED_SALT = 0x5357
@@ -137,7 +143,21 @@ class Execution:
     snapshot_every / snapshot_path: atomically save the run's whole carry
       every that many rounds into the directory (preemption-safe).
       resume: continue from the newest valid snapshot in
-      ``snapshot_path``, bitwise the uninterrupted run."""
+      ``snapshot_path``, bitwise the uninterrupted run.
+    stream: a :class:`repro_torch.fed.Stream` — the streamed client axis:
+      only ``stream.resident`` clients live on device, the next window's
+      rows staged on a side stream while the current one runs. Fault-free
+      streamed runs are bitwise the resident path; requires
+      ``Schedule(reassign='permutation')`` and does not compose with
+      snapshots / recovery / telemetry (the engine refuses loudly).
+    telemetry: a :class:`repro_torch.obs.Telemetry` spec — per-round
+      per-chain metric rows (grad/drift/conducive norms, noise scale,
+      participation, wire bytes, health words) computed by the round
+      loop; ``sample`` then additionally returns a
+      :class:`repro_torch.obs.MetricsFrame`. Telemetry-off runs stay
+      bitwise identical, and telemetry probes draw from a generator of
+      their own, so telemetry-on runs are bitwise identical too. Does not
+      compose with ``stream``."""
     device: Any = None
     executor: str = "auto"
     collect: bool = True
@@ -147,6 +167,8 @@ class Execution:
     snapshot_every: Optional[int] = None
     snapshot_path: Optional[str] = None
     resume: bool = False
+    stream: Optional[Stream] = None
+    telemetry: Optional[Telemetry] = None
 
     def __post_init__(self):
         if self.executor not in _EXECUTORS:
@@ -220,6 +242,16 @@ class FSGLD:
     partitioner splits onto clients; the schedule and compression apply
     to the rounds (the identity scenario is the run without one,
     bitwise).
+
+    ``data`` may also be a lazy client source
+    (``repro_torch.fed.SyntheticClientSource``, ``PartitionedSource``):
+    the engine then materialises only the clients a run touches (every
+    client for a resident run, each window's under ``stream``). It
+    carries its own sizes, takes no partition spec and no surrogate fit
+    (pass a prefit bank or a surrogate-free method). ``shard_probs``: the
+    per-client selection probabilities f_s, or a preset name
+    ('uniform', 'size-proportional', 'sqrt-size';
+    ``fed.resolve_shard_probs``) normalised against the true sizes.
     """
 
     def __init__(self, posterior: Posterior, data: PyTree, *,
@@ -257,18 +289,43 @@ class FSGLD:
             else Schedule(rounds=100)
         self.execution = execution if execution is not None else Execution()
         dev = self.execution.device
-        if self.federation is not None and \
-                self.federation.partition is not None:
-            # the partition's own seed drives the split: changing the
-            # scenario never perturbs the sampling stream
-            data, sizes = partition_clients(None, data,
-                                            self.federation.partition, dev)
-        elif isinstance(data, (list, tuple)):
-            data, inferred = pad_shards([_to(d, dev) for d in data])
-            sizes = sizes if sizes is not None else inferred
-        self.data = _to(data, dev)
+        if is_client_source(data):
+            if self.federation is not None and \
+                    self.federation.partition is not None:
+                raise ValueError(
+                    "a ClientSource is already partitioned per client; "
+                    "it does not compose with a Federation partition "
+                    "spec (wrap the pooled data in PartitionedSource "
+                    "instead)")
+            if sizes is not None:
+                raise ValueError("a ClientSource carries its own sizes")
+            self.data = data
+            num_shards = int(data.num_clients)
+        else:
+            if self.federation is not None and \
+                    self.federation.partition is not None:
+                # the partition's own seed drives the split: changing the
+                # scenario never perturbs the sampling stream
+                data, sizes = partition_clients(
+                    None, data, self.federation.partition, dev)
+            elif isinstance(data, (list, tuple)):
+                data, inferred = pad_shards([_to(d, dev) for d in data])
+                sizes = sizes if sizes is not None else inferred
+            self.data = _to(data, dev)
+            num_shards = tu.leaves(self.data)[0].shape[0]
         self.sizes = sizes
-        num_shards = tu.leaves(self.data)[0].shape[0]
+        if isinstance(shard_probs, str):
+            # a partition-aware preset, resolved against the true client
+            # sizes through the host-tier (cross-silo) reductions
+            if is_client_source(self.data):
+                true_sizes = np.asarray(self.data.sizes)
+            elif sizes is not None:
+                true_sizes = np.asarray(sizes)
+            else:
+                true_sizes = np.full((num_shards,),
+                                     tu.leaves(self.data)[0].shape[1])
+            shard_probs = tuple(float(p) for p in resolve_shard_probs(
+                shard_probs, true_sizes))
         self.cfg = SamplerConfig(
             method=meth.cfg_method, step_size=step_size,
             num_shards=num_shards,
@@ -304,6 +361,12 @@ class FSGLD:
                 f"surrogate kind {spec.kind!r} has no fit here: pass a "
                 "prefit bank (core.fit_bank_linear / "
                 "core.fit_bank_from_samples)")
+        if is_client_source(self.data):
+            raise ValueError(
+                "surrogate fitting needs materialized (S, n, ...) shard "
+                "data; with a ClientSource pass a prefit bank "
+                "(SurrogateSpec(bank=...)) or a surrogate-free method "
+                "('dsgld')")
         theta0 = _to(theta0, self.execution.device)
         fit = spec.fit
         if fit == "auto":
@@ -364,14 +427,17 @@ class FSGLD:
                 sghmc=(SGHMCConfig(friction=self.friction,
                                    temperature=self.posterior.temperature)
                        if self.kernel == "sghmc" else None),
-                aggregation=self.method.aggregation)
+                aggregation=self.method.aggregation,
+                device=self.execution.device)
         return self._engine
 
     # -- phase 2: sampling -------------------------------------------------
 
     def sample(self, generator: torch.Generator, theta0: PyTree, *,
                rounds: Optional[int] = None,
-               n_chains: Optional[int] = None, federation: Any = None):
+               n_chains: Optional[int] = None, federation: Any = None,
+               stream: Optional[Stream] = None,
+               telemetry: Optional[Telemetry] = None):
         """Run the schedule; returns samples with leading axes
         (n_chains, rounds * ceil(local_steps / thin), ...), or the final
         chain states when ``Execution.collect`` is False ((theta,
@@ -386,7 +452,15 @@ class FSGLD:
         ``federation`` (a Federation or a registry name) overrides the
         constructor's scenario for this run. Only its schedule and
         compression may change: the data was split at construction, so
-        an override with another partition is refused."""
+        an override with another partition is refused.
+
+        ``stream`` (a ``fed.Stream``) overrides ``Execution.stream`` for
+        this run (only ``resident`` clients on device, the next window
+        staged while the current one runs, bitwise the resident path).
+        ``telemetry`` (an ``obs.Telemetry``) overrides
+        ``Execution.telemetry`` for this run; the return value then gains
+        a trailing ``obs.MetricsFrame`` of per-round per-chain metric
+        rows."""
         if self.cfg.method == "fsgld" and self.bank is None:
             fit_gen = torch.Generator(device=generator.device)
             fit_gen.manual_seed(generator.initial_seed() ^ _FIT_SEED_SALT)
@@ -409,7 +483,10 @@ class FSGLD:
             reassign=sched.reassign, collect_every=sched.thin,
             collect=exe.collect, federation=fed, recovery=exe.recovery,
             snapshot_every=exe.snapshot_every,
-            snapshot_path=exe.snapshot_path, resume=exe.resume)
+            snapshot_path=exe.snapshot_path, resume=exe.resume,
+            stream=stream if stream is not None else exe.stream,
+            telemetry=(telemetry if telemetry is not None
+                       else exe.telemetry))
 
     # -- phase 3: serving the posterior ------------------------------------
 

@@ -41,30 +41,45 @@ rounds the exchanging chains' states go through the exchange (primal
 compression -> FA-LD average -> dual compression) before the local steps;
 the others are never written. Straggling chains get their pre-round state
 back and their trace repeats it.
+
+The same round loop carries per-round telemetry (``run(telemetry=)``:
+metric rows on the device, a probe generator of its own) and the streamed
+client axis (``run(stream=)``: the held clients' rows looked up in a
+resident window, planned by replaying the run's draws on a clone of its
+generator, ``replay_sids``).
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import math
+import time
 from typing import Any, Optional
 
+import numpy as np
 import torch
-from torch.func import grad, vmap
+from torch.func import grad, grad_and_value, vmap
 
 from repro_torch import tree as tu
 from repro_torch.checkpoint.snapshot import latest_snapshot, save_snapshot
 from repro_torch.configs.base import SamplerConfig
+from repro_torch.core.conducive import conducive_gradient
 from repro_torch.core.health import HEALTH_PROBE_SALT, RunHealth
 from repro_torch.core.sampler import (LogLikFn, ShardScheme, chain_scales,
-                                      langevin_update, make_drift_fn)
+                                      langevin_update, make_drift_fn,
+                                      tree_randn_like)
 from repro_torch.core.sghmc import SGHMCConfig, init_momentum, sghmc_update
-from repro_torch.core.surrogate import SurrogateBank
+from repro_torch.core.surrogate import Gaussian, SurrogateBank
 from repro_torch.fed import schedule as fsched
 from repro_torch.fed.compress import (Compression, make_compressor,
                                       make_flattener)
+from repro_torch.fed.partition import is_client_source
 from repro_torch.fed.registry import get_scenario
 from repro_torch.fed.spec import Federation
 from repro_torch.kernels import ops as kops
+from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.telemetry import (TELEMETRY_PROBE_SALT, MetricsFrame,
+                                       Telemetry)
 
 PyTree = Any
 
@@ -231,21 +246,26 @@ def make_round_fn(log_lik_fn: LogLikFn, cfg: SamplerConfig,
                   hmc: Optional[SGHMCConfig] = None):
     """The plain reference executor ('vmap'): returns
     round_fn(state, draws, shard_data, bank_rt=None, *, generator,
-    on_step=None) over a (C, ...) chain block; state is the parameter
-    pytree, or the (thetas, momenta) pair for SGHMC (``hmc``). The drift
-    is vmapped over chains; the noise is drawn from ``generator`` (after
-    the round's draws). ``on_step(t, thetas)`` sees each step's states."""
+    on_step=None, rows=None) over a (C, ...) chain block; state is the
+    parameter pytree, or the (thetas, momenta) pair for SGHMC (``hmc``).
+    The drift is vmapped over chains; the noise is drawn from
+    ``generator`` (after the round's draws). ``on_step(t, thetas)`` sees
+    each step's states. ``rows`` (C,) are the held clients' rows in
+    ``shard_data`` and in the bank (default ``draws.sids``; a streamed
+    window holds only its resident clients), while sizes and
+    probabilities stay indexed by the global ids ``draws.sids``."""
     sample = _make_batch_sampler(cfg, scheme)
     drift_fn = make_drift_fn(log_lik_fn, cfg, scheme, bank)
 
     def round_fn(state, draws, shard_data, bank_rt=None, *, generator,
-                 on_step=None):
+                 on_step=None, rows=None):
         thetas, r = state if hmc else (state, None)
-        drift_v = vmap(lambda th, b, s: drift_fn(th, b, s, minibatch,
-                                                 bank_rt))
+        rows = draws.sids if rows is None else rows
+        drift_v = vmap(lambda th, b, s, q: drift_fn(th, b, s, minibatch,
+                                                    bank_rt, bank_id=q))
         for t in range(cfg.local_updates):
-            batches = sample(draws.idx[t], draws.sids, shard_data)
-            d = drift_v(thetas, batches, draws.sids)
+            batches = sample(draws.idx[t], rows, shard_data)
+            d = drift_v(thetas, batches, draws.sids, rows)
             if hmc is None:
                 thetas = langevin_update(thetas, d, cfg.step_size,
                                          generator, cfg.temperature)
@@ -265,8 +285,8 @@ def make_chain_round_fn(log_lik_fn: LogLikFn, cfg: SamplerConfig,
                         hmc: Optional[SGHMCConfig] = None):
     """The 'per_leaf' executor: gradients vmapped over the chain block,
     then one chain-batched kernel launch per leaf per step. Returns
-    round_fn(state, draws, shard_data, bank=None, *, on_step=None); state
-    as in ``make_round_fn``."""
+    round_fn(state, draws, shard_data, bank=None, *, on_step=None,
+    rows=None); state and ``rows`` as in ``make_round_fn``."""
     sample = _make_batch_sampler(cfg, scheme)
     grad_v = vmap(grad(log_lik_fn))
     # only FSGLD carries the conducive correction
@@ -277,16 +297,18 @@ def make_chain_round_fn(log_lik_fn: LogLikFn, cfg: SamplerConfig,
                 temperature=hmc.temperature) if hmc
            else dict(temperature=cfg.temperature))
 
-    def round_fn(state, draws, shard_data, bank=None, *, on_step=None):
+    def round_fn(state, draws, shard_data, bank=None, *, on_step=None,
+                 rows=None):
         thetas, r = state if hmc else (state, None)
+        rows = draws.sids if rows is None else rows
         scale, f_s = chain_scales(cfg, scheme, draws.sids, minibatch)
         for t in range(cfg.local_updates):
-            batches = sample(draws.idx[t], draws.sids, shard_data)
+            batches = sample(draws.idx[t], rows, shard_data)
             glls = grad_v(thetas, batches)
             out = kops.fused_update_chains_tree(
                 thetas, glls, draws.seeds[t], h=cfg.step_size, scale=scale,
                 f_s=f_s, prior_prec=cfg.prior_precision, alpha=cfg.alpha,
-                bank=bank if use_surrogate else None, sids=draws.sids,
+                bank=bank if use_surrogate else None, sids=rows,
                 surrogate_kind=bank_kind, momentum=r, **dyn)
             thetas, r = out if hmc else (out, None)
             if on_step is not None:
@@ -338,11 +360,17 @@ def pack_bank(layout: kops.PackedChains, bank: Optional[SurrogateBank],
     raise ValueError(bank.kind)
 
 
-def _gather(stack: torch.Tensor, sids: torch.Tensor, device) -> torch.Tensor:
+def _gather(stack, sids: torch.Tensor, device) -> torch.Tensor:
     """The chains' clients' rows of a (S, rows_total, 128) stack, on
     ``device`` widened to a chain-major (C * rows_total, 128) fp32 buffer.
     A stack on another device (the host) is read row block by row block,
-    each client's block copied straight from its (pinned) storage."""
+    each client's block copied straight from its (pinned) storage. A
+    streamed window passes such a stack whole with its resident ids, as
+    ``(stack, ids)``: row ``s`` of the window is row ``ids[s]`` of the
+    stack (the host's copy is never gathered per window)."""
+    if isinstance(stack, tuple):
+        stack, ids = stack
+        sids = ids.to(sids.device)[sids]
     if stack.device == torch.device(device):
         return stack[sids].to(torch.float32).reshape(-1, kops.LANE)
     out = torch.empty((sids.shape[0],) + tuple(stack.shape[1:]),
@@ -359,10 +387,14 @@ def make_packed_round_fn(log_lik_fn: LogLikFn, cfg: SamplerConfig,
                          hmc: Optional[SGHMCConfig] = None):
     """The 'packed' executor: ONE kernel launch per step for the whole
     chain block. Returns round_fn(state, draws, shard_data, pbank=None, *,
-    on_step=None) with state = (packed buffer, unpacked pytree), or
-    (packed buffer, packed momenta, unpacked pytree) for SGHMC (``hmc``):
-    the momenta ride a second chain-major buffer over the same segment
-    table.
+    on_step=None, rows=None, opnds=None) with state = (packed buffer,
+    unpacked pytree), or (packed buffer, packed momenta, unpacked pytree)
+    for SGHMC (``hmc``): the momenta ride a second chain-major buffer over
+    the same segment table. ``rows`` as in ``make_round_fn``;
+    ``round_fn.operands(rows, pbank, device)`` gathers the round's bank
+    operands (variant, operand dict, lam_g_leaf, lam_s_leaf), which a
+    caller that reads them after the round (telemetry's conducive norm)
+    passes in as ``opnds`` instead of letting the round gather them.
 
     The packed buffers are authoritative; the pytree (views into the
     buffer for fp32 leaves) feeds the gradient pass and the trace. Per
@@ -382,30 +414,33 @@ def make_packed_round_fn(log_lik_fn: LogLikFn, cfg: SamplerConfig,
     check_kernel_kind(bank_kind)
     dynamics = "sghmc" if hmc else "langevin"
 
-    def round_fn(state, draws, shard_data, pbank=None, *, on_step=None):
+    def operands(rows, pbank, device):
+        if bank_kind is None:
+            return "plain", {}, None, None
+        if bank_kind == "diag":
+            return "diag", {
+                "mu_g": pbank["mu_g"], "lam_g": pbank["lam_g"],
+                "mu_s": _gather(pbank["means"], rows, device),
+                "lam_s": _gather(pbank["precs"], rows, device)}, None, None
+        if bank_kind == "scalar":
+            return "scalar", {
+                "mu_g": pbank["mu_g"],
+                "mu_s": _gather(pbank["means"], rows, device)}, \
+                pbank["lam_g_leaf"], pbank["lam_s_leaf"][rows]
+        raise ValueError(bank_kind)
+
+    def round_fn(state, draws, shard_data, pbank=None, *, on_step=None,
+                 rows=None, opnds=None):
         if hmc:
             th_p, r_p, thetas = state
         else:
             (th_p, thetas), r_p = state, None
         sids = draws.sids
+        rows = sids if rows is None else rows
         scale, f_s = chain_scales(cfg, scheme, sids, minibatch)
-        ops = {}
-        lam_g_leaf = lam_s_leaf = None
-        if bank_kind is None:
-            variant = "plain"
-        elif bank_kind == "diag":
-            variant = "diag"
-            ops = {"mu_g": pbank["mu_g"], "lam_g": pbank["lam_g"],
-                   "mu_s": _gather(pbank["means"], sids, th_p.device),
-                   "lam_s": _gather(pbank["precs"], sids, th_p.device)}
-        elif bank_kind == "scalar":
-            variant = "scalar"
-            ops = {"mu_g": pbank["mu_g"],
-                   "mu_s": _gather(pbank["means"], sids, th_p.device)}
-            lam_g_leaf = pbank["lam_g_leaf"]
-            lam_s_leaf = pbank["lam_s_leaf"][sids]
-        else:
-            raise ValueError(bank_kind)
+        variant, ops, lam_g_leaf, lam_s_leaf = (
+            opnds if opnds is not None
+            else operands(rows, pbank, th_p.device))
         scalars = kops.packed_scalar_rows(
             layout, h=cfg.step_size, scale=scale, f_s=f_s,
             prior_prec=cfg.prior_precision, alpha=cfg.alpha,
@@ -414,7 +449,7 @@ def make_packed_round_fn(log_lik_fn: LogLikFn, cfg: SamplerConfig,
             friction=hmc.friction if hmc else 0.0)
         g_p = torch.zeros_like(th_p)
         for t in range(cfg.local_updates):
-            batches = sample(draws.idx[t], sids, shard_data)
+            batches = sample(draws.idx[t], rows, shard_data)
             layout.pack(grad_v(thetas, batches), out=g_p)
             kops.packed_step(
                 layout, th_p, g_p, draws.seeds[t], scalars, variant=variant,
@@ -427,6 +462,7 @@ def make_packed_round_fn(log_lik_fn: LogLikFn, cfg: SamplerConfig,
                 on_step(t, thetas)
         return (th_p, r_p, thetas) if hmc else (th_p, thetas)
 
+    round_fn.operands = operands
     return round_fn
 
 
@@ -523,16 +559,18 @@ def _not_ported(what: str, item: int):
 # chain health (core.health) and chaos, applied once per round
 # ---------------------------------------------------------------------------
 
-def probe_generator(generator: torch.Generator, r: int) -> torch.Generator:
-    """The divergence probe's generator for round ``r``, on the run's
-    device, seeded from a hash of the run generator's state bytes,
-    ``HEALTH_PROBE_SALT`` and ``r``. ``get_state`` reads the state
+def probe_generator(generator: torch.Generator, r: int,
+                    salt: int = HEALTH_PROBE_SALT) -> torch.Generator:
+    """A probe's generator for round ``r``, on the run's device, seeded
+    from a hash of the run generator's state bytes, ``salt`` (the
+    divergence probe's ``HEALTH_PROBE_SALT``, telemetry's
+    ``TELEMETRY_PROBE_SALT``) and ``r``. ``get_state`` reads the state
     without advancing it, so the probe consumes nothing of the sampling
     stream, and a resumed run (its generator state restored) gets the
     same probes with no extra snapshot field."""
     h = hashlib.blake2b(generator.get_state().numpy().tobytes(),
                         digest_size=8)
-    h.update(HEALTH_PROBE_SALT.to_bytes(4, "little"))
+    h.update(int(salt).to_bytes(4, "little"))
     h.update(int(r).to_bytes(8, "little"))
     probe = torch.Generator(device=generator.device)
     probe.manual_seed(int.from_bytes(h.digest(), "little") >> 1)
@@ -623,6 +661,231 @@ class _Health:
 
 
 # ---------------------------------------------------------------------------
+# per-round telemetry (obs.telemetry)
+# ---------------------------------------------------------------------------
+
+def _sq(tree, c: int) -> torch.Tensor:
+    """(c,) fp32 per-chain sum of squares over every leaf."""
+    acc = None
+    for leaf in tu.leaves(tree):
+        v = leaf.to(torch.float32).reshape(c, -1).square().sum(1)
+        acc = v if acc is None else acc + v
+    return acc
+
+
+def _drift_sq(thetas, pre, c: int) -> torch.Tensor:
+    """(c,) fp32 ||theta - pre||^2, leaf by leaf."""
+    acc = None
+    for a, b in zip(tu.leaves(thetas), tu.leaves(pre)):
+        v = (a.to(torch.float32) - b.to(torch.float32)).reshape(c, -1) \
+            .square().sum(1)
+        acc = v if acc is None else acc + v
+    return acc
+
+
+def _packed_conducive_sq(layout: kops.PackedChains, thetas, opnds, f_s,
+                         alpha: float) -> torch.Tensor:
+    """(C,) fp32 ||g_s(theta)||^2 from the packed round's own gathered
+    operands (no second gather of the client means), leaf by leaf:
+    g_s = alpha (lam_g (mu_g - theta) - lam_s (mu_s - theta) / f_s)."""
+    variant, ops, lam_g_leaf, lam_s_leaf = opnds
+    c = f_s.shape[0]
+    mu_g, mu_s = layout.views(ops["mu_g"]), layout.views(ops["mu_s"])
+    if variant == "diag":
+        lam_g, lam_s = layout.views(ops["lam_g"]), layout.views(ops["lam_s"])
+    acc = torch.zeros(c, dtype=torch.float32, device=f_s.device)
+    f = f_s[:, None]
+    for i, (th, mg, ms) in enumerate(zip(tu.leaves(thetas),
+                                         tu.leaves(mu_g), tu.leaves(mu_s))):
+        t = th.to(torch.float32).reshape(c, -1)
+        if variant == "diag":
+            lg = tu.leaves(lam_g)[i].reshape(1, -1)
+            ls = tu.leaves(lam_s)[i].reshape(c, -1)
+        else:
+            lg, ls = lam_g_leaf[i], lam_s_leaf[:, i:i + 1]
+        g = alpha * (lg * (mg.reshape(1, -1) - t)
+                     - ls * (ms.reshape(c, -1) - t) / f)
+        acc += g.square().sum(1)
+    return acc
+
+
+def _bank_conducive_sq(bank: SurrogateBank, glob: Gaussian, thetas, rows,
+                       f_s, alpha: float, device) -> torch.Tensor:
+    """(C,) fp32 ||g_s(theta)||^2 against a SurrogateBank (the vmap and
+    per-leaf executors): the held clients' rows gathered where the bank
+    lies, the conducive gradient vmapped over chains
+    (``core.conducive.conducive_gradient``)."""
+    def rows_of(tree):
+        return tu.tree_map(lambda a: a[rows.to(a.device)].to(device), tree)
+
+    g = vmap(lambda t, mu, lam, f: conducive_gradient(
+        t, glob, Gaussian(mu, lam, bank.kind), f, alpha))(
+        thetas, rows_of(bank.means), rows_of(bank.precs), f_s)
+    return _sq(g, f_s.shape[0])
+
+
+class _Metrics:
+    """One run's telemetry rows, kept on the device between syncs: each
+    round appends a (C,) fp32 tensor per metric; ``flush`` brings the
+    segment's rows to the host in ONE transfer and returns their means
+    for the progress event."""
+
+    def __init__(self, tel: Telemetry, c: int):
+        self.tel, self.c = tel, c
+        self.pending = []        # per round: [(C,)] in tel.names order
+        self.rows = []           # flushed (seg, M, C) host arrays
+
+    def add(self, m: dict) -> None:
+        self.pending.append(torch.stack([m[n] for n in self.tel.names]))
+
+    def flush(self) -> dict:
+        seg = torch.stack(self.pending).cpu().numpy()   # (seg, M, C)
+        self.pending = []
+        self.rows.append(seg)
+        return {n: float(seg[:, i].mean())
+                for i, n in enumerate(self.tel.names)}
+
+    def frame(self) -> MetricsFrame:
+        if self.pending:
+            self.flush()
+        if not self.rows:
+            return MetricsFrame({n: np.zeros((0, self.c), np.float32)
+                                 for n in self.tel.names})
+        allr = np.concatenate(self.rows).astype(np.float32)
+        return MetricsFrame({n: np.ascontiguousarray(allr[:, i])
+                             for i, n in enumerate(self.tel.names)})
+
+
+# ---------------------------------------------------------------------------
+# the streamed client axis
+# ---------------------------------------------------------------------------
+
+def replay_sids(generator: torch.Generator, engine: "MeshChainEngine", *,
+                num_rounds: int, n_chains: int,
+                reassign: str = "permutation", federation=None,
+                dim: int = 0, num_leaves: int = 1,
+                noise_like: Optional[PyTree] = None) -> np.ndarray:
+    """(num_rounds, n_chains) int32 — the client each chain HOLDS at every
+    round of ``engine.run(generator, ...)``, replayed on a CLONE of the
+    generator (a new generator on its device with its state), so
+    ``generator`` itself is untouched. Every round is drawn by the
+    engine's own ``draw_round`` with the federation, the round and the
+    held ids threaded through as the run threads them, so the replay
+    consumes exactly what the run consumes (``draw_round`` draws the same
+    amount whatever clients it draws; the compression uniforms, drawn on
+    communication rounds only, need the run's flat parameter count
+    ``dim``). ``federation``: the resolved scenario the run uses (None
+    for the path without one; FA-LD's run passes its identity
+    ``Federation()``). ``noise_like``: the (C, ...) chain states of a run
+    on the plain 'vmap' executor, whose steps draw their Gaussian noise
+    from the run's generator after the round's draws (one draw shaped
+    like the states per local step, Langevin or SGHMC): the replay draws
+    (and drops) the same."""
+    clone = torch.Generator(device=generator.device)
+    clone.set_state(generator.get_state())
+    held = (torch.zeros(n_chains, dtype=torch.int64, device=clone.device)
+            if federation is not None else None)
+    out = []
+    for r in range(num_rounds):
+        d = draw_round(clone, engine.cfg, engine.scheme, n_chains=n_chains,
+                       minibatch=engine.minibatch, num_leaves=num_leaves,
+                       reassign=reassign, federation=federation, r=r,
+                       held=held, dim=dim)
+        if federation is not None:
+            exch = exchanging(federation.schedule, r, d.part_u, d.sids)
+            held = torch.where(exch, d.sids, held)
+            out.append(held)
+        else:
+            out.append(d.sids)
+        if noise_like is not None:
+            for _ in range(engine.cfg.local_updates):
+                tree_randn_like(clone, noise_like)
+    return torch.stack(out).cpu().numpy().astype(np.int32)
+
+
+class _Streamer:
+    """The resident window of a streamed run: stages window ``w``'s
+    client rows, bank rows, resident ids and per-round resident-local
+    rows. On a card the host builds the rows into pinned buffers (double
+    buffered: window w + 2 reuses window w's only after its copy landed)
+    and copies them with ``non_blocking=True`` on a side stream; the
+    window's first round waits on the copy's event, and the staged
+    tensors are recorded on the main stream so the caching allocator
+    never hands their memory out while a round still reads them."""
+
+    def __init__(self, engine, windows, holds, bank_rows, device,
+                 prefetch: bool):
+        self.engine, self.windows, self.holds = engine, windows, holds
+        self.bank_rows, self.device = bank_rows, device
+        self.prefetch = prefetch
+        self.cuda = device.type == "cuda"
+        self.side = torch.cuda.Stream(device) if self.cuda else None
+        self.pinned = [None, None]
+        self.landed = [None, None]
+
+    def _host(self, w: int):
+        win = self.windows[w]
+        ids = np.asarray(win.resident_ids, np.int64)
+        blk = self.holds[win.r0:win.r0 + win.length]
+        local = np.searchsorted(ids, blk).astype(np.int64)
+        return ids, local
+
+    def stage(self, w: int):
+        """(client rows, bank rows, ids, local rows (L, C), ready event)
+        of window ``w`` on the device."""
+        ids, local = self._host(w)
+        eng = self.engine
+        if not self.cuda or not self.prefetch:
+            # the CPU, or the serial A/B reference: copies on the main
+            # stream, the host waiting for them
+            ids_d = torch.as_tensor(ids, device=self.device)
+            return (tu.tree_map(lambda t: t.to(self.device),
+                                eng._client_rows(ids)),
+                    self.bank_rows(ids_d), ids_d,
+                    torch.as_tensor(local, device=self.device), None)
+        b = w % 2
+        if self.landed[b] is not None:
+            self.landed[b].synchronize()  # window w - 2's copy has landed
+        host = {"ids": torch.from_numpy(ids),
+                "local": torch.from_numpy(local)}
+        if eng._source is not None:
+            host["rows"] = eng._client_rows(ids)   # built on the host
+        buf = self.pinned[b]
+        if buf is None or tu.flatten(buf)[1] != tu.flatten(host)[1] or \
+                not all(x.shape == y.shape and x.dtype == y.dtype
+                        for x, y in zip(tu.leaves(buf), tu.leaves(host))):
+            buf = self.pinned[b] = tu.tree_map(
+                lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                      pin_memory=True), host)
+        tu.tree_map(lambda dst, src: dst.copy_(src), buf, host)
+        main = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(self.side):
+            dev = tu.tree_map(lambda t: t.to(self.device, non_blocking=True),
+                              buf)
+            ids_d = dev["ids"]
+            data = dev["rows"] if eng._source is not None else \
+                tu.tree_map(lambda d: d[ids_d], eng.shard_data)
+            bank = self.bank_rows(ids_d)
+            ev = torch.cuda.Event()
+            ev.record(self.side)
+        self.landed[b] = ev
+        for t in tu.leaves((data, _bank_tensors(bank), ids_d, dev["local"])):
+            if t.device == self.device:
+                t.record_stream(main)
+        return data, bank, ids_d, dev["local"], ev
+
+
+def _bank_tensors(bank) -> list:
+    """The tensors of a window's bank rows (a packed operand dict or a
+    SurrogateBank)."""
+    if bank is None:
+        return []
+    if isinstance(bank, dict):
+        return list(bank.values())
+    return tu.leaves((bank.means, bank.precs))
+
+
+# ---------------------------------------------------------------------------
 # the engine
 # ---------------------------------------------------------------------------
 
@@ -632,7 +895,11 @@ class MeshChainEngine:
 
     shard_data: pytree with leaves (S, max_n, ...) on the run's device —
     shards padded to the longest client; ``sizes`` carries the true
-    per-client counts (None => uniform). ``use_kernel`` selects the fused
+    per-client counts (None => uniform). Or a lazy client source
+    (``fed.partition.is_client_source``: ``SyntheticClientSource``,
+    ``PartitionedSource``) with its own sizes, on ``device``: a resident
+    run materialises every client once (``_data``), a streamed run only
+    each window's (``_client_rows``). ``use_kernel`` selects the fused
     kernel executors: ``packed`` True/None (None: per-leaf for non-float
     leaves) or False (per-leaf); ``use_kernel=False`` is the plain vmap
     executor.
@@ -645,6 +912,8 @@ class MeshChainEngine:
     at temperature x n_chains so that the average has the configured
     temperature; its rounds always take the federated path (even without
     a federation), so it shares that path's draws. Langevin only.
+    ``stream_hook(window_idx, StreamWindow)`` fires after each streamed
+    window's rounds are dispatched.
     """
     log_lik_fn: LogLikFn
     cfg: SamplerConfig
@@ -657,6 +926,8 @@ class MeshChainEngine:
     dynamics: str = "langevin"
     sghmc: Optional[SGHMCConfig] = None
     aggregation: str = "none"
+    device: Any = None
+    stream_hook: Any = None
 
     def __post_init__(self):
         if self.dynamics not in ("langevin", "sghmc"):
@@ -671,18 +942,60 @@ class MeshChainEngine:
                 f"compose with dynamics={self.dynamics!r}")
         if self.dynamics == "sghmc" and self.sghmc is None:
             self.sghmc = SGHMCConfig()
-        leaf = tu.leaves(self.shard_data)[0]
-        s, max_n = leaf.shape[0], leaf.shape[1]
+        self._source = (self.shard_data
+                        if is_client_source(self.shard_data) else None)
+        self._resident_cache = None
+        if self._source is not None:
+            s = int(self._source.num_clients)
+            if self.device is None:
+                raise ValueError("an engine on a client source needs its "
+                                 "device")
+            if self.sizes is not None:
+                raise ValueError("a client source carries its own sizes")
+            sizes = np.asarray(self._source.sizes, np.int64)
+            if sizes.shape != (s,) or \
+                    int(sizes.max()) != int(self._source.max_size):
+                raise ValueError(f"client source sizes {sizes.shape} do not "
+                                 f"fit its {s} clients / max_size")
+            self.device = torch.device(self.device)
+        else:
+            leaf = tu.leaves(self.shard_data)[0]
+            s, max_n = leaf.shape[0], leaf.shape[1]
+            sizes = ((max_n,) * s if self.sizes is None
+                     else tuple(int(n) for n in self.sizes))
+            if len(sizes) != s or max(sizes) != max_n:
+                raise ValueError(f"sizes {sizes} do not fit shards padded "
+                                 f"to {max_n}")
+            self.device = leaf.device
         if s != self.cfg.num_shards:
             raise ValueError(f"shard_data holds {s} shards, the config "
                              f"{self.cfg.num_shards}")
-        sizes = ((max_n,) * s if self.sizes is None
-                 else tuple(int(n) for n in self.sizes))
-        if len(sizes) != s or max(sizes) != max_n:
-            raise ValueError(f"sizes {sizes} do not fit shards padded to "
-                             f"{max_n}")
-        self.device = leaf.device
         self.scheme = ShardScheme(sizes=sizes, probs=self.cfg.probs())
+
+    # -- client-axis materialisation ---------------------------------------
+
+    def _data(self) -> PyTree:
+        """The FULL (S, max_n, ...) shard stack for resident runs, built
+        (once) from a client source on first use; the streamed path never
+        calls this."""
+        if self._source is None:
+            return self.shard_data
+        if self._resident_cache is None:
+            self._resident_cache = tu.tree_map(
+                lambda a: torch.as_tensor(a).to(self.device),
+                self._source.rows(np.arange(self.cfg.num_shards)))
+        return self._resident_cache
+
+    def _client_rows(self, ids) -> PyTree:
+        """(K, max_n, ...) rows of the clients ``ids`` for one resident
+        window: built on the host from a client source (ONLY those
+        clients), else gathered from the stack where it lies. Either way
+        the bytes a streamed round reads are the resident path's."""
+        if self._source is not None:
+            return tu.tree_map(torch.as_tensor, self._source.rows(ids))
+        idx = torch.as_tensor(np.asarray(ids, np.int64),
+                              device=tu.leaves(self.shard_data)[0].device)
+        return tu.tree_map(lambda d: d[idx], self.shard_data)
 
     def _layout_for(self, theta0: PyTree) -> Optional[kops.PackedChains]:
         """The packed layout for this run, or None for the other paths.
@@ -700,6 +1013,47 @@ class MeshChainEngine:
             raise ValueError("packed executor requires floating-point "
                              "parameter leaves")
         return kops.make_packed_layout(theta0)
+
+    def _check_stream(self, stream, *, reassign, refresh_every,
+                      snapshot_every, resume, recovery, chaos, telemetry):
+        """The streamed client axis composes only with the replayable,
+        window-local features; the rest is refused (the reference's
+        words)."""
+        if self.cfg.method == "sgld":
+            raise NotImplementedError(
+                "stream= does not compose with method='sgld': pooled "
+                "sampling draws from the virtual concatenation of ALL "
+                "clients and needs them resident")
+        if reassign != "permutation":
+            raise NotImplementedError(
+                f"stream= requires reassign='permutation' (got "
+                f"{reassign!r}): the resident-set planner replays the "
+                "collision-free permutation stream; categorical "
+                "draws are not plannable ahead of the scan")
+        if refresh_every:
+            raise NotImplementedError(
+                "stream= does not compose with refresh_every: the "
+                "surrogate re-fit is a pass over ALL clients' data")
+        if snapshot_every or resume:
+            raise NotImplementedError(
+                "stream= does not compose with snapshots/resume yet: "
+                "the window plan is not part of the snapshot payload")
+        if recovery is not None or chaos is not None:
+            raise NotImplementedError(
+                "stream= does not compose with recovery/chaos yet")
+        if telemetry is not None:
+            raise NotImplementedError(
+                "stream= does not compose with telemetry= yet: the "
+                "metric rows are not part of the window plan (the "
+                "host-side prefetch/overlap SPANS still fire — see "
+                "repro_torch.obs.trace)")
+        if stream.resident > self.cfg.num_shards:
+            raise ValueError(
+                f"Stream(resident={stream.resident}) exceeds the "
+                f"client count ({self.cfg.num_shards}); resident is "
+                "the ON-DEVICE subset size and must be <= the number "
+                "of clients — lower resident, or raise the client "
+                "count")
 
     def run(self, generator: torch.Generator, theta0: PyTree,
             num_rounds: int, *, n_chains: int = 1,
@@ -744,26 +1098,54 @@ class MeshChainEngine:
         state, the trace so far) after every k rounds and at the end;
         ``resume=True`` continues from the newest valid snapshot in
         ``snapshot_path`` at its absolute round (a fresh run when there is
-        none), bitwise the uninterrupted run."""
+        none), bitwise the uninterrupted run.
+
+        ``telemetry`` (an ``obs.Telemetry``) computes per-round per-chain
+        metric rows after each round's straggler restore and health check
+        and APPENDS an ``obs.MetricsFrame`` of this call's rounds to the
+        return value, built in order (result[, health][, frame]). The
+        rows stay on the device and come to the host once per
+        ``telemetry.log_every`` rounds (and at the end), where an
+        ``engine.progress`` event is emitted; the probe rows draw their
+        minibatch from ``probe_generator(generator, r,
+        TELEMETRY_PROBE_SALT)``, so a telemetry-on run is bitwise the run
+        without it.
+
+        ``stream`` (a ``fed.Stream``) keeps only ``stream.resident``
+        clients on the device: the window plan comes from replaying the
+        run's own draws (``replay_sids``), every round asserts on the
+        device that each chain's held client is in its window, and the
+        next window's rows are staged (``Stream.prefetch``: on a side
+        stream) after the current window's rounds are dispatched.
+        Streamed runs are bitwise the resident runs."""
         hmc = self.sghmc if self.dynamics == "sghmc" else None
+        chaos = chaos if chaos is not None and chaos.active else None
+        if stream is not None:
+            self._check_stream(stream, reassign=reassign,
+                               refresh_every=refresh_every,
+                               snapshot_every=snapshot_every, resume=resume,
+                               recovery=recovery, chaos=chaos,
+                               telemetry=telemetry)
         if (snapshot_every or resume) and not snapshot_path:
             raise ValueError(
                 "snapshot_every/resume need a snapshot_path directory")
+        if telemetry is not None and telemetry.log_every and \
+                (snapshot_every or refresh_every):
+            raise NotImplementedError(
+                "Telemetry.log_every does not compose with "
+                "snapshot_every/refresh_every: pick ONE segmentation "
+                "driver (progress events already fire at snapshot/"
+                "refresh segment boundaries)")
         if hmc is not None and refresh_every:
             raise NotImplementedError(
                 "adaptive refresh is not wired for sghmc dynamics")
         if refresh_every:
             raise _not_ported("refresh_every (adaptive refresh)", 8)
-        if telemetry is not None:
-            raise _not_ported("telemetry", 12)
-        if stream is not None:
-            raise _not_ported("the streamed client axis (stream=)", 13)
         if reassign not in ("categorical", "permutation"):
             raise ValueError(reassign)
         if generator.device.type != self.device.type:
             raise ValueError(f"the generator is on {generator.device}, the "
                              f"run on {self.device}")
-        chaos = chaos if chaos is not None and chaos.active else None
         agg = self.aggregation == "fald"
         fed = get_scenario(federation) if federation is not None else None
         if fed is not None and fed.engine_identity:
@@ -803,6 +1185,20 @@ class MeshChainEngine:
                 self.log_lik_fn, cfg, self.scheme, self.minibatch,
                 bank_kind, layout, hmc)
             bank_arg = pack_bank(layout, fsgld_bank, dev)
+
+            def bank_rows(ids):
+                # a window's client rows (a stack on the host stays whole,
+                # read by the window's ids); the global operands untouched
+                if bank_arg is None:
+                    return None
+                out = dict(bank_arg)
+                for k in ("means", "precs", "lam_s_leaf"):
+                    if k not in out:
+                        continue
+                    st = out[k]
+                    out[k] = (st[ids] if st.device == ids.device
+                              else (st, ids))
+                return out
 
             def from_chains(th, mom=None):
                 # SGHMC momenta: zero unless given
@@ -848,6 +1244,17 @@ class MeshChainEngine:
                 bank_arg = None
                 kw["generator"] = generator
 
+            def bank_rows(ids):
+                if fsgld_bank is None:
+                    return None
+                b = fsgld_bank if self.use_kernel else fsgld_bank.to(dev)
+
+                def rows(t):
+                    return tu.tree_map(lambda a: a[ids.to(a.device)], t)
+
+                return SurrogateBank(rows(b.means), rows(b.precs),
+                                     b.global_, b.kind)
+
             def from_chains(th, mom=None):
                 if hmc:
                     return (th, init_momentum(th) if mom is None else mom)
@@ -892,23 +1299,30 @@ class MeshChainEngine:
             cst = carry0(chains)
             sids = torch.zeros(C, dtype=torch.int64, device=self.device)
             dim = sum(l[0].numel() for l in tu.leaves(chains))
+        sample = _make_batch_sampler(self.cfg, self.scheme)
+
+        def probe_batch(pgen, run_sids):
+            """One probe minibatch's rows per chain from ``pgen`` (uniform
+            over each held client's live prefix; pooled for SGLD)."""
+            u = torch.rand((C, self.minibatch), generator=pgen, device=dev,
+                           dtype=torch.float64)
+            bound = (torch.tensor(self.scheme.total, device=dev)
+                     if self.cfg.method == "sgld" else
+                     self.scheme.sizes_array(dev)[run_sids][:, None])
+            idx = torch.minimum((u * bound).floor().to(torch.int64),
+                                bound - 1)
+            return idx
+
         health = None
         if recovery is not None:
-            sample = _make_batch_sampler(self.cfg, self.scheme)
             lp_v = vmap(self.log_lik_fn)
 
-            def probe(pgen, th, run_sids):
+            def probe(pgen, th, run_sids, rows, data):
                 """log p(x | th) on one probe minibatch per chain minus
                 the prior's 1/2 prec |th|^2, fp32."""
-                u = torch.rand((C, self.minibatch), generator=pgen,
-                               device=dev, dtype=torch.float64)
-                bound = (torch.tensor(self.scheme.total, device=dev)
-                         if self.cfg.method == "sgld" else
-                         self.scheme.sizes_array(dev)[run_sids][:, None])
-                idx = torch.minimum((u * bound).floor().to(torch.int64),
-                                    bound - 1)
+                idx = probe_batch(pgen, run_sids)
                 with torch.no_grad():
-                    lp = lp_v(th, sample(idx, run_sids, self.shard_data))
+                    lp = lp_v(th, sample(idx, rows, data))
                     sq = sum(l.to(torch.float32).square().reshape(C, -1)
                              .sum(1) for l in tu.leaves(th))
                 return lp.to(torch.float32) \
@@ -917,6 +1331,70 @@ class MeshChainEngine:
             health = _Health(recovery, C, dev, probe)
         check_mom = hmc is not None and recovery is not None \
             and recovery.check_momentum
+
+        metrics = None
+        if telemetry is not None:
+            metrics = _Metrics(telemetry, C)
+            if hmc is not None:
+                # SGHMC's noise term sqrt(2 a tau) sqrt(h) xi
+                noise = math.sqrt(2.0 * hmc.friction * hmc.temperature
+                                  * cfg.step_size)
+            else:
+                noise = math.sqrt(cfg.step_size * cfg.temperature)
+            tel_dim = sum(l[0].numel() for l in tu.leaves(chains))
+            wire = (float(fed.compression.bytes_per_round(tel_dim))
+                    if fed is not None else 8.0 * tel_dim)
+            vg = vmap(grad_and_value(self.log_lik_fn)) \
+                if telemetry.probe else None
+            glob = None
+            if fsgld_bank is not None and layout is None:
+                glob = Gaussian(*(tu.tree_map(lambda a: a.to(dev), g) for g
+                                  in (fsgld_bank.global_.mean,
+                                      fsgld_bank.global_.prec)),
+                                fsgld_bank.kind)
+
+            def tel_rows(st, pre_th, run_sids, rows, exch, opnds):
+                """One round's closed-form metric rows, each (C,) fp32,
+                after the round's masking: frozen chains show zero drift
+                and quarantined ones their word."""
+                th = thetas_of(st)
+                m = {"theta_norm": _sq(th, C).sqrt(),
+                     "drift_norm": _drift_sq(th, pre_th, C).sqrt(),
+                     "noise_scale": torch.full((C,), noise,
+                                               dtype=torch.float32,
+                                               device=dev)}
+                if fsgld_bank is not None:
+                    _, f_s = chain_scales(self.cfg, self.scheme, run_sids,
+                                          self.minibatch)
+                    sq = (_packed_conducive_sq(layout, th, opnds, f_s,
+                                               self.cfg.alpha)
+                          if layout is not None else
+                          _bank_conducive_sq(fsgld_bank, glob, th, rows,
+                                             f_s, self.cfg.alpha, dev))
+                    m["conducive_norm"] = sq.sqrt()
+                else:
+                    m["conducive_norm"] = torch.zeros(
+                        C, dtype=torch.float32, device=dev)
+                part = (exch.to(torch.float32) if exch is not None else
+                        torch.ones(C, dtype=torch.float32, device=dev))
+                m["participation"] = part
+                m["bytes_per_round"] = part * wire
+                m["health_word"] = (
+                    health.word.to(torch.float32) if health is not None
+                    else torch.zeros(C, dtype=torch.float32, device=dev))
+                return m
+
+            def probe_rows(st, run_sids, rows, tgen, data):
+                """grad_norm and log_post at the round-end state on one
+                probe minibatch from ``tgen``."""
+                th = thetas_of(st)
+                idx = probe_batch(tgen, run_sids)
+                g, lp = vg(th, sample(idx, rows, data))
+                gn = _sq(g, C).sqrt()
+                del g
+                return {"grad_norm": gn,
+                        "log_post": lp.to(torch.float32)
+                        - 0.5 * self.cfg.prior_precision * _sq(th, C)}
 
         def payload(st, rounds_done):
             """The whole carry after ``rounds_done`` rounds: everything a
@@ -958,8 +1436,14 @@ class MeshChainEngine:
                         lambda dst, src: dst[:, :src.shape[1]].copy_(src),
                         trace, snap["trace"])
         quarantine = recovery is not None and recovery.policy == "quarantine"
-        for r in range(r_start, num_rounds):
-            def keep(t, thetas, r=r):
+
+        def one_round(r, data, bank_r, rows=None, window_ids=None):
+            """Round ``r`` on ``data`` / ``bank_r`` (the resident stacks,
+            or a streamed window's, whose rows of the held clients are
+            ``rows``)."""
+            nonlocal state, sids, cst
+
+            def keep(t, thetas):
                 if t % collect_every == 0:
                     k = r * per_round + t // collect_every
                     tu.tree_map(lambda dst, src: dst[:, k].copy_(src),
@@ -968,13 +1452,15 @@ class MeshChainEngine:
             on_step = keep if collect else None
             pgen = (probe_generator(generator, r) if health is not None
                     and recovery.use_detector else None)
+            tgen = (probe_generator(generator, r, TELEMETRY_PROBE_SALT)
+                    if metrics is not None and telemetry.probe else None)
             live = health.word == 0 if quarantine else None
             draws = draw_round(generator, self.cfg, self.scheme, n_chains=C,
                                minibatch=self.minibatch,
                                num_leaves=num_leaves, reassign=reassign,
                                federation=fed, r=r, held=sids, dim=dim,
                                live=live)
-            strag = pre = None
+            strag = pre = exch = None
             if fed is not None:
                 exch = exchanging(sched, r, draws.part_u, sids)
                 if live is not None:
@@ -995,15 +1481,27 @@ class MeshChainEngine:
                     # dropped updates: the state goes back to its
                     # pre-round value and the trace repeats it
                     strag = fsched.straggler_mask(sched, draws.strag_u)
-            if strag is not None or health is not None:
+            if window_ids is not None:
+                # the replayed plan put every held client in this window
+                torch._assert_async((window_ids[rows] == draws.sids).all())
+            held_rows = draws.sids if rows is None else rows
+            if strag is not None or health is not None or \
+                    metrics is not None:
                 pre = snapshot(state)
             if strag is not None and on_step is not None:
-                def on_step(t, thetas, keep=keep, frozen=thetas_of(pre),
-                            strag=strag):
+                def on_step(t, thetas, frozen=thetas_of(pre)):
                     keep(t, tu.tree_map(lambda a, b: _keep(strag, a, b),
                                         thetas, frozen))
-            state = round_fn(state, draws, self.shard_data, bank_arg,
-                             on_step=on_step, **kw)
+            extra = dict(kw)
+            if rows is not None:
+                extra["rows"] = rows
+            opnds = None
+            if metrics is not None and layout is not None and \
+                    fsgld_bank is not None:
+                opnds = round_fn.operands(held_rows, bank_r, dev)
+                extra["opnds"] = opnds
+            state = round_fn(state, draws, data, bank_r, on_step=on_step,
+                             **extra)
             if strag is not None:
                 state = restore(state, pre, strag)
             if chaos is not None and chaos.poisons_state \
@@ -1015,7 +1513,7 @@ class MeshChainEngine:
             if health is not None:
                 repl, donor, any_h = health.check(
                     r, ~finite(state, check_mom),
-                    (pgen, thetas_of(state), draws.sids))
+                    (pgen, thetas_of(state), draws.sids, held_rows, data))
                 if donor is None:
                     state = restore(state, pre, repl)
                 else:
@@ -1030,9 +1528,97 @@ class MeshChainEngine:
                                 repl.view((C, 1) + (1,) * (f.ndim - 1)),
                                 f[:, None], dst[:, k0:k0 + per_round])),
                         trace, thetas_of(state))
+            m = None
+            if metrics is not None:
+                m = tel_rows(state, thetas_of(pre), draws.sids, held_rows,
+                             exch, opnds)
+            # the pre-round copy and the gathered means go before the
+            # probe's gradient pass
+            del pre, opnds, extra, on_step
+            if tgen is not None:
+                m.update(probe_rows(state, draws.sids, held_rows, tgen,
+                                    data))
+            if m is not None:
+                metrics.add(m)
             if snapshot_every and ((r + 1 - r_start) % snapshot_every == 0
                                    or r + 1 == num_rounds):
                 save_snapshot(snapshot_path, payload(state, r + 1),
                               rounds_done=r + 1)
+
+        if stream is None:
+            seg_len = (telemetry.log_every if telemetry is not None
+                       and telemetry.log_every else num_rounds)
+            data = self._data()
+            r0 = r_start
+            while r0 < num_rounds:
+                seg = min(seg_len, num_rounds - r0)
+                t_seg = time.monotonic()
+                with obs_trace.span("engine.segment", r0=int(r0),
+                                    rounds=int(seg)):
+                    for r in range(r0, r0 + seg):
+                        one_round(r, data, bank_arg)
+                r0 += seg
+                if metrics is not None and (telemetry.log_every
+                                            or r0 >= num_rounds):
+                    means = metrics.flush()  # the segment's one sync
+                    if obs_trace.enabled():
+                        dt = time.monotonic() - t_seg
+                        steps = seg * T * C
+                        obs_trace.event(
+                            "engine.progress", round=int(r0),
+                            rounds=int(num_rounds), seconds=round(dt, 6),
+                            steps_per_s=round(steps / max(dt, 1e-9), 3),
+                            **{k: round(v, 6) for k, v in means.items()})
+        else:
+            holds = replay_sids(generator, self, num_rounds=num_rounds,
+                                n_chains=C, reassign=reassign,
+                                federation=fed, dim=dim,
+                                num_leaves=num_leaves,
+                                noise_like=(None if self.use_kernel
+                                            else thetas_of(state)))
+            windows = fsched.plan_stream(holds, resident=stream.resident,
+                                         window=stream.window)
+            streamer = _Streamer(self, windows, holds, bank_rows, dev,
+                                 stream.prefetch)
+            t_run = time.monotonic()
+
+            def timed_stage(w):
+                t0 = time.monotonic()
+                with obs_trace.span("stream.stage", window=w):
+                    staged = streamer.stage(w)
+                return staged, time.monotonic() - t0
+
+            staged, first_s = timed_stage(0)
+            stage_s = first_s
+            for w, win in enumerate(windows):
+                data_k, bank_k, ids_k, local_k, ready = staged
+                if ready is not None:
+                    torch.cuda.current_stream(dev).wait_event(ready)
+                with obs_trace.span("stream.dispatch", window=w,
+                                    r0=int(win.r0), rounds=int(win.length)):
+                    for j in range(win.length):
+                        one_round(win.r0 + j, data_k, bank_k, local_k[j],
+                                  ids_k)
+                del data_k, bank_k, ids_k, local_k
+                if w + 1 < len(windows):
+                    if not stream.prefetch and dev.type == "cuda":
+                        torch.cuda.synchronize(dev)  # no overlap: A/B
+                    staged, ds = timed_stage(w + 1)
+                    stage_s += ds
+                if self.stream_hook is not None:
+                    self.stream_hook(w, win)
+            if obs_trace.enabled():
+                wall = time.monotonic() - t_run
+                hidden = stage_s - first_s  # post-dispatch stages only
+                obs_trace.event(
+                    "stream.prefetch_overlap", windows=len(windows),
+                    prefetch=bool(stream.prefetch),
+                    stage_s=round(stage_s, 6), wall_s=round(wall, 6),
+                    overlap_frac=round(
+                        (hidden / max(wall, 1e-9))
+                        if stream.prefetch else 0.0, 6))
         res = trace if collect else final(state)
-        return res if health is None else (res, health.report())
+        out = (res,) if health is None else (res, health.report())
+        if metrics is not None:
+            out = out + (metrics.frame(),)
+        return out[0] if len(out) == 1 else out

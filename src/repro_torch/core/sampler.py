@@ -62,6 +62,9 @@ class ShardScheme:
     shard's live prefix only."""
     sizes: Any            # tuple | np.ndarray of int
     probs: Any            # tuple | np.ndarray | None
+    # device tables, built once per device (10^6 clients: 8 MB each)
+    _cache: dict = dataclasses.field(default_factory=dict, compare=False,
+                                     hash=False, repr=False)
 
     @property
     def num_shards(self) -> int:
@@ -69,7 +72,9 @@ class ShardScheme:
 
     @property
     def total(self) -> int:
-        return int(np.asarray(self.sizes, np.int64).sum())
+        if "total" not in self._cache:
+            self._cache["total"] = int(np.asarray(self.sizes, np.int64).sum())
+        return self._cache["total"]
 
     def probs_array(self) -> np.ndarray:
         """(S,) float32 selection probs on the host."""
@@ -79,15 +84,24 @@ class ShardScheme:
         return np.asarray(self.probs, np.float32)
 
     def as_arrays(self, device=None):
-        """((S,) float32 sizes, (S,) float32 probs) on ``device``."""
-        return (torch.as_tensor(np.asarray(self.sizes, np.float32),
+        """((S,) float32 sizes, (S,) float32 probs) on ``device`` (built
+        once per device; read-only)."""
+        key = ("f32", None if device is None else torch.device(device))
+        if key not in self._cache:
+            self._cache[key] = (
+                torch.as_tensor(np.asarray(self.sizes, np.float32),
                                 device=device),
                 torch.as_tensor(self.probs_array(), device=device))
+        return self._cache[key]
 
     def sizes_array(self, device=None) -> torch.Tensor:
-        """(S,) int64 true shard sizes (pre-padding)."""
-        return torch.as_tensor(np.asarray(self.sizes, np.int64),
-                               device=device)
+        """(S,) int64 true shard sizes (pre-padding; built once per
+        device; read-only)."""
+        key = ("i64", None if device is None else torch.device(device))
+        if key not in self._cache:
+            self._cache[key] = torch.as_tensor(
+                np.asarray(self.sizes, np.int64), device=device)
+        return self._cache[key]
 
     def starts_array(self, device=None) -> torch.Tensor:
         """(S,) exclusive prefix sum of sizes: each shard's offset in the
@@ -128,14 +142,16 @@ def chain_scales(cfg: SamplerConfig, scheme: ShardScheme,
 def make_drift_fn(log_lik_fn: LogLikFn, cfg: SamplerConfig,
                   scheme: ShardScheme,
                   bank: Optional[SurrogateBank] = None) -> Callable:
-    """Returns drift(theta, batch, shard_id, m, bank_rt=None) -> pytree for
-    ONE chain; ``shard_id`` is an integer tensor, so the function maps over
-    a chain axis under ``torch.func.vmap``."""
+    """Returns drift(theta, batch, shard_id, m, bank_rt=None, bank_id=None)
+    -> pytree for ONE chain; ``shard_id`` is an integer tensor, so the
+    function maps over a chain axis under ``torch.func.vmap``. ``bank_id``
+    (default ``shard_id``) is the client's row in the bank (a streamed
+    window's bank holds only the resident clients' rows)."""
     if cfg.method == "fsgld" and bank is None:
         raise ValueError("FSGLD needs a SurrogateBank")
     arrays = _device_arrays(scheme)
 
-    def drift(theta, batch, shard_id, m, bank_rt=None):
+    def drift(theta, batch, shard_id, m, bank_rt=None, bank_id=None):
         b = bank_rt if bank_rt is not None else bank
         gll = grad(log_lik_fn)(theta, batch)
         if cfg.method == "sgld":
@@ -147,8 +163,10 @@ def make_drift_fn(log_lik_fn: LogLikFn, cfg: SamplerConfig,
         d = tu.tree_map(lambda p, g: p + scale * g.to(p.dtype),
                         prior_grad(theta, cfg.prior_precision), gll)
         if cfg.method == "fsgld":
-            g_s = conducive_gradient(theta, b.global_, b.shard(shard_id),
-                                     f_s, cfg.alpha)
+            g_s = conducive_gradient(
+                theta, b.global_,
+                b.shard(shard_id if bank_id is None else bank_id), f_s,
+                cfg.alpha)
             d = tu.tree_map(lambda a, c: a + c.to(a.dtype), d, g_s)
         return d
 

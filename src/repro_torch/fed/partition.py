@@ -23,12 +23,14 @@ same.
 from __future__ import annotations
 
 import dataclasses
+import difflib
 from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch import tree as tu
+from repro_torch.fed.hierarchy import normalize_hierarchical
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,3 +162,155 @@ def partition(rng: Optional[np.random.Generator], data,
         rows = torch.from_numpy(np.sort(np.asarray(idx, np.int64)))
         shards.append(tu.tree_map(lambda a: a[rows].to(device), pooled))
     return pad_shards(shards)
+
+
+# ---------------------------------------------------------------------------
+# partition-aware shard_probs presets (paper Eq. 4's f_s selection probs)
+# ---------------------------------------------------------------------------
+
+SHARD_PROB_PRESETS = {
+    # f_s = 1/S — the paper's default; identical values to probs=None.
+    "uniform": lambda sizes: np.full(
+        (len(sizes),), 1.0 / len(sizes), np.float32),
+    # f_s = N_s / N — visits proportional to data held, so the DSGLD
+    # unbiasing factor N_s/(f_s m) = N/m is the SAME for every client
+    # (the variance-minimizing choice under quantity skew).
+    "size-proportional": lambda sizes: normalize_hierarchical(
+        np.asarray(sizes, np.float64)),
+    # f_s ∝ sqrt(N_s) — the compromise between uniform exploration and
+    # size-proportional visit rates for heavy-tailed client sizes.
+    "sqrt-size": lambda sizes: normalize_hierarchical(
+        np.sqrt(np.asarray(sizes, np.float64))),
+}
+
+
+def shard_prob_preset_names():
+    return sorted(SHARD_PROB_PRESETS)
+
+
+def resolve_shard_probs(name_or_probs, sizes) -> np.ndarray:
+    """Resolve a ``shard_probs`` preset name (or pass explicit probs
+    through) to an (S,) float32 array normalized against the TRUE client
+    sizes. Unknown names get the registry error contract: a KeyError with
+    a did-you-mean hint and the available names."""
+    if not isinstance(name_or_probs, str):
+        return np.asarray(name_or_probs, np.float32)
+    try:
+        fn = SHARD_PROB_PRESETS[name_or_probs]
+    except KeyError:
+        near = difflib.get_close_matches(str(name_or_probs),
+                                         shard_prob_preset_names(), n=1)
+        hint = f" (did you mean {near[0]!r}?)" if near else ""
+        raise KeyError(
+            f"unknown shard_probs preset {name_or_probs!r}{hint}; "
+            f"available: {', '.join(shard_prob_preset_names())}") from None
+    return fn(np.asarray(sizes))
+
+
+# ---------------------------------------------------------------------------
+# lazy client sources: the streamed-axis data contract
+# ---------------------------------------------------------------------------
+#
+# A *client source* replaces the materialize-all (S, max_n, ...) stacked
+# pytree when S is too large to hold: it answers ``rows(ids)`` for the
+# resident subset only. Duck-typed: anything exposing
+#
+#     num_clients : int
+#     sizes       : (S,) numpy int array — true per-client row counts
+#     max_size    : int — the padded per-client row count
+#     rows(ids)   : (K,) int array -> pytree of (K, max_size, ...) host
+#                   arrays or tensors
+#
+# is a client source. ``rows`` must be a pure function of ``ids``: the
+# streamed runtime calls it once per resident window and the resident
+# path once with arange(S), and that determinism is what makes streamed
+# == resident bitwise.
+
+
+def is_client_source(obj) -> bool:
+    return (hasattr(obj, "rows") and hasattr(obj, "num_clients")
+            and hasattr(obj, "sizes") and hasattr(obj, "max_size"))
+
+
+class SyntheticClientSource:
+    """Synthetic non-IID token data for up to ~10^6 clients, generated per
+    client on demand, on the host.
+
+    Client c's rows are a pure function of (seed, c): a numpy
+    ``Generator`` seeded from ``SeedSequence([seed, c])`` draws the
+    client's own Dirichlet(alpha) unigram over the vocabulary (as
+    gammas), then its ``tokens`` / ``labels``, each (shard_size,
+    seq_len) int32 (labels are the tokens shifted by one). Any resident
+    subset is generated without touching the other clients (contrast
+    ``data.token_shards``, which draws every client jointly). The bits
+    are not the reference's (its ``fold_in`` keys); the structure is."""
+
+    def __init__(self, seed: int, *, num_clients: int, shard_size: int,
+                 seq_len: int, vocab_size: int, alpha: float = 0.1):
+        if num_clients < 1:
+            raise ValueError(f"num_clients must be >= 1, got {num_clients}")
+        self.seed = int(seed)
+        self.num_clients = int(num_clients)
+        self.shard_size = int(shard_size)
+        self.seq_len = int(seq_len)
+        self.vocab_size = int(vocab_size)
+        self.alpha = float(alpha)
+        self.sizes = np.full((self.num_clients,), self.shard_size,
+                             np.int64)
+        self.max_size = self.shard_size
+
+    def _one(self, cid: int) -> np.ndarray:
+        rng = np.random.default_rng(np.random.SeedSequence([self.seed,
+                                                            cid]))
+        g = rng.gamma(self.alpha, size=self.vocab_size)
+        p = g / g.sum()
+        return rng.choice(self.vocab_size, size=(self.shard_size,
+                                                 self.seq_len + 1), p=p)
+
+    def rows(self, ids) -> dict:
+        ids = np.asarray(ids, np.int64)
+        if ids.size and (ids.min() < 0 or ids.max() >= self.num_clients):
+            raise IndexError(f"client ids outside [0, {self.num_clients})")
+        t = np.stack([self._one(int(c)) for c in ids]) if ids.size else \
+            np.zeros((0, self.shard_size, self.seq_len + 1), np.int64)
+        return {"tokens": t[..., :-1].astype(np.int32),
+                "labels": t[..., 1:].astype(np.int32)}
+
+
+class PartitionedSource:
+    """Lazy per-client shard construction over pooled data: the
+    ``partition()`` split without the materialize-all stacking.
+
+    The client -> row index lists are computed once (O(N) host work,
+    the same draws ``partition`` makes); ``rows(ids)`` gathers and pads
+    only the requested clients with ``pad_shards``'s fill (NaN floats,
+    int-min integers), so ``rows(arange(S))`` is ``partition()``'s
+    stacked output."""
+
+    def __init__(self, data, spec: PartitionSpec,
+                 rng: Optional[np.random.Generator] = None):
+        if rng is None:
+            rng = np.random.default_rng(spec.seed)
+        self.data = tu.tree_map(lambda a: torch.as_tensor(_np(a)), data)
+        self.spec = spec
+        self._assign = [torch.from_numpy(np.sort(np.asarray(a, np.int64)))
+                        for a in _KINDS[spec.kind](rng, data, spec)]
+        self.num_clients = spec.num_shards
+        self.sizes = np.asarray([len(a) for a in self._assign], np.int64)
+        self.max_size = int(self.sizes.max())
+
+    def rows(self, ids):
+        ids = np.asarray(ids, np.int64)
+
+        def pad_one(leaf):
+            value = (float("nan") if leaf.dtype.is_floating_point
+                     else torch.iinfo(leaf.dtype).min)
+            out = torch.full((len(ids), self.max_size)
+                             + tuple(leaf.shape[1:]), value,
+                             dtype=leaf.dtype)
+            for j, cid in enumerate(ids):
+                idx = self._assign[int(cid)]
+                out[j, :len(idx)] = leaf[idx]
+            return out
+
+        return tu.tree_map(pad_one, self.data)

@@ -19,6 +19,32 @@ from repro_torch.fed.schedule import CommSchedule
 
 
 @dataclasses.dataclass(frozen=True)
+class Stream:
+    """The streamed client axis: HOW MANY clients are resident on device.
+
+    Only ``resident`` clients live on device at a time; the engine plans
+    which clients each fixed-length ``window`` of rounds needs (by
+    replaying the run's own draws on a clone of its generator —
+    ``core.engine.replay_sids``) and, with ``prefetch=True``, builds the
+    next window's rows on the host and copies them to the device on a
+    side stream while the current window's rounds run. Fault-free
+    streamed runs are bitwise the resident path on configs both support.
+
+    ``resident`` must cover the distinct clients any single window can
+    touch (at most ``n_chains * window``; the planner names the minimum
+    viable value when it refuses)."""
+    resident: int
+    window: int = 1
+    prefetch: bool = True
+
+    def __post_init__(self):
+        if self.resident < 1:
+            raise ValueError(f"resident must be >= 1, got {self.resident}")
+        if self.window < 1:
+            raise ValueError(f"window must be >= 1, got {self.window}")
+
+
+@dataclasses.dataclass(frozen=True)
 class Federation:
     """A complete federation scenario (hashable)."""
     partition: Optional[PartitionSpec] = None

@@ -15,8 +15,10 @@ spec and prints the served stream.
 ``repro_torch.launch.train --draw-bank`` (or the JAX package's); ``--watch
 N`` re-polls it N extra times, hot-swapping fresh draws in between
 requests. The deprecated ``--ckpt`` (warns once) serves one checkpoint
-as a one-draw bank. ``--log-jsonl`` waits for observability (ROADMAP
-item 12).
+as a one-draw bank. Hot-swaps, refresh retries and each request's
+``serve.prefill`` / ``serve.decode`` spans and ``serve.request`` event are
+echoed as one-line events and, with ``--log-jsonl PATH``, appended to a
+trace JSONL for later inspection (``repro_torch.obs.read_jsonl``).
 """
 from __future__ import annotations
 
@@ -24,7 +26,6 @@ import argparse
 import warnings
 
 from repro_torch.api import FSGLD, Serving
-from repro_torch.core.engine import _not_ported
 from repro_torch.obs import trace as obs_trace
 
 _ckpt_warned = False
@@ -51,10 +52,9 @@ def main(argv=None):
                          "legacy bank; use --bank")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-jsonl", default=None,
-                    help="not ported (item 12)")
+                    help="also append structured trace events/spans "
+                         "(refreshes, prefill/decode) to this JSONL file")
     args = ap.parse_args(argv)
-    if args.log_jsonl:
-        raise _not_ported("--log-jsonl", 12)
     global _ckpt_warned
     bank = args.bank
     if args.ckpt:
@@ -68,8 +68,9 @@ def main(argv=None):
                 DeprecationWarning, stacklevel=2)
             _ckpt_warned = True
         bank = args.ckpt
-    # hot-swaps and refresh retries are echoed as one-line events
-    obs_trace.configure(echo=True)
+    # hot-swaps, refresh retries and the request spans are echoed as
+    # one-line events (and written to --log-jsonl)
+    obs_trace.configure(args.log_jsonl, echo=True)
     try:
         return _serve(args, bank)
     finally:

@@ -24,6 +24,19 @@ ones in between requests). Preemption: ``--snapshot-every N
 uninterrupted run. ``--ckpt PATH`` saves chain 0's final parameters as
 one checkpoint (a legacy one-draw bank).
 
+Observability: ``--metrics-dir DIR`` turns on the engine's per-round
+telemetry (``obs.Telemetry``) and writes ``metrics.jsonl`` (one record
+per round, the reference's ``repro-metrics-v1`` schema),
+``metrics.prom`` (Prometheus textfile) and ``trace.jsonl`` (host spans
+and events) there; ``--log-every N`` echoes one ``engine.progress`` line
+every N rounds (the rows come to the host once per N rounds). The
+streamed client axis: ``--clients N`` samples over N lazy synthetic
+clients (``fed.SyntheticClientSource``, each client's tokens built on the
+host when a window needs it; surrogate-free methods only) and
+``--resident K`` keeps only K clients on the device
+(``fed.Stream(resident=K)``), the next window staged while the current
+one runs.
+
 Runs on CUDA unless ``--device cpu`` asks for the CPU. The executor is
 ``auto`` (the packed single-launch kernel executor on CUDA, the plain vmap
 one on the CPU) unless ``--use-kernel`` / ``--no-use-kernel`` /
@@ -34,15 +47,14 @@ the surrogate means stay on the host (``Execution(bank_device='cpu')``):
 each round brings the chain's client's means to the device. Prints
 ll/token per chain at theta0 and after sampling, and the chain-steps/s.
 
-The flags of the reference that wait for other parts of the port raise
-NotImplementedError naming their ROADMAP item: ``--clients`` /
-``--resident`` (13), ``--metrics-dir`` / ``--log-every`` (12) and
-``--multi-pod`` (8).
+The reference's ``--multi-pod`` waits for multi-device chains and
+raises NotImplementedError naming ROADMAP item 8.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 from typing import Any, Optional
 
@@ -54,11 +66,13 @@ from repro_torch import tree as tu
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.engine import _not_ported
 from repro_torch.data import token_shards
+from repro_torch.fed import SyntheticClientSource
 from repro_torch.models import init_params, log_lik_fn
+from repro_torch.obs import trace as obs_trace
+from repro_torch.obs import write_metrics_jsonl, write_prometheus
 
 # flag -> the ROADMAP item its port waits for
-_REFUSED = (("clients", 13), ("resident", 13), ("metrics_dir", 12),
-            ("log_every", 12), ("multi_pod", 8))
+_REFUSED = (("multi_pod", 8),)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -97,9 +111,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--fit-steps", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--clients", type=int, default=None,
-                    help="not ported (item 13)")
+                    help="lazy synthetic clients (SyntheticClientSource): "
+                         "each client's tokens are built on the host only "
+                         "when a window needs them; overrides "
+                         "--num-shards")
     ap.add_argument("--resident", type=int, default=None,
-                    help="not ported (item 13)")
+                    help="streamed client axis: keep only this many "
+                         "clients on the device, the next window staged "
+                         "while the current one runs")
     ap.add_argument("--multi-pod", action="store_true",
                     help="not ported (item 8)")
     ap.add_argument("--ckpt", default=None,
@@ -124,19 +143,61 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "--snapshot-dir (a fresh run when none exists), "
                          "bitwise the uninterrupted run")
     ap.add_argument("--metrics-dir", default=None,
-                    help="not ported (item 12)")
+                    help="in-loop telemetry: write metrics.jsonl (per-round "
+                         "per-chain metric rows), metrics.prom (Prometheus "
+                         "textfile), and trace.jsonl (host spans/events) "
+                         "into this directory")
     ap.add_argument("--log-every", type=int, default=None,
-                    help="not ported (item 12)")
+                    help="periodic progress: echo one engine.progress "
+                         "line (round counter, steps/s, per-metric "
+                         "means) every N rounds during the run — "
+                         "segmentation is bitwise-lossless")
     args = ap.parse_args(argv)
     for flag, item in _REFUSED:
         if getattr(args, flag) not in (None, False):
             raise _not_ported(f"--{flag.replace('_', '-')}", item)
+    obs = args.metrics_dir is not None or args.log_every is not None
+    if obs and args.draw_bank:
+        raise SystemExit(
+            "--metrics-dir/--log-every instrument the facade's one "
+            "engine run; --draw-bank runs its own segment loop — "
+            "pick one")
+    if obs and args.resident is not None:
+        raise SystemExit(
+            "--metrics-dir/--log-every (in-loop telemetry) do not "
+            "compose with --resident (streamed clients) yet — drop one")
+    if args.log_every is not None and args.snapshot_every:
+        raise SystemExit(
+            "--log-every and --snapshot-every both segment the run — "
+            "pick ONE segmentation driver (snapshots already log a "
+            "span per segment)")
     if (args.snapshot_every or args.resume) and not args.snapshot_dir:
         raise SystemExit("--snapshot-every/--resume need --snapshot-dir")
     if (args.snapshot_every or args.resume) and args.draw_bank:
         raise SystemExit(
             "--snapshot-every/--resume run the schedule as one resumable "
             "engine run; --draw-bank runs its own segment loop — pick one")
+    n_clients = args.clients if args.clients is not None \
+        else args.num_shards
+    if args.resident is not None and args.resident > n_clients:
+        flag = "--clients" if args.clients is not None else "--num-shards"
+        raise SystemExit(
+            f"--resident {args.resident} exceeds the client count "
+            f"({n_clients}): the resident set is the on-device SUBSET of "
+            f"clients — lower --resident to at most {n_clients}, or raise "
+            f"{flag} (did you mean {flag} {args.resident}?)")
+    if args.resident is not None and (args.snapshot_every or args.resume):
+        raise SystemExit(
+            "--resident (streamed clients) does not compose with "
+            "--snapshot-every/--resume: snapshots capture the full run "
+            "carry and the resident window is host-managed — drop "
+            "--resident to snapshot")
+    if args.clients is not None and args.method == "fsgld":
+        raise SystemExit(
+            "--clients streams lazy synthetic clients; surrogate fitting "
+            "(--method fsgld) needs materialized shard data — pick "
+            "--method dsgld or fald, or pass a prefit bank through the "
+            "api facade")
     return args
 
 
@@ -215,6 +276,7 @@ class TrainRun:
     peak_gb: dict          # CUDA: peak device memory of 'fit', 'sampling'
     draws: list = dataclasses.field(default_factory=list)  # bank paths
     draw_write_s: list = dataclasses.field(default_factory=list)
+    frame: Any = None      # obs.MetricsFrame under --metrics-dir/--log-every
 
 
 def ll_per_token(params, cfg, probe) -> float:
@@ -226,7 +288,25 @@ def ll_per_token(params, cfg, probe) -> float:
 
 def run(args: argparse.Namespace) -> TrainRun:
     """Build the data, parameters and sampler of ``args``, fit the
-    surrogates (FSGLD) and sample; prints as the reference's driver."""
+    surrogates (FSGLD) and sample; prints as the reference's driver.
+    Under ``--metrics-dir`` / ``--log-every`` the process-wide tracer
+    writes ``trace.jsonl`` / echoes for the run and is reset after it."""
+    obs = args.metrics_dir is not None or args.log_every is not None
+    if args.metrics_dir is not None:
+        os.makedirs(args.metrics_dir, exist_ok=True)
+        obs_trace.configure(os.path.join(args.metrics_dir, "trace.jsonl"),
+                            echo=args.log_every is not None)
+    elif args.log_every is not None:
+        obs_trace.configure(echo=True)
+    try:
+        return _train(args, api.Telemetry(log_every=args.log_every)
+                      if obs else None)
+    finally:
+        if obs:
+            obs_trace.configure()  # don't leak the tracer to callers
+
+
+def _train(args: argparse.Namespace, telemetry) -> TrainRun:
     cfg = get_smoke_config(args.arch) if args.smoke \
         else get_config(args.arch)
     dev = api._device(args.device)
@@ -239,15 +319,26 @@ def run(args: argparse.Namespace) -> TrainRun:
                 f"--federation {args.federation}: partition scenarios need "
                 "pooled data; this driver builds per-client token shards — "
                 "pick a schedule/compression scenario")
-    print(f"arch={cfg.name} method={args.method} shards={args.num_shards} "
-          f"device={dev}", flush=True)
+    n_clients = args.clients if args.clients is not None \
+        else args.num_shards
+    print(f"arch={cfg.name} method={args.method} shards={n_clients} "
+          f"device={dev}"
+          + (f" resident={args.resident}" if args.resident else ""),
+          flush=True)
     params = init_params(cfg, _generator(dev, args.seed, 0), device=dev)
     n_params = sum(t.numel() for t in tu.leaves(params))
     print(f"params: {n_params / 1e6:.2f}M", flush=True)
-    shards = token_shards(_generator(dev, args.seed, 1),
-                          num_shards=args.num_shards,
-                          shard_size=args.shard_size, seq_len=args.seq,
-                          vocab_size=cfg.vocab_size)
+    if args.clients is not None:
+        # lazy per-client source: only the resident window is ever built
+        shards = SyntheticClientSource(
+            int(np.random.SeedSequence([args.seed, 1]).generate_state(1)[0]),
+            num_clients=args.clients, shard_size=args.shard_size,
+            seq_len=args.seq, vocab_size=cfg.vocab_size)
+    else:
+        shards = token_shards(_generator(dev, args.seed, 1),
+                              num_shards=args.num_shards,
+                              shard_size=args.shard_size, seq_len=args.seq,
+                              vocab_size=cfg.vocab_size)
     minibatch = min(args.batch, args.shard_size)
     fsgld = api.FSGLD(
         api.Posterior(lambda p, b: log_lik_fn(p, cfg, b),
@@ -267,9 +358,16 @@ def run(args: argparse.Namespace) -> TrainRun:
                                 bank_device="cpu",
                                 snapshot_every=args.snapshot_every,
                                 snapshot_path=args.snapshot_dir,
-                                resume=args.resume),
+                                resume=args.resume,
+                                stream=(api.Stream(resident=args.resident)
+                                        if args.resident is not None
+                                        else None),
+                                telemetry=telemetry),
         federation=federation)
-    probe = tu.tree_map(lambda d: d[0][:args.batch], shards)
+    probe_rows = (tu.tree_map(lambda a: torch.as_tensor(a).to(dev),
+                              shards.rows(np.arange(1)))
+                  if args.clients is not None else shards)
+    probe = tu.tree_map(lambda d: d[0][:args.batch], probe_rows)
     ll0 = ll_per_token(params, cfg, probe)
     print(f"theta0 ll/token={ll0:8.4f}", flush=True)
 
@@ -295,8 +393,11 @@ def run(args: argparse.Namespace) -> TrainRun:
         finals, paths, write_s = _sample_into_bank(
             fsgld, _generator(dev, args.seed, 3), params, cfg, args,
             federation)
-    else:
+    frame = None
+    if not args.draw_bank:
         finals = fsgld.sample(_generator(dev, args.seed, 3), params)
+        if telemetry is not None:
+            finals, frame = finals
         if args.kernel == "sghmc":
             finals = finals[0]  # (theta, momentum) chain states
     _sync(dev)
@@ -317,10 +418,18 @@ def run(args: argparse.Namespace) -> TrainRun:
                         extra={"method": args.method, "arch": cfg.name,
                                "chains": args.chains})
         print(f"checkpoint -> {args.ckpt}")
+    if args.metrics_dir is not None:
+        mj = os.path.join(args.metrics_dir, "metrics.jsonl")
+        mp = os.path.join(args.metrics_dir, "metrics.prom")
+        write_metrics_jsonl(frame, mj)
+        write_prometheus(frame, mp)
+        print(f"metrics -> {mj} + {mp} ({frame.rounds} rounds x "
+              f"{frame.n_chains} chains x {len(frame.names)} metrics)")
     print(f"final ll/token {float(np.mean(lls)):.4f}", flush=True)
     return TrainRun(cfg=cfg, sampler=fsgld, theta0=params, finals=finals,
                     ll0=ll0, lls=lls, fit_s=fit_s, sample_s=dt,
-                    peak_gb=peak_gb, draws=paths, draw_write_s=write_s)
+                    peak_gb=peak_gb, draws=paths, draw_write_s=write_s,
+                    frame=frame)
 
 
 def _sync(dev: torch.device) -> None:

@@ -13,8 +13,11 @@ newest K draws in without restarting the server.
 A bank's draws are fingerprint-checked against a skeleton of meta
 tensors built from ``models.param_layout`` (no parameter is made), and
 loaded, moved to the device and cast one draw at a time, so two fp32
-full-width draws never sit on the card at once. The request spans of the
-reference come with observability (ROADMAP item 12).
+full-width draws never sit on the card at once. Each request emits the
+reference's ``serve.prefill`` / ``serve.decode`` spans (each ending after
+a device synchronize, so its duration is ``ServeResult.prefill_s`` /
+``decode_s``'s interval) and a ``serve.request`` event
+(``repro_torch.obs.trace``).
 """
 from __future__ import annotations
 
@@ -224,24 +227,38 @@ class EnsembleServer:
         B, S = prompt.shape
         total = S + gen
 
+        # each span ends after a synchronize, so its duration is the
+        # card's, the same interval prefill_s / decode_s measure
         _sync(dev)
-        t0 = time.perf_counter()
-        logits0, caches = ensemble_prefill(self.draws, cfg, prompt, total)
-        # token 0: the anchor's logits as a one-draw ensemble
-        stats = [predictive_stats(logits0[None])]
-        _sync(dev)
-        prefill_s = time.perf_counter() - t0
+        with obs_trace.span("serve.prefill", batch=B, prompt_len=S,
+                            n_draws=self.n_draws):
+            t0 = time.perf_counter()
+            logits0, caches = ensemble_prefill(self.draws, cfg, prompt,
+                                               total)
+            # token 0: the anchor's logits as a one-draw ensemble
+            stats = [predictive_stats(logits0[None])]
+            _sync(dev)
+            prefill_s = time.perf_counter() - t0
 
-        t0 = time.perf_counter()
-        tok = stats[0].token[:, None]
-        for t in range(S, total - 1):
-            pos = torch.full((B,), t, dtype=torch.int64, device=dev)
-            logits_k, caches = ensemble_decode_step(self.draws, cfg, caches,
-                                                    tok, pos)
-            stats.append(predictive_stats(logits_k))
-            tok = stats[-1].token[:, None]
-        _sync(dev)
-        decode_s = time.perf_counter() - t0
+        with obs_trace.span("serve.decode", batch=B, gen=gen,
+                            n_draws=self.n_draws):
+            t0 = time.perf_counter()
+            tok = stats[0].token[:, None]
+            for t in range(S, total - 1):
+                pos = torch.full((B,), t, dtype=torch.int64, device=dev)
+                logits_k, caches = ensemble_decode_step(self.draws, cfg,
+                                                        caches, tok, pos)
+                stats.append(predictive_stats(logits_k))
+                tok = stats[-1].token[:, None]
+            _sync(dev)
+            decode_s = time.perf_counter() - t0
+        if obs_trace.enabled():
+            obs_trace.event(
+                "serve.request", batch=B, prompt_len=S, gen=gen,
+                n_draws=self.n_draws,
+                prefill_s=round(prefill_s, 6), decode_s=round(decode_s, 6),
+                tokens_per_s=round(
+                    B * max(gen - 1, 1) / max(decode_s, 1e-9), 3))
 
         def col(f):
             return torch.stack([f(s) for s in stats], dim=1)

@@ -438,3 +438,64 @@ def test_bf16_leaf_saves_and_restores_from_the_card(dev, tmp_path):
     for k in tree:
         assert got[k].device.type == "cpu" and got[k].dtype == tree[k].dtype
         assert torch.equal(got[k], tree[k].cpu())
+
+
+@pytest.mark.parametrize("executor", ["packed", "per_leaf"])
+def test_telemetry_on_the_card_is_bitwise_off(dev, executor):
+    """Telemetry's rows on the card: the run bitwise the run without it,
+    still one update launch per step (per leaf), every row finite."""
+    import numpy as np
+    from repro_torch.obs import Telemetry
+    s, theta0 = _mlp_sampler(dev)
+    s.execution = api.Execution(device=dev, executor=executor)
+    s._engine = None
+    base = s.sample(torch.Generator(device=dev).manual_seed(1), theta0)
+    fk.reset_launches()
+    out, frame = s.sample(torch.Generator(device=dev).manual_seed(1),
+                          theta0, telemetry=Telemetry(log_every=2))
+    torch.cuda.synchronize()
+    L = len(tu.leaves(theta0))
+    assert dict(fk.LAUNCHES) == (
+        {"fsgld_update_packed": 20, "fsgld_update_2d": 0}
+        if executor == "packed" else
+        {"fsgld_update_packed": 0, "fsgld_update_2d": 20 * L})
+    assert all(torch.equal(a, b) for a, b in zip(tu.leaves(base),
+                                                 tu.leaves(out)))
+    assert frame.rounds == 4 and all(np.isfinite(a).all()
+                                     for a in frame.metrics.values())
+
+
+@pytest.mark.parametrize("prefetch", [True, False])
+def test_streamed_windows_on_a_side_stream_are_bitwise(dev, prefetch):
+    """The streamed path on the card: a lazy client source (rows built on
+    the host, copied from pinned buffers on a side stream) and a resident
+    stack (gathered on the side stream), each bitwise its resident run."""
+    from repro_torch.fed import Stream, SyntheticClientSource
+    src = SyntheticClientSource(5, num_clients=40, shard_size=16, seq_len=8,
+                                vocab_size=64)
+
+    def tok_ll(theta, batch):
+        return torch.sum(torch.log_softmax(theta, -1)[batch["labels"]])
+
+    def build(data, stream):
+        return api.FSGLD(
+            api.Posterior(tok_ll), data, minibatch=4, step_size=1e-3,
+            method="dsgld", surrogate=api.SurrogateSpec(kind="none"),
+            schedule=api.Schedule(rounds=6, local_steps=3, n_chains=5,
+                                  reassign="permutation"),
+            execution=api.Execution(device=dev, executor="packed",
+                                    collect=False, stream=stream))
+
+    stacked = {k: torch.as_tensor(v).to(dev)
+               for k, v in src.rows(range(40)).items()}
+    theta0 = torch.zeros(64, device=dev)
+    stream = Stream(resident=10, window=2, prefetch=prefetch)
+    for data in (src, stacked):
+        ref = build(data, None).sample(
+            torch.Generator(device=dev).manual_seed(2), theta0)
+        fk.reset_launches()
+        got = build(data, stream).sample(
+            torch.Generator(device=dev).manual_seed(2), theta0)
+        torch.cuda.synchronize()
+        assert fk.LAUNCHES["fsgld_update_packed"] == 18
+        assert torch.equal(ref, got)

@@ -42,4 +42,6 @@ def test_scan_sees_the_whole_port():
             "federated.py", "surrogate.py", "synthetic.py",
             "convert.py", "calibration.py", "workloads.py",
             "paper_runs.py", "np_checkpoint.py", "snapshot.py",
-            "draw_bank.py", "health.py", "chaos.py", "trace.py"} <= names
+            "draw_bank.py", "health.py", "chaos.py", "trace.py",
+            "telemetry.py", "exporters.py", "hierarchy.py",
+            "divergence_depth.py"} <= names

@@ -208,11 +208,9 @@ def test_unported_kinds_are_refused(arch):
                               8)
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--log-jsonl", "/nonexistent"], 12)])
-def test_unported_serving_options_are_refused(argv, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        serve_cli.main(["--smoke", "--device", "cpu"] + argv)
+def test_unported_serving_options_are_refused():
+    """Multi-device serving waits for item 8 (``--log-jsonl``, item 12,
+    runs: tests/test_torch_obs.py)."""
     with pytest.raises(NotImplementedError, match="item 8"):
         api.Serving(device="cpu", mesh=object())
 
