@@ -73,6 +73,17 @@ nvcc per source, in parallel) and drives its two paths through the
   host and copied on a side stream while the previous window runs); the
   train driver at [train-c2]'s size with ``--resident 2``, bitwise the
   resident run;
+* the MoE, hybrid and ssm families at their published widths:
+  phi3.5-moe (8 of 32 layers), recurrentgemma-2b and rwkv6-7b (full
+  depth) served through ``FSGLD.serve`` (the flash kernel at each
+  attending family's shape against its plain version, one launch per
+  attention layer per request and none in decode, the prefill against
+  the plain attention's, K = 1 bitwise, the blocks' device time in one
+  prefill), then each sampled through the train driver at the depth one
+  card holds (1, 9 and 5 layers): one update launch per step, flash
+  launches per attention layer per pass, the divergence guard with
+  telemetry's conducive and gradient norms, the MoE's aux loss finite,
+  packed == per_leaf over one round, bitwise;
 
 and times each kernel beside its bound, its plain version and, where one
 PyTorch call computes the same function, that call. Exits non-zero,
@@ -201,6 +212,26 @@ SPAN_SLACK_S = 0.05
 # so h S N_s / m equals [train]'s TRAIN_H x 32.
 TEL_TIME_ROUNDS, TEL_REPS = 100, 3
 STREAM_CLIENTS, STREAM_H = 1_000_000, 4e-13
+# The MoE, hybrid (RG-LRU) and ssm (RWKV-6) families at their published
+# widths (d_model, heads, KV heads, head_dim, d_ff, vocab); each phase's
+# tag, its serving depth (None: full) with K draws and one request of
+# batch x prompt (SERVE_GEN new tokens), and its sampling depth. The
+# depths are the deepest that one card's machine holds in this script:
+# 80 GB on the card, 96 GiB on the host (PERF.md section 4).
+FAMILIES = {
+    "phi3.5-moe-42b-a6.6b": dict(tag="moe", width=(4096, 32, 8, 128, 6400,
+                                                   32_064),
+                                 serve=(8, 2, 4, 2048), train=1),
+    "recurrentgemma-2b": dict(tag="rg", width=(2560, 10, 1, 256, 7680,
+                                               256_000),
+                              serve=(None, 4, 2, 3072), train=9),
+    "rwkv6-7b": dict(tag="rwkv", width=(4096, 64, 64, 64, 14_336, 65_536),
+                     serve=(None, 2, 4, 2048), train=5),
+}
+# their sampling runs: the train driver's defaults (4 clients x 64 x 128,
+# minibatch 8, bf16 'scalar' bank, C = 1, h = TRAIN_H) but FAM_FIT fit
+# steps and FAM_R rounds x FAM_T steps
+FAM_FIT, FAM_R, FAM_T = 4, 3, 2
 
 
 def log(msg: str) -> None:
@@ -210,15 +241,33 @@ def log(msg: str) -> None:
 _PHASE_START = []
 
 
+def host_gb() -> float:
+    """This process's resident host memory, GB (the card's machine ends a
+    command at 96 GiB)."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 1e9
+
+
+def free_host_cache() -> None:
+    """Give the pinned host blocks that PyTorch caches once freed (a train
+    phase's bank stack: 16-18 GB at full width) back to the system, so
+    that they do not add up over the phases."""
+    empty = getattr(torch._C, "_host_emptyCache", None)
+    if empty is not None:
+        empty()
+
+
 def phase(title: str) -> None:
-    """A phase's header, with the device memory held when it starts and
-    the host seconds since the previous header."""
+    """A phase's header, with the device memory held when it starts, the
+    host's resident memory (after ``free_host_cache``) and the host
+    seconds since the previous header."""
+    free_host_cache()
     now = time.perf_counter()
     since = (f"; {now - _PHASE_START[-1]:.1f} s since the last header"
              if _PHASE_START else "")
     _PHASE_START.append(now)
-    log(f"{title} ({torch.cuda.memory_allocated() / 1e9:.2f} GB allocated"
-        f"{since})")
+    log(f"{title} ({torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+        f"host {host_gb():.2f} GB resident{since})")
 
 
 def cuda_sync() -> None:
@@ -241,19 +290,31 @@ def _first(out):
     return out if isinstance(out, tuple) else (out,)
 
 
+ERR_CHUNK = 1 << 26  # elements compared at a time (bounded temporaries)
+
+
 def _err(a, b, bf16_rows=None):
-    """Largest |kernel - plain|, checked against the stated tolerance."""
+    """Largest |kernel - plain|, checked against the stated tolerance
+    (``bf16_rows``: a mask of the rows held to one bf16 ulp), over
+    chunks of rows, so that billion-parameter buffers need no full-size
+    temporaries."""
     worst = 0.0
     for x, y in zip(_first(a), _first(b)):
-        d = (x - y).abs()
-        bound = ATOL + RTOL * y.abs()
-        if bf16_rows is not None:
-            bound[bf16_rows] = torch.maximum(
-                bound[bf16_rows], BF16_REL * y[bf16_rows].abs())
-        if not bool(torch.isfinite(x).all()) or bool((d > bound).any()):
-            raise AssertionError(f"kernel disagrees with its plain version:"
-                                 f" max |diff| {float(d.max()):.3e}")
-        worst = max(worst, float(d.max()))
+        step = max(1, ERR_CHUNK // max(1, x[0].numel()))
+        for r0 in range(0, x.shape[0], step):
+            xs, ys = x[r0:r0 + step], y[r0:r0 + step]
+            d = (xs - ys).abs()
+            bound = ATOL + RTOL * ys.abs()
+            if bf16_rows is not None:
+                wide = bf16_rows[r0:r0 + step]
+                bound[wide] = torch.maximum(bound[wide],
+                                            BF16_REL * ys[wide].abs())
+            if not bool(torch.isfinite(xs).all()) or \
+                    bool((d > bound).any()):
+                raise AssertionError(f"kernel disagrees with its plain "
+                                     f"version: max |diff| "
+                                     f"{float(d.max()):.3e}")
+            worst = max(worst, float(d.max()))
     return worst
 
 
@@ -709,9 +770,11 @@ def heldout_check(name, tr_a, tr_b, test):
 
 
 def same(name, a, b):
+    """``a`` and ``b`` bitwise equal, leaf by leaf (a leaf of ``a`` is
+    moved to its counterpart's device first)."""
     from repro_torch import tree as tu
-    if not all(torch.equal(x, y) for x, y in zip(tu.leaves(a),
-                                                 tu.leaves(b))):
+    if not all(torch.equal(x.to(y.device), y)
+               for x, y in zip(tu.leaves(a), tu.leaves(b))):
         raise AssertionError(f"{name}: the runs differ")
     log(f"  {name}: equal, bitwise")
 
@@ -1230,25 +1293,100 @@ def _peak(base: int) -> str:
             f"{base / 1e9:.2f} GB allocated before)")
 
 
+def attn_layers(cfg) -> int:
+    """The layers of ``cfg`` that attend ('attn' / 'swa'): one flash launch
+    each per prefill or gradient pass ('rglru' and 'rwkv' launch none)."""
+    pat = cfg.layer_pattern
+    return sum(pat[i % len(pat)] in ("attn", "swa")
+               for i in range(cfg.num_layers))
+
+
+def attn_windows(cfg) -> list:
+    """The windows of ``cfg``'s attending layers: None for 'attn',
+    ``cfg.swa_window`` for 'swa'."""
+    kinds = {cfg.layer_pattern[i % len(cfg.layer_pattern)]
+             for i in range(cfg.num_layers)}
+    return ([None] if "attn" in kinds else []) + (
+        [cfg.swa_window] if "swa" in kinds else [])
+
+
 def _prefill_rel(anchor, cfg, prompt, total):
     """Anchor prefill logits through the kernel vs the plain attention:
-    max|diff| / max|logits|; also the kernel's launches."""
+    max|diff| / max|logits| (None where no layer attends: the two would
+    be one computation); also the kernel's launches."""
     from repro_torch import models as TM
     from repro_torch.kernels import flash_attention as fa
     fa.reset_launches()
     logits, cache = TM.prefill_with_cache(anchor, cfg, prompt, total)
     launched = fa.LAUNCHES["flash_attention"]
-    plain, _ = TM.prefill_with_cache(anchor, cfg, prompt, total,
-                                     attention=fa.flash_attention_plain)
     cuda_sync()
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"{cfg.name}: non-finite prefill logits")
+    if not attn_layers(cfg):
+        return logits, cache, launched, None
+    plain, _ = TM.prefill_with_cache(anchor, cfg, prompt, total,
+                                     attention=fa.flash_attention_plain)
     rel = float((logits - plain).abs().max() / plain.abs().max())
     if not rel < PREFILL_REL:
         raise AssertionError(f"{cfg.name}: prefill through the kernel is "
                              f"{rel:.3e} of max|logits| from the plain "
                              f"attention's (limit {PREFILL_REL})")
     return logits, cache, launched, rel
+
+
+def prompt_checks(server, cfg, prompt, gen):
+    """One prompt on the anchor draw: prefill through the kernel against
+    the plain attention (``_prefill_rel``), the flash launches of prefill
+    (one per attention layer) and of decode (none) apart, and the K=1
+    ensemble (prefill, ``gen - 1`` decode steps, and a server's request)
+    against the plain prefill + decode_step loop, bitwise."""
+    from repro_torch import models as TM
+    from repro_torch import tree as tu
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.serve import (EnsembleServer, ensemble_prefill,
+                                   predictive_stats)
+    B, S = prompt.shape
+    dev, total = prompt.device, S + gen
+    anchor = tu.tree_map(lambda t: t[0], server.draws)
+    logits, cache, n_prefill, rel = _prefill_rel(anchor, cfg, prompt, total)
+    fa.reset_launches()
+    want_tok, want_logits = [torch.argmax(logits, -1)], []
+    for t in range(S, total - 1):
+        lg, cache = TM.decode_step(anchor, cfg, cache, want_tok[-1][:, None],
+                                   torch.full((B,), t, device=dev))
+        want_logits.append(lg)
+        want_tok.append(torch.argmax(lg, -1))
+    n_decode = fa.LAUNCHES["flash_attention"]
+    if n_prefill != attn_layers(cfg) or n_decode != 0:
+        raise AssertionError(f"flash_attention: {n_prefill} launches in "
+                             f"prefill, {n_decode} in decode")
+    log("  anchor prefill: " + (
+        "no attending layer, so no plain attention to compare"
+        if rel is None else f"kernel vs plain attention max|diff|/max|"
+        f"logits| {rel:.3e} (limit {PREFILL_REL})") + "; flash_attention "
+        f"launches: prefill {n_prefill}, decode {n_decode}")
+    del cache
+    draws1 = tu.tree_map(lambda t: t[:1], server.draws)
+    logits0, caches = ensemble_prefill(draws1, cfg, prompt, total)
+    same = torch.equal(logits0, logits)
+    tok = predictive_stats(logits0[None]).token[:, None]
+    for i, t in enumerate(range(S, total - 1)):
+        lk, caches = TM.ensemble_decode_step(
+            draws1, cfg, caches, tok, torch.full((B,), t, device=dev))
+        same = same and torch.equal(lk[0], want_logits[i])
+        tok = predictive_stats(lk).token[:, None]
+    del caches
+    res1 = EnsembleServer(cfg, draws=draws1, device=dev).generate(
+        prompt, gen=gen)
+    if not (same and torch.equal(res1.tokens, torch.stack(want_tok, 1))):
+        raise AssertionError("K=1 ensemble serving differs from the plain "
+                             "prefill + decode_step loop")
+    _check_signals("K=1", res1, 1)
+    if not bool((res1.mutual_info == 0).all()):
+        raise AssertionError("K=1: mutual information is not 0")
+    log("  K=1 ensemble == plain prefill + decode_step loop, bitwise "
+        f"(prefill logits, {gen - 1} steps' logits, tokens); mutual "
+        "info 0")
 
 
 def serve_qwen3(dev):
@@ -1258,8 +1396,7 @@ def serve_qwen3(dev):
     from repro_torch import models as TM
     from repro_torch import tree as tu
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.serve import (EnsembleServer, ensemble_prefill,
-                                   predictive_stats)
+    from repro_torch.serve import ensemble_prefill
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
@@ -1293,9 +1430,9 @@ def serve_qwen3(dev):
     cuda_sync()
     launches = fa.LAUNCHES["flash_attention"]
     for i, (res, n) in enumerate(zip(results, per_request)):
-        if n != cfg.num_layers:
+        if n != attn_layers(cfg):
             raise AssertionError(f"request {i}: flash_attention launched {n}"
-                                 f" times, expected {cfg.num_layers}")
+                                 f" times, expected {attn_layers(cfg)}")
         if tuple(res.tokens.shape) != (SERVE_B, SERVE_GEN) \
                 or res.n_draws != SERVE_K:
             raise AssertionError(f"request {i}: tokens {res.tokens.shape}")
@@ -1317,44 +1454,7 @@ def serve_qwen3(dev):
     prompt = torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_S),
                            generator=gen, device=dev)
     total = SERVE_S + SERVE_GEN
-    anchor = tu.tree_map(lambda t: t[0], server.draws)
-    logits, cache, n_prefill, rel = _prefill_rel(anchor, cfg, prompt, total)
-    fa.reset_launches()
-    want_tok, want_logits = [torch.argmax(logits, -1)], []
-    for t in range(SERVE_S, total - 1):
-        lg, cache = TM.decode_step(anchor, cfg, cache, want_tok[-1][:, None],
-                                   torch.full((SERVE_B,), t, device=dev))
-        want_logits.append(lg)
-        want_tok.append(torch.argmax(lg, -1))
-    n_decode = fa.LAUNCHES["flash_attention"]
-    if n_prefill != cfg.num_layers or n_decode != 0:
-        raise AssertionError(f"flash_attention: {n_prefill} launches in "
-                             f"prefill, {n_decode} in decode")
-    log(f"  anchor prefill: kernel vs plain attention max|diff|/max|logits|"
-        f" {rel:.3e} (limit {PREFILL_REL}); flash_attention launches: "
-        f"prefill {n_prefill}, decode {n_decode}")
-    del cache
-    draws1 = tu.tree_map(lambda t: t[:1], server.draws)
-    logits0, caches = ensemble_prefill(draws1, cfg, prompt, total)
-    same = torch.equal(logits0, logits)
-    tok = predictive_stats(logits0[None]).token[:, None]
-    for i, t in enumerate(range(SERVE_S, total - 1)):
-        lk, caches = TM.ensemble_decode_step(
-            draws1, cfg, caches, tok, torch.full((SERVE_B,), t, device=dev))
-        same = same and torch.equal(lk[0], want_logits[i])
-        tok = predictive_stats(lk).token[:, None]
-    del caches
-    res1 = EnsembleServer(cfg, draws=draws1, device=dev).generate(
-        prompt, gen=SERVE_GEN)
-    if not (same and torch.equal(res1.tokens, torch.stack(want_tok, 1))):
-        raise AssertionError("K=1 ensemble serving differs from the plain "
-                             "prefill + decode_step loop")
-    _check_signals("K=1", res1, 1)
-    if not bool((res1.mutual_info == 0).all()):
-        raise AssertionError("K=1: mutual information is not 0")
-    log("  K=1 ensemble == plain prefill + decode_step loop, bitwise "
-        f"(prefill logits, {SERVE_GEN - 1} steps' logits, tokens); mutual "
-        "info 0")
+    prompt_checks(server, cfg, prompt, SERVE_GEN)
 
     log(f"  [profile] one decode step of the {SERVE_K}-draw ensemble under "
         "torch.profiler")
@@ -1386,9 +1486,9 @@ def serve_danube(dev):
     res = server.generate(prompt, gen=G)
     cuda_sync()
     n = fa.LAUNCHES["flash_attention"]
-    if n != cfg.num_layers:
+    if n != attn_layers(cfg):
         raise AssertionError(f"danube: flash_attention launched {n} times, "
-                             f"expected {cfg.num_layers}")
+                             f"expected {attn_layers(cfg)}")
     _check_signals("danube", res, 2)
     _, _, _, rel = _prefill_rel(tu.tree_map(lambda t: t[0], server.draws),
                                 cfg, prompt, S + G)
@@ -1416,7 +1516,6 @@ def phase_train(dev, failures):
     same generator and bank (bitwise), then one step split three ways.
     Returns the path's numbers. A chain beyond the divergence guard is
     appended to ``failures`` (the script fails after its other phases)."""
-    from repro_torch import api
     from repro_torch import tree as tu
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fsgld_update as fk
@@ -1449,10 +1548,10 @@ def phase_train(dev, failures):
     # final state
     passes = TRAIN_S * TRAIN_FIT + steps + TRAIN_R + 1 + args.chains
     if counts != {"fsgld_update_packed": steps, "fsgld_update_2d": 0} or \
-            n_flash != cfg.num_layers * passes:
+            n_flash != attn_layers(cfg) * passes:
         raise AssertionError(f"train: launches {counts}, flash {n_flash}; "
                              f"expected {steps} packed and "
-                             f"{cfg.num_layers} x {passes} flash")
+                             f"{attn_layers(cfg)} x {passes} flash")
     if not (all(math.isfinite(x) for x in tr.lls)
             and min(tr.lls) >= tr.ll0 - TRAIN_GUARD):
         failures.append(f"train diverged: ll/token {tr.lls} against "
@@ -1466,7 +1565,7 @@ def phase_train(dev, failures):
         f"{tr.peak_gb['sampling']:.2f} GB; ll/token theta0 {tr.ll0:.4f}, "
         f"chains {[round(x, 4) for x in tr.lls]}")
     log(f"  main path launches: fsgld_update_packed {counts['fsgld_update_packed']}"
-        f" (1 per step), flash_attention {n_flash} = {cfg.num_layers} x "
+        f" (1 per step), flash_attention {n_flash} = {attn_layers(cfg)} x "
         f"{passes} passes ({TRAIN_S} x {TRAIN_FIT} fit + {steps} sampling "
         f"gradient passes + {TRAIN_R} telemetry probe passes, "
         f"{1 + args.chains} probe forwards)")
@@ -1492,33 +1591,28 @@ def phase_train(dev, failures):
         f"{np.round(probe_ll, 4).tolist()} (the driver's final "
         f"{tr.lls[0]:.4f})")
 
-    s = tr.sampler
-    per_leaf = api.FSGLD(
-        s.posterior, s.data, minibatch=s.minibatch, step_size=s.cfg.step_size,
-        surrogate=api.SurrogateSpec(kind="scalar", bank=s.bank),
-        schedule=s.schedule,
-        execution=api.Execution(device=dev, executor="per_leaf",
-                                collect=False, dtype=s.execution.dtype,
-                                bank_device=s.execution.bank_device))
-    cuda_sync()
-    fk.reset_launches()
-    fa.reset_launches()
-    t0 = time.perf_counter()
-    out = per_leaf.sample(train._generator(dev, args.seed, 3), tr.theta0)
-    cuda_sync()
-    dt = time.perf_counter() - t0
-    L = len(tu.leaves(tr.theta0))
-    if fk.LAUNCHES["fsgld_update_2d"] != steps * L or \
-            fa.LAUNCHES["flash_attention"] != cfg.num_layers * steps:
-        raise AssertionError(f"train/per_leaf: launches {fk.LAUNCHES}, "
-                             f"flash {fa.LAUNCHES}")
-    log(f"  per_leaf: {steps * L} fsgld_update_2d launches ({L} leaves), "
-        f"{fa.LAUNCHES['flash_attention']} flash_attention ({cfg.num_layers}"
-        f" per gradient pass), {steps / dt:.3f} chain-steps/s")
-    same("train: packed with telemetry == per_leaf without",
-         tr.finals, out)
-    del out
+    # one round on each: the driver's sampler (packed, telemetry on) and
+    # per_leaf, from theta0 on the driver's generator (per_leaf takes
+    # 4.6 s a step here, so not the whole run)
     tr.finals = None
+    gen3 = lambda: train._generator(dev, args.seed, 3)  # noqa: E731
+    (packed, _), _, _, _ = _counted(
+        "train/packed one round", lambda: tr.sampler.sample(
+            gen3(), tr.theta0, rounds=1),
+        _expect("packed", TRAIN_T), attn_layers(cfg) * (TRAIN_T + 1))
+    per_leaf = _executor_copy(tr.sampler, "per_leaf", dev)
+    L = len(tu.leaves(tr.theta0))
+    out, dt, _, n = _counted(
+        "train/per_leaf", lambda: per_leaf.sample(gen3(), tr.theta0,
+                                                  rounds=1),
+        {"fsgld_update_packed": 0, "fsgld_update_2d": TRAIN_T * L},
+        attn_layers(cfg) * TRAIN_T)
+    log(f"  per_leaf, one round: {TRAIN_T * L} fsgld_update_2d launches "
+        f"({L} leaves), {n} flash_attention ({attn_layers(cfg)} per "
+        f"gradient pass), {TRAIN_T / dt:.3f} chain-steps/s")
+    same("train: packed with telemetry == per_leaf without, one round",
+         packed, out)
+    del out, packed
     split = step_split(dev, tr)
     return {"launches": counts["fsgld_update_packed"], "flash": n_flash,
             "passes": passes, **split}
@@ -1691,34 +1785,38 @@ class FirstUpdateCheck:
         kops.packed_step = self._real
 
 
-def check_flash_diff(dev):
-    """The differentiable flash entry at the train shape, bf16 inputs:
-    forward (one launch) and row log-sum-exp against the plain scan,
-    dq/dk/dv against autograd through ``attention_scan`` on the same
-    values in fp32 (autograd through the bf16 scan rounds its
-    probabilities to bf16 before P V, and its dq then strays 6-10x the
-    tolerance from this exact gradient, on the CPU), each within the
-    kernel's ``tolerance`` (the statistics within 1e-3). Returns the
-    largest share of the tolerance used."""
+def check_flash_diff(dev, shape=TRAIN_ATTN, window=None):
+    """The differentiable flash entry at a train shape (B, S, H, Hkv, hd)
+    and window, bf16 inputs: forward (one launch) and row log-sum-exp
+    against the plain scan, dq/dk/dv against autograd through
+    ``attention_scan`` on the same values in fp32 (autograd through the
+    bf16 scan rounds its probabilities to bf16 before P V, and its dq
+    then strays 6-10x the tolerance from this exact gradient, on the
+    CPU), each within the kernel's ``tolerance`` (the statistics within
+    1e-3). Returns the largest share of the tolerance used."""
     from repro_torch.kernels import flash_attention as fa
-    B, S, H, Hkv, hd = TRAIN_ATTN
+    B, S, H, Hkv, hd = shape
     q, k, v = _qkv(_gen(dev, 23), B, S, H, Hkv, hd, torch.bfloat16)
     dout = torch.randn(B, S, H, hd, generator=_gen(dev, 29),
                        device=dev).bfloat16()
     pos = torch.arange(S, device=dev).expand(B, S)
-    out, lse = fa.flash_attention_lse(q, k, v)
-    ref, m, l = fa.attention_scan(q, k, v, pos, pos, stats=True)
+    out, lse = fa.flash_attention_lse(q, k, v, window=window)
+    ref, m, l = fa.attention_scan(q, k, v, pos, pos, window=window,
+                                  stats=True)
     stat_err = float((lse - (m + torch.log(l))).abs().max())
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    got = torch.autograd.grad(fa.flash_attention_diff(*leaves), leaves, dout)
+    got = torch.autograd.grad(fa.flash_attention_diff(*leaves,
+                                                      window=window),
+                              leaves, dout)
     plain = [t.float().requires_grad_() for t in (q, k, v)]
-    want = torch.autograd.grad(fa.attention_scan(*plain, pos, pos), plain,
+    want = torch.autograd.grad(fa.attention_scan(*plain, pos, pos,
+                                                 window=window), plain,
                                dout.float())
     shares = [flash_err(out, ref)[1]] + [
         flash_err(a, b.to(a.dtype))[1] for a, b in zip(got, want)]
-    log(f"  flash_attention_diff at the train shape {TRAIN_ATTN}, bf16: "
-        f"share of the tolerance used out {shares[0]:.3f}, dq "
-        f"{shares[1]:.3f}, dk {shares[2]:.3f}, dv {shares[3]:.3f}; row "
+    log(f"  flash_attention_diff at the train shape {shape}, window "
+        f"{window}, bf16: share of the tolerance used out {shares[0]:.3f}, "
+        f"dq {shares[1]:.3f}, dk {shares[2]:.3f}, dv {shares[3]:.3f}; row "
         f"log-sum-exp max|kernel-plain| {stat_err:.3e}")
     if not (max(shares) <= 1 and stat_err <= 1e-3):
         raise AssertionError("the differentiable flash entry disagrees with "
@@ -2565,6 +2663,266 @@ def phase_stream_c2(dev):
         f"{steps * C2_CHAINS / b.sample_s:.3f} chain-steps/s)")
 
 
+# ---------------------------------------------------------------------------
+# the MoE, RG-LRU and RWKV-6 families
+# ---------------------------------------------------------------------------
+
+def family_config(arch, layers):
+    """``arch``'s published config at ``layers`` layers (None: all),
+    checked against its published width."""
+    from repro_torch import configs
+    cfg = configs.get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    width = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+             cfg.d_ff, cfg.vocab_size)
+    if width != FAMILIES[arch]["width"]:
+        raise AssertionError(f"not {arch}'s published width: {width}")
+    return cfg
+
+
+BLOCKS = ("moe_ffn", "rglru_forward", "linear_scan", "rwkv_forward")
+
+
+def block_ms(fn, what: str) -> None:
+    """One call of ``fn`` (a path the phase has already run, so warm)
+    under torch.profiler with each
+    block of ``repro_torch.models.layers`` named in BLOCKS inside a
+    ``record_function`` range: each block's device ms summed over the
+    call (its kernels' time) and its calls, beside the call's kernels'
+    device ms and wall ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import layers as L
+    real = {n: getattr(L, n) for n in BLOCKS}
+
+    def ranged(name, f):
+        def g(*a, **k):
+            with record_function(f"block:{name}"):
+                return f(*a, **k)
+        return g
+
+    for n, f in real.items():
+        setattr(L, n, ranged(n, f))
+    try:
+        cuda_sync()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            cuda_sync()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        for n, f in real.items():
+            setattr(L, n, f)
+    # a range is listed twice: on the host (its kernels' time summed) and
+    # as a span on the device, which is not a kernel
+    ev = prof.key_averages()
+    dev_ms = sum(e.self_device_time_total for e in ev
+                 if e.device_type == DeviceType.CUDA
+                 and not e.key.startswith("block:")) / 1e3
+    parts = [f"{e.key[6:]} {e.device_time_total / 1e3:.2f} ms in "
+             f"{e.count} calls" for e in ev if e.key.startswith("block:")
+             and e.device_type == DeviceType.CPU]
+    log(f"  [profile] {what}: wall {wall_ms:.2f} ms, device {dev_ms:.2f} ms; "
+        + ("; ".join(parts) or "no block") + f" ({card_line()})")
+
+
+def serve_family(dev, arch):
+    """``arch`` at its published width and serving depth through
+    ``FSGLD.serve``: K fresh draws, one request of batch x prompt
+    (the main path: flash launches one per attention layer in prefill,
+    none in decode), then ``prompt_checks`` and the blocks' device time
+    in one prefill. Returns the request's flash launches."""
+    from repro_torch import api, configs
+    from repro_torch import models as TM
+    from repro_torch import tree as tu
+    fam = FAMILIES[arch]
+    layers, K, B, S = fam["serve"]
+    cfg = family_config(arch, layers)
+    n_attn = attn_layers(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    real = configs.get_config
+    configs.get_config = lambda a: cfg
+    try:
+        t0 = time.perf_counter()
+        server = api.FSGLD.serve(api.Serving(arch=arch, smoke=False,
+                                             draws=K))
+        cuda_sync()
+    finally:
+        configs.get_config = real
+    P = sum(t[0].numel() for t in tu.leaves(server.draws))
+    held = sum(t.numel() * t.element_size() for t in tu.leaves(server.draws))
+    log(f"  {K} draws of {cfg.name} ({cfg.num_layers} layers, {n_attn} "
+        f"attending, d {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} "
+        f"heads x {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}"
+        f"): {P} parameters per draw, initialised on the card in "
+        f"{time.perf_counter() - t0:.2f} s; served weights "
+        f"{held / 1e9:.2f} GB; peak device memory while initialising "
+        f"{_peak(base)}")
+    gen = _gen(dev, 17)
+    cuda_sync()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with RequestLaunches() as req:
+        res, dt, _, n = _counted(
+            f"serve-{fam['tag']}", lambda: server.generate(
+                generator=gen, gen=SERVE_GEN, batch=B, prompt_len=S),
+            {}, n_attn)
+    if (req.prefill, req.decode) != ([n_attn], [0]) or \
+            tuple(res.tokens.shape) != (B, SERVE_GEN) or res.n_draws != K:
+        raise AssertionError(f"serve-{fam['tag']}: flash prefill "
+                             f"{req.prefill}, decode {req.decode}, tokens "
+                             f"{tuple(res.tokens.shape)}")
+    _check_signals(f"serve-{fam['tag']}", res, K)
+    log(f"  request: batch {B} x prompt {S}, {SERVE_GEN} new tokens, K={K}:"
+        f" prefill {res.prefill_s:.3f} s, decode {res.decode_s:.3f} s = "
+        f"{B * (SERVE_GEN - 1) / res.decode_s:.1f} tok/s "
+        f"({1e3 * res.decode_s / (SERVE_GEN - 1):.1f} ms per step of {K} "
+        f"draws); flash_attention launches {n} (prefill {req.prefill[0]}, "
+        f"decode {req.decode[0]}); peak device memory while serving "
+        f"{_peak(base)} ({card_line()})")
+    for window in attn_windows(cfg):
+        from repro_torch.kernels import flash_attention as fa
+        shape = (B, S, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+        q, k, v = _qkv(gen, *shape, torch.bfloat16)
+        err, use = flash_err(fa.flash_attention(q, k, v, window=window),
+                             fa.flash_attention_plain(q, k, v,
+                                                      window=window))
+        del q, k, v
+        log(f"  flash kernel at the path's shape (B, S, H, Hkv, hd) = "
+            f"{shape}, window {window}, bf16: max|kernel-plain| {err:.3e},"
+            f" {100 * use:.1f}% of the tolerance")
+        if not use <= 1:
+            raise AssertionError(f"serve-{fam['tag']}: the flash kernel "
+                                 "disagrees with its plain version")
+    prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device=dev)
+    prompt_checks(server, cfg, prompt, SERVE_GEN)
+    anchor = tu.tree_map(lambda t: t[0], server.draws)
+    block_ms(lambda: TM.prefill_with_cache(anchor, cfg, prompt,
+                                           S + SERVE_GEN),
+             f"one prefill of batch {B} x {S} on one draw")
+    return n
+
+
+def _executor_copy(s, executor, dev):
+    """The sampler ``s`` (a train driver's) with its bank, on another
+    executor, without telemetry."""
+    from repro_torch import api
+    return api.FSGLD(
+        s.posterior, s.data, minibatch=s.minibatch,
+        step_size=s.cfg.step_size,
+        surrogate=api.SurrogateSpec(kind="scalar", bank=s.bank),
+        schedule=s.schedule,
+        execution=api.Execution(device=dev, executor=executor,
+                                collect=False, dtype=s.execution.dtype,
+                                bank_device=s.execution.bank_device))
+
+
+def train_family(dev, arch, failures):
+    """``arch`` at its published width and sampling depth through the
+    train driver (the main path: one update launch per step, one flash
+    launch per attention layer per gradient or probe pass), held to
+    TRAIN_GUARD like [train] (a breach is appended to ``failures``, with
+    telemetry's conducive and gradient norms printed); then one round on
+    packed and on per_leaf from theta0 on one generator, bitwise; the
+    MoE's aux loss finite at the final state; the blocks' device time in
+    one forward at the train shape."""
+    import numpy as np
+    from repro_torch import models as TM
+    from repro_torch import tree as tu
+    from repro_torch.launch import train
+    from repro_torch.obs import read_metrics_jsonl
+    fam = FAMILIES[arch]
+    cfg = family_config(arch, fam["train"])
+    n_attn = attn_layers(cfg)
+    mdir = tempfile.mkdtemp(prefix="chip_smoke_metrics_")
+    args = train.parse_args([
+        "--arch", arch, "--step-size", repr(TRAIN_H), "--fit-steps",
+        str(FAM_FIT), "--rounds", str(FAM_R), "--local-updates", str(FAM_T),
+        "--metrics-dir", mdir])
+    steps = FAM_R * FAM_T
+    # gradient passes: the fit's, the sampling's, telemetry's probe (one
+    # per round); forwards: the probes at theta0 and at the final state
+    passes = TRAIN_S * FAM_FIT + steps + FAM_R + 1 + args.chains
+    real = train.get_config
+    train.get_config = lambda a: cfg
+    try:
+        with FirstUpdateCheck() as chk:
+            tr, _, counts, n_flash = _counted(
+                f"train-{fam['tag']}", lambda: train.run(args),
+                _expect("packed", steps), n_attn * passes)
+        frame = read_metrics_jsonl(os.path.join(mdir, "metrics.jsonl"))
+    finally:
+        train.get_config = real
+        shutil.rmtree(mdir, ignore_errors=True)
+    if chk.err is None:
+        raise AssertionError(f"train-{fam['tag']}: no packed update was "
+                             "held against its plain version")
+    _finite_frame(f"train-{fam['tag']} telemetry", frame, FAM_R,
+                  args.chains)
+    P = sum(t.numel() for t in tu.leaves(tr.theta0))
+    log(f"  {cfg.name}, {cfg.num_layers} layers ({n_attn} attending): {P} "
+        f"parameters per chain, h {args.step_size:g}; fit {tr.fit_s:.2f} s,"
+        f" sampling {tr.sample_s:.2f} s = {steps / tr.sample_s:.3f} "
+        f"chain-steps/s; peak device memory fit {tr.peak_gb['fit']:.2f} GB,"
+        f" sampling {tr.peak_gb['sampling']:.2f} GB; ll/token theta0 "
+        f"{tr.ll0:.4f}, chains {[round(x, 4) for x in tr.lls]} "
+        f"({card_line()})")
+    log(f"  main path launches: fsgld_update_packed "
+        f"{counts['fsgld_update_packed']} (1 per step), flash_attention "
+        f"{n_flash} = {n_attn} x {passes} passes ({TRAIN_S} x {FAM_FIT} fit"
+        f" + {steps} sampling + {FAM_R} telemetry probe gradient passes, "
+        f"{1 + args.chains} probe forwards); first update at this packed "
+        f"layout ({len(tu.leaves(tr.theta0))} leaves) max|kernel-plain| "
+        f"{chk.err:.3e} (tolerance {ATOL:g} + {RTOL:g}|x|)")
+    for window in attn_windows(cfg):
+        check_flash_diff(dev, (args.batch, args.seq, cfg.num_heads,
+                               cfg.num_kv_heads, cfg.head_dim), window)
+    m = frame.metrics
+    log("  telemetry per round: " + "; ".join(
+        f"{n} {np.round(m[n][:, 0], 6).tolist()}"
+        for n in ("conducive_norm", "grad_norm", "drift_norm")))
+    if not (all(math.isfinite(x) for x in tr.lls)
+            and min(tr.lls) >= tr.ll0 - TRAIN_GUARD):
+        failures.append(f"train-{fam['tag']} diverged: ll/token {tr.lls} "
+                        f"against {tr.ll0:.4f} at theta0 (guard "
+                        f"{TRAIN_GUARD} nats, h {args.step_size:g})")
+        log(f"  FAILED: {failures[-1]}")
+    s = tr.sampler
+    probe = tu.tree_map(lambda d: d[0][:args.batch], s.data)
+    final = tu.tree_map(lambda t: t[0], tr.finals)
+    if cfg.moe is not None:
+        with torch.no_grad():
+            aux = float(TM.forward(final, cfg, probe["tokens"])[1])
+        if not math.isfinite(aux):
+            raise AssertionError(f"train-{fam['tag']}: aux loss {aux}")
+        log(f"  MoE load-balance aux loss at the final state, summed over "
+            f"{cfg.num_layers} layer(s), on the probe batch: {aux:.6f}")
+    block_ms(lambda: train.ll_per_token(final, cfg, probe),
+             f"one forward of {args.batch} x {args.seq} tokens (no grad)")
+    del final
+    tr.finals = None
+    outs, L = {}, len(tu.leaves(tr.theta0))
+    for ex, expect in (("packed", {"fsgld_update_packed": FAM_T,
+                                   "fsgld_update_2d": 0}),
+                       ("per_leaf", {"fsgld_update_packed": 0,
+                                     "fsgld_update_2d": FAM_T * L})):
+        smp = _executor_copy(s, ex, dev)
+        outs[ex], dt, _, _ = _counted(
+            f"train-{fam['tag']} {ex}", lambda: smp.sample(
+                train._generator(dev, args.seed, 3), tr.theta0, rounds=1),
+            expect, n_attn * FAM_T)
+        if ex == "packed":  # waits on the host while per_leaf runs
+            outs[ex] = tu.tree_map(lambda t: t.cpu(), outs[ex])
+        log(f"  one round of {FAM_T} steps on {ex}: {dt:.2f} s; host "
+            f"{host_gb():.2f} GB resident")
+    same(f"train-{fam['tag']}: packed == per_leaf over one round",
+         outs["packed"], outs["per_leaf"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2755,6 +3113,22 @@ def main() -> int:
           f"{BANK_EVERY} -> launch.serve --bank --log-jsonl; refresh")
     in_scratch(phase_bank, dev)
     torch.cuda.empty_cache()
+
+    for arch, fam in FAMILIES.items():
+        layers, K, B, S = fam["serve"]
+        phase(f"[serve-{fam['tag']}] {arch} at full width, "
+              f"{'all' if layers is None else layers} layers, through "
+              f"FSGLD.serve: K={K} draws, one request of batch {B} x prompt "
+              f"{S}, {SERVE_GEN} new tokens")
+        serve_family(dev, arch)
+        torch.cuda.empty_cache()
+    for arch, fam in FAMILIES.items():
+        phase(f"[train-{fam['tag']}] {arch} at full width, {fam['train']} "
+              f"layers, through repro_torch.launch.train: S={TRAIN_S} "
+              f"clients, {FAM_FIT} fit steps, {FAM_R} rounds x {FAM_T} "
+              f"steps, C=1, packed, h {TRAIN_H:g}")
+        train_family(dev, arch, failures)
+        torch.cuda.empty_cache()
 
     phase("[times] device time per launch: CUDA graphs of back-to-back "
         "launches replayed 20 times between CUDA events (median)")

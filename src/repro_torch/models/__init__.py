@@ -1,5 +1,6 @@
-"""Dense attention transformers: the sampling path's log-likelihood and
-serving (counterpart of ``repro.models``)."""
+"""Decoder-only language models (dense, MoE, RG-LRU hybrid, RWKV-6): the
+sampling path's log-likelihood and serving (counterpart of
+``repro.models``)."""
 from repro_torch.models.model import (  # noqa: F401
     ACT_DTYPE,
     broadcast_cache,
@@ -8,9 +9,11 @@ from repro_torch.models.model import (  # noqa: F401
     ensemble_decode_step,
     forward,
     init_cache,
+    init_leaves,
     init_params,
     log_lik_fn,
     param_layout,
     prefill_with_cache,
+    serving_cast,
     serving_params,
 )

@@ -1,20 +1,29 @@
-"""Layer primitives of the dense attention transformer (counterpart of
-``repro.models.layers``).
+"""Layer primitives of the decoder-only families (counterpart of
+``repro.models.layers``): attention, the dense and MoE feed-forwards, the
+RG-LRU recurrent block (recurrentgemma) and the RWKV-6 time mix.
 
 Tensors keep the JAX package's layouts: activations (B, S, D), attention
-(B, S, heads, hd), caches (B, S_cache, K, hd). Two attention modes:
+(B, S, heads, hd), caches (B, S_cache, K, hd). Every sequence mixer has
+two modes:
 
-* ``chunked_attention`` — full sequence (training, prefill), the plain
+* full sequence (training, prefill): ``chunked_attention``, the plain
   block scan with explicit positions and the reference's flash backward
   (``kernels.flash_attention.attention_scan_bwd``, the port of
   ``_flash_bwd``), so it differentiates like the reference's
-  ``jax.custom_vjp``;
-* ``decode_attention``  — one token against a (possibly ring) cache.
+  ``jax.custom_vjp``; ``rglru_forward``, a log-depth scan of the linear
+  recurrence; ``rwkv_forward``, the chunked linear-attention form;
+* one token against a cache or recurrent state: ``decode_attention``,
+  ``rglru_decode``, ``rwkv_decode``.
 
-The MoE FFN, RG-LRU and RWKV-6 blocks are not ported yet (ROADMAP item 15).
+None of these blocks has a kernel of its own: they are plain PyTorch,
+differentiated by autograd (RWKV's intra-chunk scores by a backward of
+their own that recomputes the pairwise decays). Where the reference multiplies an fp32
+activation by a bf16 parameter (JAX promotes the parameter), the port
+widens the bf16 value with ``.float()``.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -96,17 +105,378 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# feed-forward (dense)
+# feed-forward (dense + MoE)
 # ---------------------------------------------------------------------------
 
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
 def ffn_apply(x: torch.Tensor, p: dict, ffn_type: str) -> torch.Tensor:
-    """Dense FFN; gelu is the tanh approximation, as ``jax.nn.gelu``."""
+    """Dense FFN."""
     if ffn_type == "silu":
         h = F.silu(x @ p["wi_gate"]) * (x @ p["wi_up"])
     elif ffn_type == "geglu":
-        h = F.gelu(x @ p["wi_gate"], approximate="tanh") * (x @ p["wi_up"])
+        h = _gelu(x @ p["wi_gate"]) * (x @ p["wi_up"])
     elif ffn_type == "gelu":
-        h = F.gelu(x @ p["wi_up"], approximate="tanh")
+        h = _gelu(x @ p["wi_up"])
     else:
         raise ValueError(f"unknown ffn_type {ffn_type!r}")
     return h @ p["wo"]
+
+
+def _experts(h: torch.Tensor, p: dict, ffn_type: str) -> torch.Tensor:
+    """Every expert's FFN on its own rows: h (E, R, D) -> (E, R, D)."""
+    if ffn_type in ("silu", "geglu"):
+        act = F.silu if ffn_type == "silu" else _gelu
+        hh = act(h @ p["experts_wi_gate"]) * (h @ p["experts_wi_up"])
+    elif ffn_type == "gelu":
+        hh = _gelu(h @ p["experts_wi_up"])
+    else:
+        raise ValueError(f"unknown ffn_type {ffn_type!r}")
+    return hh @ p["experts_wo"]
+
+
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """fp32 one-hot of integer or integral-float ``idx`` (all zeros where
+    idx is outside [0, n)), by comparison with arange: ``F.one_hot`` is
+    not vmappable under ``torch.func`` on every version."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(
+        torch.float32)
+
+
+def _capacity(tokens: int, top_k: int, experts: int,
+              capacity_factor: float) -> int:
+    return max(top_k, int(math.ceil(tokens * top_k / experts
+                                    * capacity_factor)))
+
+
+def _moe_group(x: torch.Tensor, p: dict, *, top_k: int, ffn_type: str,
+               capacity_factor: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sort-based top-k dispatch for one token group, the reference's
+    dense-routing oracle (its tests hold ``_moe_dense_dispatch`` against
+    it). x (T, D) -> ((T, D), the Switch aux loss). Slots past an
+    expert's capacity go to an overflow row and contribute zero."""
+    T, D = x.shape
+    E = p["experts_wo"].shape[0]
+    gates = torch.softmax(x.float() @ p["router"].float(), dim=-1)
+    top_w, top_i = torch.topk(gates, top_k, dim=-1)           # (T, k)
+    top_w = top_w / torch.clamp_min(top_w.sum(-1, keepdim=True), 1e-9)
+    density = _one_hot(top_i[:, 0], E).mean(0)
+    aux = E * (density * gates.mean(0)).sum()
+    cap = _capacity(T, top_k, E, capacity_factor)
+
+    slot_e = top_i.reshape(-1)                                # (T*k,)
+    slot_w = top_w.reshape(-1)
+    slot_t = torch.arange(T * top_k, device=x.device) // top_k
+    order = torch.argsort(slot_e, stable=True)
+    sorted_e = slot_e[order]
+    counts = torch.bincount(slot_e, minlength=E)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(T * top_k, device=x.device) - starts[sorted_e]
+    keep = rank < cap
+    dest = torch.where(keep, sorted_e * cap + rank, E * cap)  # overflow row
+    buf = x.new_zeros((E * cap + 1, D)).index_put((dest,), x[slot_t[order]])
+    out = _experts(buf[:E * cap].reshape(E, cap, D), p, ffn_type)
+    out = torch.cat([out.reshape(E * cap, D), out.new_zeros((1, D))])
+    gathered = out[dest] * (slot_w[order] * keep)[:, None].to(x.dtype)
+    y = x.new_zeros((T, D)).index_add(0, slot_t[order], gathered)
+    return y, aux
+
+
+def _moe_dense_dispatch(x: torch.Tensor, p: dict, *, top_k: int,
+                        ffn_type: str, capacity_factor: float
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """GShard routing by one-hot products: x (G, Tg, D) token groups ->
+    ((G, Tg, D), the Switch aux loss from the first choice).
+
+    Iterative top-k: each round takes every token's best remaining
+    expert, its position in that expert's queue (cumsum over the group
+    plus the earlier rounds' counts) and keeps it below the capacity
+    ``max(top_k, ceil(Tg * top_k / E * capacity_factor))``. ``dispatch``
+    (G, Tg, E, cap) is in the activation dtype; ``combine`` is fp32,
+    normalised by the kept weight, and cast to the activation dtype
+    before the last product. The router product is bf16 x bf16 with fp32
+    products and sums (widened operands: their products are exact)."""
+    G, Tg, D = x.shape
+    E = p["experts_wo"].shape[0]
+    cap = _capacity(Tg, top_k, E, capacity_factor)
+    gates = torch.softmax(x.float() @ p["router"].to(x.dtype).float(),
+                          dim=-1)                             # (G, Tg, E)
+    remaining = gates
+    count = gates.new_zeros((G, 1, E))
+    dispatch = x.new_zeros((G, Tg, E, cap))
+    combine = gates.new_zeros((G, Tg, E, cap))
+    weight_sum = gates.new_zeros((G, Tg, 1))
+    first = None
+    for _ in range(top_k):
+        onehot = _one_hot(torch.argmax(remaining, dim=-1), E)  # (G, Tg, E)
+        w = (gates * onehot).sum(-1, keepdim=True)            # (G, Tg, 1)
+        pos = torch.cumsum(onehot, dim=1) - onehot + count
+        pos = (pos * onehot).sum(-1)                          # (G, Tg)
+        keep = (pos < cap).to(torch.float32)[..., None]
+        d = (onehot * keep)[..., None] * _one_hot(pos, cap)[:, :, None, :]
+        dispatch = dispatch + d.to(x.dtype)
+        combine = combine + d * w[..., None]
+        weight_sum = weight_sum + w * keep
+        count = count + (onehot * keep).sum(1, keepdim=True)
+        remaining = remaining * (1.0 - onehot)
+        first = onehot if first is None else first
+    combine = combine / torch.clamp_min(weight_sum, 1e-9)[..., None]
+    aux = E * (first.mean((0, 1)) * gates.mean((0, 1))).sum()
+
+    # (G, E*cap, D): each expert's slots, gathered from the group's tokens
+    h = dispatch.reshape(G, Tg, E * cap).transpose(1, 2) @ x
+    h = h.reshape(G, E, cap, D).transpose(0, 1).reshape(E, G * cap, D)
+    out = _experts(h, p, ffn_type).reshape(E, G, cap, D)
+    out = out.transpose(0, 1).reshape(G, E * cap, D)
+    y = combine.to(x.dtype).reshape(G, Tg, E * cap) @ out
+    return y, aux
+
+
+MOE_GROUP_SIZE = 512
+
+
+def moe_ffn(x: torch.Tensor, p: dict, *, top_k: int, ffn_type: str,
+            capacity_factor: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, D) -> ((B, S, D), aux loss). Tokens are grouped into
+    contiguous chunks of ``MOE_GROUP_SIZE`` per batch row (halved until
+    the group divides S); routing capacity is per group."""
+    B, S, D = x.shape
+    g = min(MOE_GROUP_SIZE, S)
+    while S % g:
+        g //= 2
+    y, aux = _moe_dense_dispatch(x.reshape(B * (S // g), g, D), p,
+                                 top_k=top_k, ffn_type=ffn_type,
+                                 capacity_factor=capacity_factor)
+    return y.reshape(B, S, D), aux
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU (Griffin / recurrentgemma)
+# ---------------------------------------------------------------------------
+
+_RGLRU_C = 8.0
+RGLRU_CONV = 4  # the causal conv's width
+
+
+def _rglru_gates(xc: torch.Tensor, p: dict):
+    """xc fp32 (B, S, D) -> the recurrence's (a, b), fp32. The gate
+    weights enter widened from their (bf16) values; softplus(lam) is taken
+    in lam's dtype, as the reference's promotion does."""
+    r = torch.sigmoid(xc @ p["w_rec"].float())               # recurrence gate
+    i = torch.sigmoid(xc @ p["w_inp"].float())               # input gate
+    log_a = (-_RGLRU_C * F.softplus(p["lam"])).float() * r
+    a = torch.exp(log_a)
+    gated = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12)) \
+        * (i * xc)
+    return a, gated
+
+
+def _causal_conv1d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv of width w.shape[0]: x (B, S, D), w (W, D)."""
+    W, S = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, W - 1, 0))
+    out = torch.zeros_like(x)
+    for t in range(W):
+        out = out + xp[:, t:t + S] * w[t]
+    return out
+
+
+def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + b_t along dim 1 from h_{-1} = 0, as a
+    Hillis-Steele scan: ceil(log2 S) rounds of elementwise products, each
+    composing every position with the one ``d`` earlier ((a_l, b_l) then
+    (a_r, b_r) is (a_l a_r, b_l a_r + b_r)). No closed form through
+    cumsum(log a): that underflows within tens of tokens."""
+    S, d = a.shape[1], 1
+    while d < S:
+        a_prev = torch.cat([torch.ones_like(a[:, :d]), a[:, :-d]], dim=1)
+        b_prev = torch.cat([torch.zeros_like(b[:, :d]), b[:, :-d]], dim=1)
+        a, b = a_prev * a, b_prev * a + b
+        d *= 2
+    return b
+
+
+def rglru_forward(x: torch.Tensor, p: dict,
+                  h0: Optional[torch.Tensor] = None):
+    """Griffin recurrent block over a full sequence. x (B, S, D); h0
+    (B, D) a carried state or None. Returns (y (B, S, D), h_last (B, D)
+    fp32)."""
+    xin = x @ p["w_x"]
+    gate = _gelu(x @ p["w_gate"])
+    xc = _causal_conv1d(xin, p["conv_w"])
+    a, b = _rglru_gates(xc.float(), p)
+    if h0 is not None:
+        b = torch.cat([b[:, :1] + a[:, :1] * h0.float()[:, None], b[:, 1:]],
+                      dim=1)
+    h = linear_scan(a, b)
+    y = (h.to(x.dtype) * gate) @ p["w_out"]
+    return y, h[:, -1]
+
+
+def rglru_decode(x: torch.Tensor, p: dict, state: dict):
+    """One step. x (B, 1, D); state {'h': (B, D) fp32, 'conv': (B, W-1,
+    D)}. Returns (y (B, 1, D), the new state)."""
+    xin = x @ p["w_x"]
+    gate = _gelu(x @ p["w_gate"])
+    hist = torch.cat([state["conv"], xin], dim=1)            # (B, W, D)
+    xc = (hist * p["conv_w"]).sum(1, keepdim=True)
+    a, b = _rglru_gates(xc.float(), p)
+    h = a[:, 0] * state["h"].float() + b[:, 0]
+    y = (h[:, None].to(x.dtype) * gate) @ p["w_out"]
+    return y, {"h": h, "conv": hist[:, 1:]}
+
+
+def rglru_init_state(batch: int, d: int, conv_width: int, dtype, *,
+                     lead: tuple = (), device=None) -> dict:
+    """Zero state, with ``lead`` axes in front (stacked periods)."""
+    return {"h": torch.zeros(lead + (batch, d), dtype=torch.float32,
+                             device=device),
+            "conv": torch.zeros(lead + (batch, conv_width - 1, d),
+                                dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6 time mix (chunked linear attention with data-dependent decay)
+# ---------------------------------------------------------------------------
+
+RWKV_LORA = 64  # rank of the decay's LoRA
+
+
+def _rwkv_projections(x: torch.Tensor, p: dict, x_prev: torch.Tensor):
+    """Token-shift mixes and the r/k/v/decay projections. x (B, S, D),
+    x_prev (B, S, D) the sequence shifted right by one. Returns r, k, v
+    (B, S, H, hd) in x's dtype and log_w (B, S, H, hd) fp32, the
+    per-channel log decay, -exp(clip(w0 + lora(x), -8, 8))."""
+    B, S, _ = x.shape
+    H, hd = p["u"].shape
+
+    def mix(mu):
+        return x + mu * (x_prev - x)
+
+    r = (mix(p["mu_r"]) @ p["w_r"]).reshape(B, S, H, hd)
+    k = (mix(p["mu_k"]) @ p["w_k"]).reshape(B, S, H, hd)
+    v = (mix(p["mu_v"]) @ p["w_v"]).reshape(B, S, H, hd)
+    xw = mix(p["mu_w"]).float()
+    dd = torch.tanh(xw @ p["w_lora_a"].float()) @ p["w_lora_b"].float()
+    log_w = -torch.exp(torch.clamp(p["w0"].float() + dd, -8.0, 8.0))
+    return r, k, v, log_w.reshape(B, S, H, hd)
+
+
+def _pair_decays(Lq: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
+    """exp(Lq_t - L_s) for s < t, 0 elsewhere: (..., C, hd) twice ->
+    (..., t, s, hd)."""
+    C = L.shape[-2]
+    causal = torch.ones((C, C), dtype=torch.bool,
+                        device=L.device).tril(-1)[:, :, None]
+    diff = Lq[..., :, None, :] - L[..., None, :, :]
+    return torch.exp(torch.where(causal, diff, NEG_INF))
+
+
+class _RwkvScores(torch.autograd.Function):
+    """One chunk's intra-chunk scores att[t, s] = sum_c r[t,c] k[s,c]
+    exp(Lq[t,c] - L[s,c]) for s < t, else 0 ("bhtc,bhsc,bhtsc->bhts" as
+    one product and sum over c). The backward recomputes the (..., C, C,
+    hd) pairwise decays from the saved inputs, as the reference's
+    ``jax.checkpoint`` of its chunk body does: autograd would keep two
+    such tensors per chunk (0.5 GB each at 8 x 64 heads of 64).
+    With E the decays, dr = sum_s g E k, dk = sum_t g E r, and since E's
+    exponent is Lq_t - L_s, dLq = r dr and dL = -k dk."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(r, k, Lq, L):
+        att = (r[..., :, None, :] * k[..., None, :, :]
+               * _pair_decays(Lq, L)).sum(-1)
+        C = L.shape[-2]
+        causal = torch.ones((C, C), dtype=torch.bool,
+                            device=L.device).tril(-1)
+        return torch.where(causal, att, 0.0)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, g):
+        r, k, Lq, L = ctx.saved_tensors
+        ge = g[..., None] * _pair_decays(Lq, L)              # (..., t, s, c)
+        dr = (ge * k[..., None, :, :]).sum(-2)
+        dk = (ge * r[..., :, None, :]).sum(-3)
+        return dr, dk, r * dr, -(k * dk)
+
+
+def rwkv_forward(x: torch.Tensor, p: dict, state: Optional[dict] = None,
+                 chunk: int = 64):
+    """RWKV-6 time mix over a full sequence, chunked linear-attention form.
+    x (B, S, D); state {'S', 'x_prev'} carried in, or None. Returns (y
+    (B, S, D), {'S': (B, H, hd, hd) fp32, 'x_prev': (B, D)}).
+
+    Within a chunk, position t reads key s < t decayed by exp(Lq_t -
+    L_s) <= 1 (L the inclusive cumulative log decay, Lq = L - log_w the
+    exclusive one, as decode reads S_{t-1}), plus the bonus u on its own
+    key; the state carried from the chunks before enters decayed by
+    exp(Lq_t). A Python loop over chunks carries the state. A ragged
+    last chunk is padded with zero log decay (w = 1, harmless). The
+    intra-chunk scores (``_RwkvScores``) recompute their pairwise decays
+    in the backward, so a gradient pass keeps O(S) per layer."""
+    B, S, D = x.shape
+    H, hd = p["u"].shape
+    x_prev0 = x.new_zeros((B, 1, D)) if state is None \
+        else state["x_prev"][:, None]
+    x_shift = torch.cat([x_prev0, x[:, :-1]], dim=1)
+    r, k, v, log_w = _rwkv_projections(x, p, x_shift)
+    u = p["u"].float()
+    nb = cdiv(S, chunk)
+    pad = nb * chunk - S
+
+    def to_chunks(t):  # (B, S, H, hd) -> (nb, B, H, chunk, hd) fp32
+        t = F.pad(t.float(), (0, 0, 0, 0, 0, pad))
+        return t.reshape(B, nb, chunk, H, hd).permute(1, 0, 3, 2, 4)
+
+    rc, kc, vc, lwc = map(to_chunks, (r, k, v, log_w))
+    Lc = torch.cumsum(lwc, dim=3)
+    S0 = x.new_zeros((B, H, hd, hd), dtype=torch.float32) \
+        if state is None else state["S"].float()
+    outs = []
+    for rb, kb, vb, Lb, lwb in zip(rc, kc, vc, Lc, lwc):     # (B, H, C, hd)
+        Lq = Lb - lwb
+        o_intra = _RwkvScores.apply(rb, kb, Lq, Lb) @ vb
+        o_diag = (rb * (u[None, :, None, :] * kb)).sum(-1, keepdim=True) \
+            * vb
+        o_inter = (rb * torch.exp(Lq)) @ S0
+        last = Lb[:, :, -1:, :]                               # (B, H, 1, hd)
+        kdec = kb * torch.exp(last - Lb)
+        S0 = torch.exp(last).transpose(2, 3) * S0 + kdec.transpose(2, 3) @ vb
+        outs.append(o_intra + o_diag + o_inter)
+    o = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(B, nb * chunk, H,
+                                                          hd)[:, :S]
+    y = o.reshape(B, S, H * hd).to(x.dtype) @ p["w_o"]
+    return y, {"S": S0, "x_prev": x[:, -1]}
+
+
+def rwkv_decode(x: torch.Tensor, p: dict, state: dict):
+    """One step. x (B, 1, D); state {'S': (B, H, hd, hd) fp32, 'x_prev':
+    (B, D)}. Returns (y (B, 1, D), the new state)."""
+    B = x.shape[0]
+    H, hd = p["u"].shape
+    r, k, v, log_w = _rwkv_projections(x, p, state["x_prev"][:, None])
+    r, k, v = (t[:, 0].float() for t in (r, k, v))           # (B, H, hd)
+    w = torch.exp(log_w[:, 0])
+    u = p["u"].float()
+    S = state["S"].float()
+    kv = k[..., :, None] * v[..., None, :]                   # (B, H, hd, hd)
+    o = (r[..., None, :] @ (S + u[None, :, :, None] * kv))[..., 0, :]
+    y = o.reshape(B, 1, H * hd).to(x.dtype) @ p["w_o"]
+    return y, {"S": w[..., :, None] * S + kv, "x_prev": x[:, 0]}
+
+
+def rwkv_init_state(batch: int, num_heads: int, head_dim: int, d: int,
+                    dtype, *, lead: tuple = (), device=None) -> dict:
+    """Zero state, with ``lead`` axes in front (stacked periods)."""
+    return {"S": torch.zeros(lead + (batch, num_heads, head_dim, head_dim),
+                             dtype=torch.float32, device=device),
+            "x_prev": torch.zeros(lead + (batch, d), dtype=dtype,
+                                  device=device)}

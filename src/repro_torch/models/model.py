@@ -1,6 +1,7 @@
-"""Dense attention language models (counterpart of ``repro.models.model``):
-parameters, the training forward and log-likelihood, the cache-populating
-prefill and the single-token decode step.
+"""Decoder-only language models of the dense, moe, hybrid and ssm
+families (counterpart of ``repro.models.model``): parameters, the
+training forward and log-likelihood, the cache-populating prefill and the
+single-token decode step.
 
 Parameters are plain nested dicts of tensors in the JAX package's layout:
 ``embed`` (V, D), ``blocks`` with every leaf stacked over the full
@@ -16,15 +17,18 @@ of them), bf16 activations, and the head product with fp32 products and
 sums (JAX's ``preferred_element_type=float32``). ``serving_params``
 does those casts once for a served draw.
 
-Layer kinds 'attn' and 'swa' (ring cache) run; the MoE FFN, 'rglru',
-'rwkv', 'xattn' (vlm/audio) and the encoder raise NotImplementedError
-(ROADMAP item 15). ``forward`` / ``chunked_log_lik`` / ``log_lik_fn`` are
-the sampling path's likelihood, differentiated by ``torch.func.grad``
-(and vmapped over chains by the engine): their attention is
-``flash_attention_diff``, the kernel with the reference's flash backward.
-No layer is checkpointed: functorch's transforms take no saved-tensor
-hooks, and at the sampling path's 8 x 128 tokens per chain the saved
-activations are a few GB.
+Layer kinds 'attn', 'swa' (ring cache), 'rglru' and 'rwkv' (recurrent
+states in the cache) run, with the dense or the MoE FFN; 'xattn'
+(vlm/audio) and the encoder raise NotImplementedError (ROADMAP item 15).
+``forward`` / ``chunked_log_lik`` / ``log_lik_fn`` are the sampling
+path's likelihood, differentiated by ``torch.func.grad`` (and vmapped
+over chains by the engine): their attention is ``flash_attention_diff``,
+the kernel with the reference's flash backward, and the likelihood
+carries the MoE router's load-balance term, as the reference's does. No
+layer is checkpointed (functorch's transforms take no saved-tensor
+hooks); the one large residual of the families, RWKV's pairwise decays,
+is recomputed by its own backward (``layers._RwkvScores``), as the
+reference's ``jax.checkpoint`` of the chunk body recomputes it.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ import dataclasses
 from typing import Callable, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import tree as tu
 from repro_torch.configs.base import ArchConfig
@@ -41,15 +46,16 @@ from repro_torch.kernels.flash_attention import (flash_attention,
 from repro_torch.models import layers as L
 
 ACT_DTYPE = torch.bfloat16
-_RUNS = ("attn", "swa")
+_RUNS = ("attn", "swa", "rglru", "rwkv")
+# the router's load-balance term enters the log-likelihood with this
+# weight per token, as in the reference
+AUX_WEIGHT = 0.01
 
 
 def _check_runs(cfg: ArchConfig) -> None:
     for kind in cfg.layer_pattern:
         if kind not in _RUNS:
             raise _not_ported(f"layer kind {kind!r} ({cfg.name})", 15)
-    if cfg.moe is not None:
-        raise _not_ported(f"the MoE FFN ({cfg.name})", 15)
     if cfg.encoder_layers:
         raise _not_ported(f"the encoder ({cfg.name})", 15)
 
@@ -68,7 +74,8 @@ def _cast_floating(tree, dtype=ACT_DTYPE):
 @dataclasses.dataclass(frozen=True)
 class _Leaf:
     shape: tuple
-    fan_in: Optional[int]  # None: a norm scale, initialised to zero
+    fan_in: Optional[int]  # None: a constant, ``fill``
+    fill: float = 0.0
 
 
 def _period_kinds(cfg: ArchConfig):
@@ -77,69 +84,116 @@ def _period_kinds(cfg: ArchConfig):
     return pat, n_full, pat[:cfg.num_layers % len(pat)]
 
 
-def _layer_layout(cfg: ArchConfig, lead: tuple) -> dict:
-    d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
+def _ffn_layout(cfg: ArchConfig, w) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    gated = cfg.ffn_type in ("silu", "geglu")
+    if cfg.moe is not None:
+        e = cfg.moe.num_experts
+        ffn = {"router": w(d, d, e), "experts_wo": w(f, e, f, d),
+               "experts_wi_up": w(d, e, d, f)}
+        if gated:
+            ffn["experts_wi_gate"] = w(d, e, d, f)
+        return ffn
+    ffn = {"wo": w(f, f, d), "wi_up": w(d, d, f)}
+    if gated:
+        ffn["wi_gate"] = w(d, d, f)
+    return ffn
+
+
+def _layer_layout(cfg: ArchConfig, lead: tuple, kind: str) -> dict:
+    """One layer of ``kind``: the reference's ``_init_layer`` leaves."""
+    d, hd = cfg.d_model, cfg.head_dim
     w = lambda fan_in, *s: _Leaf(lead + s, fan_in)  # noqa: E731
-    ffn = {"wo": w(f, f, d)}
-    if cfg.ffn_type in ("silu", "geglu"):
-        ffn.update(wi_gate=w(d, d, f), wi_up=w(d, d, f))
-    else:
-        ffn["wi_up"] = w(d, d, f)
-    attn = {"wq": w(d, d, cfg.q_dim), "wk": w(d, d, cfg.kv_dim),
-            "wv": w(d, d, cfg.kv_dim), "wo": w(cfg.q_dim, cfg.q_dim, d)}
-    if cfg.qk_norm:
-        attn.update(q_norm=w(None, hd), k_norm=w(None, hd))
-    return {"norm": w(None, d), "ffn_norm": w(None, d), "ffn": ffn,
-            "attn": attn}
+    c = lambda fill, *s: _Leaf(lead + s, None, fill)  # noqa: E731
+    out = {"norm": c(0.0, d), "ffn_norm": c(0.0, d),
+           "ffn": _ffn_layout(cfg, w)}
+    if kind in ("attn", "swa"):
+        attn = {"wq": w(d, d, cfg.q_dim), "wk": w(d, d, cfg.kv_dim),
+                "wv": w(d, d, cfg.kv_dim), "wo": w(cfg.q_dim, cfg.q_dim, d)}
+        if cfg.qk_norm:
+            attn.update(q_norm=c(0.0, hd), k_norm=c(0.0, hd))
+        out["attn"] = attn
+    elif kind == "rglru":
+        out["rec"] = {"w_x": w(d, d, d), "w_gate": w(d, d, d),
+                      "w_out": w(d, d, d),
+                      "conv_w": w(L.RGLRU_CONV, L.RGLRU_CONV, d),
+                      "w_rec": w(d, d, d), "w_inp": w(d, d, d),
+                      "lam": c(0.5, d)}
+    elif kind == "rwkv":
+        H, r = cfg.num_heads, L.RWKV_LORA
+        out["mix"] = {**{f"mu_{n}": c(0.5, d) for n in "rkvw"},
+                      **{f"w_{n}": w(d, d, H * hd) for n in "rkv"},
+                      "w_o": w(H * hd, H * hd, d), "w0": c(-1.0, d),
+                      "w_lora_a": w(d, d, r), "w_lora_b": w(r, r, d),
+                      "u": c(0.0, H, hd)}
+    return out
 
 
 def param_layout(cfg: ArchConfig) -> dict:
-    """The parameter tree with each leaf's shape (and init fan-in)."""
+    """The parameter tree with each leaf's shape (and init fan-in or
+    constant)."""
     _check_runs(cfg)
     pat, n_full, rem = _period_kinds(cfg)
     d, v = cfg.d_model, cfg.vocab_size
     out = {"embed": _Leaf((v, d), d),
-           "blocks": {f"l{i}": _layer_layout(cfg, (n_full,))
-                      for i in range(len(pat))},
+           "blocks": {f"l{i}": _layer_layout(cfg, (n_full,), kind)
+                      for i, kind in enumerate(pat)},
            "final_norm": _Leaf((d,), None), "head": _Leaf((d, v), d)}
     if rem:
-        out["rem_blocks"] = {f"l{i}": _layer_layout(cfg, ())
-                             for i in range(len(rem))}
+        out["rem_blocks"] = {f"l{i}": _layer_layout(cfg, (), kind)
+                             for i, kind in enumerate(rem)}
     return out
+
+
+def _init_leaf(leaf: _Leaf, dtype, generator, device) -> torch.Tensor:
+    if leaf.fan_in is None:
+        return torch.full(leaf.shape, leaf.fill, dtype=dtype, device=device)
+    t = torch.randn(leaf.shape, generator=generator, dtype=torch.float32,
+                    device=device)
+    return t.mul_(leaf.fan_in ** -0.5).to(dtype)
+
+
+def init_leaves(cfg: ArchConfig, generator: torch.Generator, device=None):
+    """``init_params``' leaves one at a time, in flatten (sorted-key)
+    order, with the same values: a caller can store each in another form
+    before the next is drawn (the generator keeps no reference to it)."""
+    dtype = getattr(torch, cfg.param_dtype)
+    for leaf in tu.leaves(param_layout(cfg)):
+        yield _init_leaf(leaf, dtype, generator, device)
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
                 device=None) -> dict:
-    """N(0, 1/fan_in) weights and zero norm scales in ``cfg.param_dtype``,
-    drawn leaf by leaf (sorted-key order) from ``generator``, which must
-    live on ``device``. The values are not the JAX package's (different
-    generators); tests carry JAX parameters across instead."""
-    dtype = getattr(torch, cfg.param_dtype)
+    """N(0, 1/fan_in) weights and the reference's constants (zero norm
+    scales, RG-LRU's lam 0.5, RWKV's mixes 0.5 and w0 -1) in
+    ``cfg.param_dtype``, drawn leaf by leaf (sorted-key order) from
+    ``generator``, which must live on ``device``. The values are not the
+    JAX package's (different generators); tests carry JAX parameters
+    across instead."""
+    treedef = tu.flatten(param_layout(cfg))[1]
+    return tu.unflatten(treedef, list(init_leaves(cfg, generator, device)))
 
-    def make(leaf: _Leaf):
-        if leaf.fan_in is None:
-            return torch.zeros(leaf.shape, dtype=dtype, device=device)
-        t = torch.randn(leaf.shape, generator=generator,
-                        dtype=torch.float32, device=device)
-        return t.mul_(leaf.fan_in ** -0.5).to(dtype)
 
-    return tu.tree_map(make, param_layout(cfg))
+def serving_cast(params: dict) -> dict:
+    """Each leaf of a draw with the values every cast point of the
+    reference would give it: float leaves to bf16, except ``final_norm``
+    (kept as it is: prefill reads it uncast, decode casts it itself).
+    Works on (K, ...) stacked draws and on meta tensors."""
+    out = _cast_floating({k: v for k, v in params.items()
+                          if k != "final_norm"})
+    out["final_norm"] = params["final_norm"]
+    return out
 
 
 def serving_params(params: dict) -> dict:
-    """Cast a draw once for serving, with the values every cast point of
-    the reference would give: float leaves to bf16, except ``final_norm``
-    (kept as it is: prefill reads it uncast, decode casts it itself) and
-    the head, held as ``head_f32``: its bf16 values widened to fp32, so
-    the logits product runs in fp32 without widening it on every call.
-    Works on (K, ...) stacked draws; a tree already cast is returned as
-    is."""
+    """Cast a draw once for serving (``serving_cast``), with the head held
+    as ``head_f32``: its bf16 values widened to fp32, so the logits
+    product runs in fp32 without widening it on every call. Works on (K,
+    ...) stacked draws; a tree already cast is returned as is."""
     if "head_f32" in params:
         return params
-    out = _cast_floating({k: v for k, v in params.items()
-                          if k not in ("head", "final_norm")})
-    out["final_norm"] = params["final_norm"]
-    out["head_f32"] = params["head"].to(ACT_DTYPE).to(torch.float32)
+    out = serving_cast(params)
+    out["head_f32"] = out.pop("head").to(torch.float32)
     return out
 
 
@@ -196,8 +250,27 @@ def _self_attn(x, p, cfg: ArchConfig, positions, *, window=None,
 
 
 def _ffn_residual(x, p, cfg: ArchConfig):
+    """The FFN's residual and its aux loss (fp32; 0 for a dense FFN)."""
     h = L.rms_norm(x, p["ffn_norm"])
-    return x + L.ffn_apply(h, p["ffn"], cfg.ffn_type)
+    if cfg.moe is not None:
+        y, aux = L.moe_ffn(h, p["ffn"], top_k=cfg.moe.top_k,
+                           ffn_type=cfg.ffn_type,
+                           capacity_factor=cfg.moe.capacity_factor)
+        return x + y, aux
+    return x + L.ffn_apply(h, p["ffn"], cfg.ffn_type), \
+        x.new_zeros((), dtype=torch.float32)
+
+
+def _recurrent(kind: str, x, p):
+    """A recurrent layer ('rglru' or 'rwkv') over a full sequence: (the
+    residual output, the layer's normed input, the state its forward ends
+    in: RG-LRU's h_last, RWKV's {'S', 'x_prev'})."""
+    h = L.rms_norm(x, p["norm"])
+    if kind == "rglru":
+        y, state = L.rglru_forward(h, p["rec"])
+    else:
+        y, state = L.rwkv_forward(h, p["mix"])
+    return x + y, h, state
 
 
 # ---------------------------------------------------------------------------
@@ -222,24 +295,29 @@ def _layer_trees(params: dict, cfg: ArchConfig):
 
 
 def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
-            attention: AttentionFn = flash_attention_diff) -> torch.Tensor:
-    """tokens (B, S) integer -> hidden states (B, S, D) before the head
-    (the reference's ``forward`` without its aux loss, which is 0 for the
-    dense layers). Every layer's parameters are cast to bf16 at the point
-    of use, ``final_norm`` is not; activations are bf16. ``attention``
-    (default: the differentiable flash entry) takes q, k, v with implicit
+            attention: AttentionFn = flash_attention_diff):
+    """tokens (B, S) integer -> (hidden states (B, S, D) before the head,
+    the MoE aux loss summed over the layers (fp32; 0 without MoE)).
+    Every layer's parameters are cast to bf16 at the point of use,
+    ``final_norm`` is not; activations are bf16. ``attention`` (default:
+    the differentiable flash entry) takes q, k, v with implicit
     positions."""
     _check_runs(cfg)
     B, S = tokens.shape
     x = params["embed"][tokens].to(ACT_DTYPE)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
+    aux = x.new_zeros((), dtype=torch.float32)
     for p, kind in _layer_trees(params, cfg):
         p = _cast_floating(p)
-        window = cfg.swa_window if kind == "swa" else None
-        x, _, _ = _self_attn(x, p, cfg, positions, window=window,
-                             attention=attention)
-        x = _ffn_residual(x, p, cfg)
-    return L.rms_norm(x, params["final_norm"])
+        if kind in ("attn", "swa"):
+            window = cfg.swa_window if kind == "swa" else None
+            x, _, _ = _self_attn(x, p, cfg, positions, window=window,
+                                 attention=attention)
+        else:
+            x, _, _ = _recurrent(kind, x, p)
+        x, a = _ffn_residual(x, p, cfg)
+        aux = aux + a
+    return L.rms_norm(x, params["final_norm"]), aux
 
 
 def chunked_log_lik(hidden: torch.Tensor, head: torch.Tensor,
@@ -264,10 +342,12 @@ def log_lik_fn(params: dict, cfg: ArchConfig, batch: dict, *,
                ) -> torch.Tensor:
     """Total log-likelihood of a (mini)batch {'tokens', 'labels'} (B, S):
     the quantity whose gradient SGLD/DSGLD/FSGLD scale by N_s/(f_s m).
-    The head enters in bf16, as in the reference."""
-    hidden = forward(params, cfg, batch["tokens"], attention=attention)
-    return chunked_log_lik(hidden, params["head"].to(ACT_DTYPE),
-                           batch["labels"])
+    The head enters in bf16, as in the reference, and the MoE router's
+    load-balance loss as a regulariser, ``AUX_WEIGHT`` per token."""
+    hidden, aux = forward(params, cfg, batch["tokens"], attention=attention)
+    ll = chunked_log_lik(hidden, params["head"].to(ACT_DTYPE),
+                         batch["labels"])
+    return ll - AUX_WEIGHT * aux * batch["tokens"].numel()
 
 
 # ---------------------------------------------------------------------------
@@ -275,8 +355,8 @@ def log_lik_fn(params: dict, cfg: ArchConfig, batch: dict, *,
 # ---------------------------------------------------------------------------
 
 def _fill_cache(kind: str, cfg: ArchConfig, cache: dict, k, v, positions):
-    """Lay the prompt's k/v into one layer's cache exactly as decode
-    would have written them (ring slots pos % W for 'swa')."""
+    """Lay the prompt's k/v into one attention layer's cache exactly as
+    decode would have written them (ring slots pos % W for 'swa')."""
     B, S = positions.shape
     if kind == "swa":
         W = cache["k"].shape[1]
@@ -302,7 +382,10 @@ def prefill_with_cache(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     ``init_cache(cfg, B, cache_len)``'s layout and
     ``decode_step`` continues from position S. Each layer's
     self-attention goes through ``attention`` (default: the
-    flash-attention kernel on CUDA, its plain version on the CPU).
+    flash-attention kernel on CUDA, its plain version on the CPU). A
+    recurrent layer's state is the one its forward ends in: for 'rglru'
+    h and the last W-1 rows of the conv's input ``h @ w_x``
+    (zero-padded), for 'rwkv' S and the normed input's last row.
     """
     _check_runs(cfg)
     B, S = tokens.shape
@@ -314,11 +397,23 @@ def prefill_with_cache(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     cache = init_cache(cfg, B, cache_len, device=dev)
     for group, i, key, kind in _layers(cfg):
         p = _cast_floating(_take(params, group, i, key))
-        window = cfg.swa_window if kind == "swa" else None
-        x, k, v = _self_attn(x, p, cfg, positions, window=window,
-                             attention=attention)
-        _fill_cache(kind, cfg, _take(cache, group, i, key), k, v, positions)
-        x = _ffn_residual(x, p, cfg)
+        c = _take(cache, group, i, key)
+        if kind in ("attn", "swa"):
+            window = cfg.swa_window if kind == "swa" else None
+            x, k, v = _self_attn(x, p, cfg, positions, window=window,
+                                 attention=attention)
+            _fill_cache(kind, cfg, c, k, v, positions)
+        elif kind == "rglru":
+            x, h, h_last = _recurrent(kind, x, p)
+            W = p["rec"]["conv_w"].shape[0]
+            xin = F.pad(h @ p["rec"]["w_x"], (0, 0, W - 1, 0))
+            c["h"].copy_(h_last)
+            c["conv"].copy_(xin[:, -(W - 1):])
+        else:
+            x, _, state = _recurrent(kind, x, p)
+            c["S"].copy_(state["S"])
+            c["x_prev"].copy_(state["x_prev"])
+        x, _ = _ffn_residual(x, p, cfg)
     x = L.rms_norm(x, params["final_norm"])
     return _logits(x[:, -1], params), cache
 
@@ -329,6 +424,13 @@ def prefill_with_cache(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
 
 def _layer_cache(kind: str, cfg: ArchConfig, lead: tuple, batch: int,
                  seq_len: int, dtype, device):
+    if kind == "rglru":
+        return L.rglru_init_state(batch, cfg.d_model, L.RGLRU_CONV, dtype,
+                                  lead=lead, device=device)
+    if kind == "rwkv":
+        return L.rwkv_init_state(batch, cfg.num_heads, cfg.head_dim,
+                                 cfg.d_model, dtype, lead=lead,
+                                 device=device)
     S = min(cfg.swa_window, seq_len) if kind == "swa" else seq_len
     kv = lead + (batch, S, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(kv, dtype=dtype, device=device),
@@ -339,9 +441,11 @@ def _layer_cache(kind: str, cfg: ArchConfig, lead: tuple, batch: int,
 
 def init_cache(cfg: ArchConfig, batch: int, seq_len: int, dtype=ACT_DTYPE,
                device=None) -> dict:
-    """Empty decode cache: per attention layer k/v (B, S, K, hd) and pos
-    (B, S) = -1, S = seq_len ('attn') or min(window, seq_len) ('swa', a
-    ring), stacked over full periods like the parameters."""
+    """Empty decode cache, stacked over full periods like the parameters:
+    per attention layer k/v (B, S, K, hd) and pos (B, S) = -1, S =
+    seq_len ('attn') or min(window, seq_len) ('swa', a ring); per
+    'rglru' layer h (B, D) fp32 and the conv history (B, W-1, D); per
+    'rwkv' layer S (B, H, hd, hd) fp32 and x_prev (B, D)."""
     _check_runs(cfg)
     pat, n_full, rem = _period_kinds(cfg)
     cache = {"blocks": {
@@ -387,14 +491,24 @@ def decode_step(params: dict, cfg: ArchConfig, cache: dict,
                 token: torch.Tensor, pos: torch.Tensor):
     """One serving step of a draw cast by ``serving_params``. token (B, 1)
     integer; pos (B,) absolute positions. Returns (logits (B, V) fp32,
-    cache), the cache updated in place."""
+    cache), the cache updated in place: a stacked period's entries are
+    views into the stack, so recurrent states are written with
+    ``copy_``."""
     _check_runs(cfg)
     x = params["embed"][token[:, 0]].to(ACT_DTYPE)[:, None, :]
     for group, i, key, kind in _layers(cfg):
         p = _cast_floating(_take(params, group, i, key))
-        x = _decode_self_attn(x, p, cfg, _take(cache, group, i, key), pos,
-                              ring=kind == "swa")
-        x = _ffn_residual(x, p, cfg)
+        c = _take(cache, group, i, key)
+        if kind in ("attn", "swa"):
+            x = _decode_self_attn(x, p, cfg, c, pos, ring=kind == "swa")
+        else:
+            h = L.rms_norm(x, p["norm"])
+            step = L.rglru_decode if kind == "rglru" else L.rwkv_decode
+            y, state = step(h, p["rec" if kind == "rglru" else "mix"], c)
+            for name, t in state.items():
+                c[name].copy_(t)
+            x = x + y
+        x, _ = _ffn_residual(x, p, cfg)
     x = L.rms_norm(x, params["final_norm"].to(ACT_DTYPE))
     return _logits(x[:, 0], params), cache
 

@@ -31,8 +31,8 @@ import torch
 
 from repro_torch import checkpoint
 from repro_torch import tree as tu
-from repro_torch.models import (ensemble_decode_step, init_params,
-                                param_layout, serving_params)
+from repro_torch.models import (ensemble_decode_step, init_leaves,
+                                param_layout, serving_cast, serving_params)
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serve.ensemble import ensemble_prefill, predictive_stats
 
@@ -121,13 +121,25 @@ class EnsembleServer:
             self.metas = [None] * self.n_draws
 
     def _fresh(self, k: int, seed: int) -> PyTree:
+        """``k`` fresh inits from one generator seeded with ``seed``, cast
+        as ``serving_params`` casts them (its values, bitwise). Each leaf
+        goes into its slot of the (k, ...) stack as it is drawn, in the
+        dtype ``serving_cast`` gives it, so no whole fp32 draw is held: at
+        phi3.5-moe's width the largest leaf is 13 GB in fp32, a whole
+        8-layer draw 43 GB."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        stacked = None
+        cast, treedef = tu.flatten(serving_cast(skeleton(self.cfg)))
+        stack = [torch.empty((k,) + tuple(t.shape), dtype=t.dtype,
+                             device=self.device) for t in cast]
         for i in range(k):
-            draw = serving_params(init_params(self.cfg, gen, self.device))
-            stacked = _stack_into(stacked, k, i, draw)
-            del draw
-        return stacked
+            leaves = init_leaves(self.cfg, gen, self.device)
+            for j in range(len(stack)):
+                # no loop variable or enumerate tuple may hold a leaf
+                # while the next one is drawn
+                t = next(leaves)
+                stack[j][i].copy_(t)
+                del t
+        return serving_params(tu.unflatten(treedef, stack))
 
     def _load(self, k: int):
         """The freshest ``k`` servable draws of the bank, stacked on the

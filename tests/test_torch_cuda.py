@@ -182,6 +182,26 @@ def test_flash_kernel_matches_plain_version(dev, dtype, causal, window, S,
                  <= fa.tolerance(ref)).all())
 
 
+@pytest.mark.parametrize("B,S,H,Hkv,hd,window", [
+    (2, 3072, 10, 1, 256, 2048),   # recurrentgemma-2b's 'swa' prefill
+    (4, 2048, 32, 8, 128, None),   # phi3.5-moe's 'attn' prefill
+    (8, 128, 10, 1, 256, 2048)])   # recurrentgemma-2b at the train shape
+def test_flash_kernel_at_the_decoder_families_shapes(dev, B, S, H, Hkv, hd,
+                                                     window):
+    """A GQA group of 10 (not a power of two), MQA at hd 256 and a window
+    that a prompt outruns, as the MoE and hybrid families give the kernel
+    (bf16)."""
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=dev).manual_seed(S + H)
+    q = torch.randn(B, S, H, hd, generator=g, device=dev).bfloat16()
+    k = torch.randn(B, S, Hkv, hd, generator=g, device=dev).bfloat16()
+    v = torch.randn(B, S, Hkv, hd, generator=g, device=dev).bfloat16()
+    out = fa.flash_attention(q, k, v, window=window)
+    ref = fa.flash_attention_plain(q, k, v, window=window)
+    assert bool(((out.float() - ref.float()).abs()
+                 <= fa.tolerance(ref)).all())
+
+
 @pytest.mark.parametrize("hd", [80, 128, 256])
 def test_flash_kernel_graph_replay_equals_eager(dev, hd):
     """The tensor maps travel with the launch: a CUDA graph captured over

@@ -1,6 +1,8 @@
 """The port's serving path against the JAX package's, at the smoke configs
-of qwen3-1.7b (GQA, qk_norm, full attention) and h2o-danube-1.8b (sliding
-window: the prompt plus generation outruns the 64-slot ring cache).
+of qwen3-1.7b (GQA, qk_norm, full attention), h2o-danube-1.8b (sliding
+window: the prompt plus generation outruns the 64-slot ring cache),
+phi3.5-moe and grok-1 (MoE FFN), recurrentgemma-2b (RG-LRU states and a
+64-slot window) and rwkv6-7b (RWKV-6 states).
 
 JAX parameters are carried across by ``convert.params_from_jax``; the
 same numpy prompt goes to both. Tolerances: logits and cache entries are
@@ -9,6 +11,8 @@ held to 5e-2 of their largest magnitude, the yardstick of
 and torch round silu and exp differently in bf16, a few bf16 ulps of 2^-8
 each: about 1.5e-2 here); predictive statistics of the same fp32 logits to
 1e-5; the port's own K=1 ensemble against its own plain loop bitwise.
+(Measured on the new families: at most 2.4e-2, recurrentgemma's last
+step.)
 """
 import dataclasses
 
@@ -31,7 +35,9 @@ from repro_torch.launch import serve as serve_cli
 from repro_torch.serve import (EnsembleServer, ensemble_prefill,
                                predictive_stats)
 
-ARCHS = ["qwen3-1.7b", "h2o-danube-1.8b"]
+ARCHS = ["qwen3-1.7b", "h2o-danube-1.8b", "phi3.5-moe-42b-a6.6b",
+         "grok-1-314b", "recurrentgemma-2b", "rwkv6-7b"]
+NEW_ARCHS = ARCHS[2:]
 B, S, GEN = 2, 80, 6
 REL = 5e-2
 
@@ -69,7 +75,9 @@ def case(request):
     return dict(cfg=cfg, params=TM.serving_params(convert.params_from_jax(
                     jax.tree.map(np.asarray, jp), cfg)),
                 prompt=prompt, total=total, logits=np.asarray(logits),
-                cache=jax.tree.map(_f32, cache), tokens=tokens,
+                cache=jax.tree.map(_f32, cache),
+                cache_dtypes=[str(t.dtype) for t in jax.tree.leaves(cache)],
+                tokens=tokens,
                 step_logits=step_logits)
 
 
@@ -83,12 +91,12 @@ def test_prefill_logits_and_cache_match_jax(case):
     jl, jd = jax.tree.flatten(case["cache"])
     tl = tu.leaves(cache)
     assert len(jl) == len(tl)
-    for a, b in zip(tl, jl):
+    for a, b, dtype in zip(tl, jl, case["cache_dtypes"]):
         assert tuple(a.shape) == b.shape
+        assert str(a.dtype) == f"torch.{dtype}"
         if a.dtype == torch.int32:  # positions: exact
             np.testing.assert_array_equal(a.numpy(), b)
-        else:
-            assert a.dtype == torch.bfloat16
+        else:  # k/v, conv history, x_prev in bf16; h and S in fp32
             assert _rel(a.float().numpy(), b) < REL
 
 
@@ -196,9 +204,31 @@ def test_cli_serves_on_the_cpu(capsys, monkeypatch):
         serve_cli.main(argv)
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-7b",
-                                  "whisper-large-v3", "llama-3.2-vision-90b",
-                                  "grok-1-314b", "phi3.5-moe-42b-a6.6b"])
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_cli_serves_every_decoder_family(arch, capsys):
+    assert serve_cli.main(["--smoke", "--arch", arch, "--draws", "2",
+                           "--batch", "2", "--prompt-len", "6", "--gen", "3",
+                           "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert out.count("step ") == 3 and "for 2 draw(s) on cpu" in out
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "rwkv6-7b"])
+def test_fresh_draws_are_the_cast_inits(arch):
+    """A server's fresh draws, written leaf by leaf into the stack, are
+    ``serving_params`` of ``init_params`` on the same generator, bitwise
+    (final_norm in the parameter dtype, the head widened from bf16)."""
+    cfg = get_smoke_config(arch)
+    srv = EnsembleServer(cfg, n_draws=2, seed=5, device="cpu")
+    gen = torch.Generator().manual_seed(5)
+    want = [TM.serving_params(TM.init_params(cfg, gen)) for _ in range(2)]
+    for (n, a), *ws in zip(tu.leaves_with_names(srv.draws),
+                           *[tu.leaves(w) for w in want]):
+        assert a.dtype == ws[0].dtype, n
+        assert torch.equal(a, torch.stack(ws)), n
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "llama-3.2-vision-90b"])
 def test_unported_kinds_are_refused(arch):
     cfg = get_smoke_config(arch)
     with pytest.raises(NotImplementedError, match="item 15"):

@@ -1,15 +1,17 @@
-"""At which depth does FSGLD on qwen3-1.7b leave theta0 at the train
-driver's defaults?
+"""At which depth does FSGLD on qwen3-1.7b (or ``--arch``) leave theta0
+at the train driver's defaults, and what device memory does each depth
+take?
 
-    python3 tools/divergence_depth.py [--depths 1 2 4 8 28] [--step-size 1e-5]
+    python3 tools/divergence_depth.py [--arch qwen3-1.7b]
+                                      [--depths 1 2 4 8 28] [--step-size 1e-5]
                                       [--out chiprun_out/divergence_depth]
 
 Runs ``repro_torch.launch.train`` on the card at the reference driver's
-defaults (qwen3-1.7b at full width, S = 4 clients x 64 x 128 tokens,
+defaults (the model at full width, S = 4 clients x 64 x 128 tokens,
 minibatch 8, a 'scalar' bf16 bank from 20 local-SGLD fit steps, C = 1,
 5 rounds x 4 packed steps) and step size ``--step-size``, with the model
 cut to each of ``--depths`` layers (``dataclasses.replace(cfg,
-num_layers=...)``; 28 is the full depth). Each run has ``--metrics-dir
+num_layers=...)``; 28 is qwen3-1.7b's full depth). Each run has ``--metrics-dir
 OUT/L<depth> --log-every 1``, so it leaves one telemetry frame
 (``metrics.jsonl``) per depth.
 
@@ -51,7 +53,7 @@ def card() -> str:
         return "nvidia-smi unavailable"
 
 
-def run_depth(depth: int, h: float, out: str, device) -> dict:
+def run_depth(arch: str, depth: int, h: float, out: str, device) -> dict:
     from repro_torch.launch import train
     real = train.get_config
 
@@ -60,7 +62,7 @@ def run_depth(depth: int, h: float, out: str, device) -> dict:
         return cfg if depth == cfg.num_layers else dataclasses.replace(
             cfg, num_layers=depth)
 
-    argv = ["--arch", "qwen3-1.7b", "--step-size", repr(h), "--metrics-dir",
+    argv = ["--arch", arch, "--step-size", repr(h), "--metrics-dir",
             os.path.join(out, f"L{depth}"), "--log-every", "1"]
     if device is not None:
         argv += ["--device", device]
@@ -91,6 +93,7 @@ def run_depth(depth: int, h: float, out: str, device) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="qwen3-1.7b")
     ap.add_argument("--depths", type=int, nargs="+", default=[1, 2, 4, 8, 28])
     ap.add_argument("--step-size", type=float, default=1e-5)
     ap.add_argument("--out", default="chiprun_out/divergence_depth")
@@ -101,8 +104,10 @@ def main() -> int:
     print(card(), flush=True)
     rows = []
     for depth in args.depths:
-        print(f"== {depth} layer(s), h {args.step_size:g}", flush=True)
-        row = run_depth(depth, args.step_size, args.out, args.device)
+        print(f"== {args.arch}, {depth} layer(s), h {args.step_size:g}",
+              flush=True)
+        row = run_depth(args.arch, depth, args.step_size, args.out,
+                        args.device)
         rows.append(row)
         print(f"depth {depth}: ll/token theta0 {row['ll0']:.4f} -> "
               f"{row['ll']:.4f} ({row['seconds']:.1f} s, peak "
@@ -114,7 +119,8 @@ def main() -> int:
                   f"{row['log_post'][r]:.6g} probe ll/token "
                   f"{row['probe_ll'][r]:.4f}", flush=True)
     first = next((r for r in rows if r["ll"] < r["ll0"] - GUARD), None)
-    result = {"card": card(), "step_size": args.step_size, "guard": GUARD,
+    result = {"card": card(), "arch": args.arch,
+              "step_size": args.step_size, "guard": GUARD,
               "rows": rows, "first_depth": None}
     if first is not None:
         rnd = next((i for i, v in enumerate(first["probe_ll"])
