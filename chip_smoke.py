@@ -68,22 +68,26 @@ nvcc per source, in parallel) and drives its two paths through the
   telemetry, bitwise;
 * the streamed client axis: Table 1's clients through resident windows
   of 4 and 6 (DSGLD, FSGLD, a delayed partial schedule; prefetch on and
-  off), bitwise the resident runs; qwen3-1.7b at full width and depth
-  over 10^6 lazy clients with 4 resident (each window's rows built on the
-  host and copied on a side stream while the previous window runs); the
-  train driver at [train-c2]'s size with ``--resident 2``, bitwise the
-  resident run;
-* the MoE, hybrid and ssm families at their published widths:
-  phi3.5-moe (8 of 32 layers), recurrentgemma-2b and rwkv6-7b (full
-  depth) served through ``FSGLD.serve`` (the flash kernel at each
-  attending family's shape against its plain version, one launch per
-  attention layer per request and none in decode, the prefill against
-  the plain attention's, K = 1 bitwise, the blocks' device time in one
-  prefill), then each sampled through the train driver at the depth one
-  card holds (1, 9 and 5 layers): one update launch per step, flash
-  launches per attention layer per pass, the divergence guard with
-  telemetry's conducive and gradient norms, the MoE's aux loss finite,
-  packed == per_leaf over one round, bitwise;
+  off), bitwise the resident runs; qwen3-1.7b at full width and 4 of
+  its 28 layers over 10^6 lazy clients with 4 resident (each window's
+  rows built on the host and copied on a side stream while the previous
+  window runs); the train driver at [train-c2]'s size with
+  ``--resident 2``, bitwise the resident run;
+* the MoE, hybrid, ssm, audio and vlm families at their published
+  widths: phi3.5-moe (8 of 32 layers), recurrentgemma-2b, rwkv6-7b and
+  whisper-large-v3 (full depth, its encoder over 1,500 frames per row)
+  and llama-3.2-vision-90b (one period, 5 of 100 layers, 6,404 patches
+  per row) served through ``FSGLD.serve`` (the flash kernel at each of
+  the family's attention shapes against its plain version, one launch
+  per self-attention per request, the encoder's included, and none in
+  decode, the prefill against the plain attention's, for the vlm once
+  more with its gates opened, K = 1 bitwise, the blocks' device time in
+  one prefill), then each but the vlm sampled at the depth one card
+  holds or less (1, 6, 3 and 32 layers; whisper through the facade with its
+  frames in the shards, which the train driver refuses): one update
+  launch per step, flash launches per self-attention per pass, the
+  divergence guard with telemetry's conducive and gradient norms, the
+  MoE's aux loss finite, packed == per_leaf over one round, bitwise;
 
 and times each kernel beside its bound, its plain version and, where one
 PyTorch call computes the same function, that call. Exits non-zero,
@@ -140,12 +144,14 @@ SGHMC_H = T1_H * SGHMC_FRICTION / 2
 # diverged runs of h = 1e-5 reached -13 to -1.4e16)
 SGHMC_DIVERGED = -10.0
 # Figs. 2-3 (benchmarks/fig2_3_gaussian.py), cut from 30,000 single-step
-# rounds to FIG_ROUNDS (30 communications at the 100x delay); FIG_CHAINS
-# chains average the single-chain MSE (workloads.chain_mse)
-FIG_ROUNDS, FIG_CHAINS = 3000, 32
+# rounds to FIG_ROUNDS (20 communications at the 100x delay; 3,000 until
+# the script's time was cut); FIG_CHAINS chains average the single-chain
+# MSE (workloads.chain_mse)
+FIG_ROUNDS, FIG_CHAINS = 2000, 32
 # the frontier (benchmarks/bench_frontier.py: 4,000 rounds, 4 chains,
-# d = 64), cut to FRONTIER_ROUNDS; its FSGLD MSE ceiling
-FRONTIER_ROUNDS, FRONTIER_CHAINS, FRONTIER_CEILING = 2000, 4, 0.1
+# d = 64), cut to FRONTIER_ROUNDS (2,000 until the script's time was
+# cut: FSGLD's MSE was 1.2e-3 to 1.9e-3 there); its FSGLD MSE ceiling
+FRONTIER_ROUNDS, FRONTIER_CHAINS, FRONTIER_CEILING = 1000, 4, 0.1
 
 # The paper's own workloads (src/repro_torch/workloads.py), at their
 # benchmarks' full lengths, C = PAPER_CHAINS chains standing for the 3
@@ -154,10 +160,12 @@ FRONTIER_ROUNDS, FRONTIER_CHAINS, FRONTIER_CEILING = 2000, 4, 0.1
 # the card); packed == per_leaf on PREFIX_ROUNDS rounds. [metric]:
 # FSGLD's test ll at most METRIC_SE standard errors of the difference
 # below DSGLD's (the reference's own margin is +0.5 of them: see the
-# phase). [kinds]: the linear-surrogate run and the 'full' bank on
-# concrete. [oracle]: ORACLE_ROUNDS Table-1 rounds.
+# phase). [kinds]: the linear-surrogate run, KINDS_ROUNDS of its
+# benchmark's 100 rounds (cut for the script's time: its MSE was 1.77e-4
+# at 100 against a ceiling of 5e-3), and the 'full' bank on concrete.
+# [oracle]: ORACLE_ROUNDS Table-1 rounds.
 PAPER_CHAINS, LINREG_REL, PREFIX_ROUNDS = 3, 1.05, 2
-METRIC_SE, ORACLE_ROUNDS = 3.0, 2
+METRIC_SE, ORACLE_ROUNDS, KINDS_ROUNDS = 3.0, 2, 50
 
 # Flash attention vs its plain version within
 # repro_torch.kernels.flash_attention.tolerance (tools/flash_planted_faults.py
@@ -171,6 +179,8 @@ SERVE_K, SERVE_B, SERVE_S, SERVE_GEN = 4, 4, 2048, 16
 QWEN3_WIDTH = (28, 2048, 16, 8, 128, 6144, 151_936)
 FLASH_PATH = (SERVE_B, SERVE_S, 16, 8, 128)
 FLASH_LONG = (1, 32_768, 16, 8, 128)
+# whisper's encoder in a served request: 4 rows of 1,500 frames, not causal
+FLASH_ENCODER = (4, 1500, 20, 20, 64)
 # the anchor prefill through the kernel vs through the plain attention:
 # max|diff| / max|logits|, the yardstick of tests/test_prefill_cache.py
 PREFILL_REL = 0.05
@@ -190,6 +200,10 @@ QWEN3_P = 2_031_739_904
 TRAIN_ATTN = (8, 128, 16, 8, 128)
 # the reduced-depth phase: full width, C2_LAYERS of 28 layers, C2_CHAINS
 C2_LAYERS, C2_CHAINS = 4, 2
+# the local steps of the one-round packed == per_leaf checks of [train]
+# and the [train-*] phases (per_leaf gathers a host bank's client means
+# per step and leaf: ~6 s a step at qwen3's full depth)
+CHECK_T = 1
 # Fault tolerance. [chaos]: the Table-1 run under chaos plans; the
 # detector's threshold in nats, far above the spread of the probe (a
 # 50-point minibatch log-likelihood), and the timing's repetitions.
@@ -197,7 +211,7 @@ C2_LAYERS, C2_CHAINS = 4, 2
 # [train-c2]'s model C2_RESUME_ROUNDS rounds, every C2_RESUME_EVERY.
 # [bank]: the train driver at full width and depth, BANK_ROUNDS rounds,
 # a draw every BANK_EVERY; the refresh checks at BANK_LAYERS layers.
-CHAOS_THRESHOLD, CHAOS_REPS, CHAOS_TIME_ROUNDS = 1e4, 3, 200
+CHAOS_THRESHOLD, CHAOS_REPS, CHAOS_TIME_ROUNDS = 1e4, 3, 100
 RESUME_ROUNDS, RESUME_EVERY = 7, 3
 C2_RESUME_ROUNDS, C2_RESUME_EVERY = 4, 2
 BANK_ROUNDS, BANK_EVERY, BANK_LAYERS = 4, 2, 2
@@ -206,32 +220,55 @@ BANK_ROUNDS, BANK_EVERY, BANK_LAYERS = 4, 2, 2
 SPAN_SLACK_S = 0.05
 # Observability. [telemetry]: the Table-1 run with Telemetry(probe=True);
 # its cost on TEL_TIME_ROUNDS one-step rounds, TEL_REPS times in turns.
-# The streamed client axis. [stream]: qwen3-1.7b at full width and depth
-# over STREAM_CLIENTS lazy clients, 4 resident, DSGLD at STREAM_H: the
-# gradient scale S N_s / m is 10^6 x 64 / 8 = 8e6 against [train]'s 32,
-# so h S N_s / m equals [train]'s TRAIN_H x 32.
+# The streamed client axis. [stream]: qwen3-1.7b at full width and
+# C2_LAYERS layers over STREAM_CLIENTS lazy clients, 4 resident, DSGLD at
+# STREAM_H: the gradient scale S N_s / m is 10^6 x 64 / 8 = 8e6 against
+# [train]'s 32, so h S N_s / m equals [train]'s TRAIN_H x 32.
 TEL_TIME_ROUNDS, TEL_REPS = 100, 3
 STREAM_CLIENTS, STREAM_H = 1_000_000, 4e-13
-# The MoE, hybrid (RG-LRU) and ssm (RWKV-6) families at their published
-# widths (d_model, heads, KV heads, head_dim, d_ff, vocab); each phase's
-# tag, its serving depth (None: full) with K draws and one request of
-# batch x prompt (SERVE_GEN new tokens), and its sampling depth. The
-# depths are the deepest that one card's machine holds in this script:
-# 80 GB on the card, 96 GiB on the host (PERF.md section 4).
+# The MoE, hybrid (RG-LRU), ssm (RWKV-6), audio (whisper) and vlm
+# (llama-3.2-vision) families at their published widths (d_model, heads,
+# KV heads, head_dim, d_ff, vocab); each phase's tag, its serving depth
+# (None: full) with K draws and one request of batch x prompt (SERVE_GEN
+# new tokens), its sampling depth (None: not sampled on one card), and
+# the depth of its profiled prefill where it is cut from the serving
+# depth (rwkv6's 32 layers make ~30,000 profiled operations).
+# The depths are at most the deepest that one card's machine holds in
+# this script (80 GB on the card, 96 GiB on the host): recurrentgemma and
+# rwkv6 sample at 6 and 3 of the 9 and 5 layers that fit (PERF.md section
+# 4), for the script's time.
+# whisper's request is 30 s of audio (1,500 frames) per row and a prompt
+# that stays inside its 448-token decoder context with the new tokens;
+# it samples with minibatches of 4 rows, not the driver's 8: at 8 one
+# gradient pass alone peaks at ~66 GB (the encoder over 8 x 1,500
+# frames), more than the card holds beside the sampler's ~32 GB of
+# packed buffers (PERF.md section 4);
+# llama-3.2-vision serves one period of its 100 layers (4 'attn', 1 gated
+# 'xattn'): a full-depth bf16 draw is ~175 GB.
 FAMILIES = {
     "phi3.5-moe-42b-a6.6b": dict(tag="moe", width=(4096, 32, 8, 128, 6400,
                                                    32_064),
                                  serve=(8, 2, 4, 2048), train=1),
     "recurrentgemma-2b": dict(tag="rg", width=(2560, 10, 1, 256, 7680,
                                                256_000),
-                              serve=(None, 4, 2, 3072), train=9),
+                              serve=(None, 4, 2, 3072), train=6),
     "rwkv6-7b": dict(tag="rwkv", width=(4096, 64, 64, 64, 14_336, 65_536),
-                     serve=(None, 2, 4, 2048), train=5),
+                     serve=(None, 2, 4, 2048), train=3, profile=4),
+    "whisper-large-v3": dict(tag="whisper", width=(1280, 20, 20, 64, 5120,
+                                                   51_866),
+                             serve=(None, 4, 4, 256), train=32, batch=4),
+    "llama-3.2-vision-90b": dict(tag="vlm", width=(8192, 64, 8, 128, 28_672,
+                                                   128_256),
+                                 serve=(5, 2, 2, 2048), train=None),
 }
+# a vlm gate is 0 in fresh draws (tanh(0) hides the cross-attention): the
+# value the anchor's prefill is checked at once more
+VLM_GATE = 0.5
 # their sampling runs: the train driver's defaults (4 clients x 64 x 128,
 # minibatch 8, bf16 'scalar' bank, C = 1, h = TRAIN_H) but FAM_FIT fit
-# steps and FAM_R rounds x FAM_T steps
-FAM_FIT, FAM_R, FAM_T = 4, 3, 2
+# steps and FAM_R rounds x FAM_T steps (3 rounds until the script's time
+# was cut)
+FAM_FIT, FAM_R, FAM_T = 4, 2, 2
 
 
 def log(msg: str) -> None:
@@ -588,11 +625,12 @@ def time_kernels(gen, shapes):
     return rows
 
 
-def flash_bound_ms(B, S, H, Hkv, hd, itemsize):
-    """Least time on an H100 for causal attention at this shape: q, k, v
-    and out each moved once over the memory rate, or 4*B*H*hd flops per
-    unmasked (query, key) pair over the bf16 tensor-core rate."""
-    pairs = S * (S + 1) // 2
+def flash_bound_ms(B, S, H, Hkv, hd, itemsize, causal=True):
+    """Least time on an H100 for causal (or bidirectional) attention at
+    this shape: q, k, v and out each moved once over the memory rate, or
+    4*B*H*hd flops per unmasked (query, key) pair over the bf16
+    tensor-core rate."""
+    pairs = S * (S + 1) // 2 if causal else S * S
     flops = 4 * B * H * hd * pairs
     nbytes = itemsize * (2 * B * S * H * hd + 2 * B * S * Hkv * hd)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_TC_OPS_PER_S
@@ -618,33 +656,37 @@ def sdpa_backend_ms(sdpa, calls, replays):
 
 def time_flash(gen):
     """(kernel ms, plain ms, SDPA ms, bound ms, bound_by) at the serving
-    path's prefill shape, and kernel / SDPA ms at the long shape; SDPA
-    is also timed under each of its backends."""
+    path's prefill shape and at whisper's encoder shape (not causal), and
+    kernel / SDPA ms at the long shape; SDPA is also timed under each of
+    its backends."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     rows = {}
-    for name, shape, calls in (("path", FLASH_PATH, 20),
-                               ("long", FLASH_LONG, 1)):
+    for name, shape, calls, causal in (
+            ("path", FLASH_PATH, 20, True), ("long", FLASH_LONG, 1, True),
+            ("encoder", FLASH_ENCODER, 20, False)):
         q, k, v = _qkv(gen, *shape, torch.bfloat16)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         replays = 20 if calls > 1 else 5
-        ms = device_ms(lambda: fa.flash_attention(q, k, v),  # noqa: B023
-                       calls=calls, replays=replays)
+        ms = device_ms(lambda: fa.flash_attention(  # noqa: B023
+            q, k, v, causal=causal), calls=calls, replays=replays)
 
         def sdpa():
             return F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True)  # noqa: B023
+                qt, kt, vt, is_causal=causal,  # noqa: B023
+                enable_gqa=True)
 
         sdpa_ms = device_ms(sdpa, calls=calls, replays=replays)
         backends = sdpa_backend_ms(sdpa, calls, replays)
         plain_ms = None
-        if name == "path":
+        if name != "long":
             plain_ms = device_ms(
-                lambda: fa.flash_attention_plain(q, k, v),  # noqa: B023
-                calls=1, replays=5)
-        b_ms, b_by, nbytes, flops = flash_bound_ms(*shape, 2)
+                lambda: fa.flash_attention_plain(  # noqa: B023
+                    q, k, v, causal=causal), calls=1, replays=5)
+        b_ms, b_by, nbytes, flops = flash_bound_ms(*shape, 2, causal)
         rows[name] = (ms, plain_ms, sdpa_ms, b_ms, b_by)
-        log(f"  flash_attention {name} (B, S, H, Hkv, hd) = {shape} causal "
+        log(f"  flash_attention {name} (B, S, H, Hkv, hd) = {shape} "
+            f"{'causal' if causal else 'not causal'} "
             f"bf16: kernel {ms:.4f} ms, plain "
             f"{'not timed' if plain_ms is None else f'{plain_ms:.4f} ms'}, "
             f"SDPA (library) {sdpa_ms:.4f} ms, bound {b_ms:.4f} ms "
@@ -1178,7 +1220,7 @@ def phase_kinds(dev):
                               minibatch=10, step_size=1e-4, rounds=rounds,
                               **kw)
 
-    s = make("auto", bank, W.LINEAR_ROUNDS, local_steps=W.LINEAR_T,
+    s = make("auto", bank, KINDS_ROUNDS, local_steps=W.LINEAR_T,
              thin=W.LINEAR_THIN, n_chains=1)
     if s.engine.use_kernel:
         raise AssertionError("kinds: 'auto' took a kernel executor for a "
@@ -1293,31 +1335,65 @@ def _peak(base: int) -> str:
             f"{base / 1e9:.2f} GB allocated before)")
 
 
-def attn_layers(cfg) -> int:
-    """The layers of ``cfg`` that attend ('attn' / 'swa'): one flash launch
-    each per prefill or gradient pass ('rglru' and 'rwkv' launch none)."""
+def _self_attending(cfg) -> list:
+    """The kind of each of ``cfg``'s decoder layers that has a
+    self-attention: 'attn', 'swa', and an audio 'xattn' layer
+    (self-attention, then cross-attention). A vlm 'xattn' layer has none:
+    its cross-attention is the plain scan."""
     pat = cfg.layer_pattern
-    return sum(pat[i % len(pat)] in ("attn", "swa")
-               for i in range(cfg.num_layers))
+    kinds = [pat[i % len(pat)] for i in range(cfg.num_layers)]
+    return [k for k in kinds if k in ("attn", "swa")
+            or (k == "xattn" and cfg.family == "audio")]
 
 
-def attn_windows(cfg) -> list:
-    """The windows of ``cfg``'s attending layers: None for 'attn',
-    ``cfg.swa_window`` for 'swa'."""
-    kinds = {cfg.layer_pattern[i % len(cfg.layer_pattern)]
-             for i in range(cfg.num_layers)}
-    return ([None] if "attn" in kinds else []) + (
-        [cfg.swa_window] if "swa" in kinds else [])
+def attn_layers(cfg) -> int:
+    """``cfg``'s self-attentions: one flash launch each per prefill or
+    gradient pass, the encoder's layers included ('rglru', 'rwkv' and a
+    vlm 'xattn' layer launch none)."""
+    return len(_self_attending(cfg)) + cfg.encoder_layers
 
 
-def _prefill_rel(anchor, cfg, prompt, total):
-    """Anchor prefill logits through the kernel vs the plain attention:
+def attn_shapes(cfg, B, S) -> list:
+    """(shape (B, S, H, Hkv, hd), causal, window) of each kind of
+    self-attention ``cfg`` gives the flash kernel at batch B x S tokens:
+    the decoder's, causal, with no window ('attn', audio 'xattn') and
+    ``cfg.swa_window`` ('swa'); the encoder's over its frames, not
+    causal."""
+    kinds = set(_self_attending(cfg))
+    heads = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+    out = [((B, S) + heads, True, None)] if kinds - {"swa"} else []
+    if "swa" in kinds:
+        out.append(((B, S) + heads, True, cfg.swa_window))
+    if cfg.encoder_layers:
+        out.append(((B, cfg.encoder_seq) + heads, False, None))
+    return out
+
+
+def open_gates(params, value=VLM_GATE):
+    """``params`` (one draw) with every vlm 'xattn' gate set to ``value``
+    (in the gate's dtype); the draw itself is not written."""
+    out = dict(params)
+    for group in ("blocks", "rem_blocks"):
+        if group not in out:
+            continue
+        out[group] = {k: dict(v) for k, v in out[group].items()}
+        for layer in out[group].values():
+            if "gate" in layer.get("xattn", {}):
+                layer["xattn"] = {**layer["xattn"], "gate": torch.full_like(
+                    layer["xattn"]["gate"], value)}
+    return out
+
+
+def _prefill_rel(anchor, cfg, prompt, total, enc_embeds=None):
+    """Anchor prefill logits through the kernel vs the plain attention
+    (the encoder's too, from the frames ``enc_embeds``):
     max|diff| / max|logits| (None where no layer attends: the two would
     be one computation); also the kernel's launches."""
     from repro_torch import models as TM
     from repro_torch.kernels import flash_attention as fa
     fa.reset_launches()
-    logits, cache = TM.prefill_with_cache(anchor, cfg, prompt, total)
+    logits, cache = TM.prefill_with_cache(anchor, cfg, prompt, total,
+                                          enc_embeds=enc_embeds)
     launched = fa.LAUNCHES["flash_attention"]
     cuda_sync()
     if not bool(torch.isfinite(logits).all()):
@@ -1325,6 +1401,7 @@ def _prefill_rel(anchor, cfg, prompt, total):
     if not attn_layers(cfg):
         return logits, cache, launched, None
     plain, _ = TM.prefill_with_cache(anchor, cfg, prompt, total,
+                                     enc_embeds=enc_embeds,
                                      attention=fa.flash_attention_plain)
     rel = float((logits - plain).abs().max() / plain.abs().max())
     if not rel < PREFILL_REL:
@@ -1334,12 +1411,14 @@ def _prefill_rel(anchor, cfg, prompt, total):
     return logits, cache, launched, rel
 
 
-def prompt_checks(server, cfg, prompt, gen):
-    """One prompt on the anchor draw: prefill through the kernel against
+def prompt_checks(server, cfg, prompt, gen, enc_embeds=None):
+    """One prompt (and its frames ``enc_embeds``, for the vlm and audio
+    families) on the anchor draw: prefill through the kernel against
     the plain attention (``_prefill_rel``), the flash launches of prefill
-    (one per attention layer) and of decode (none) apart, and the K=1
-    ensemble (prefill, ``gen - 1`` decode steps, and a server's request)
-    against the plain prefill + decode_step loop, bitwise."""
+    (one per self-attention, the encoder's included) and of decode (none)
+    apart, and the K=1 ensemble (prefill, ``gen - 1`` decode steps, and a
+    server's request) against the plain prefill + decode_step loop,
+    bitwise."""
     from repro_torch import models as TM
     from repro_torch import tree as tu
     from repro_torch.kernels import flash_attention as fa
@@ -1348,12 +1427,15 @@ def prompt_checks(server, cfg, prompt, gen):
     B, S = prompt.shape
     dev, total = prompt.device, S + gen
     anchor = tu.tree_map(lambda t: t[0], server.draws)
-    logits, cache, n_prefill, rel = _prefill_rel(anchor, cfg, prompt, total)
+    logits, cache, n_prefill, rel = _prefill_rel(anchor, cfg, prompt, total,
+                                                 enc_embeds)
+    enc_out = server._encoder_inputs(None, B, enc_embeds)
     fa.reset_launches()
     want_tok, want_logits = [torch.argmax(logits, -1)], []
     for t in range(S, total - 1):
         lg, cache = TM.decode_step(anchor, cfg, cache, want_tok[-1][:, None],
-                                   torch.full((B,), t, device=dev))
+                                   torch.full((B,), t, device=dev),
+                                   enc_out=enc_out)
         want_logits.append(lg)
         want_tok.append(torch.argmax(lg, -1))
     n_decode = fa.LAUNCHES["flash_attention"]
@@ -1367,17 +1449,19 @@ def prompt_checks(server, cfg, prompt, gen):
         f"launches: prefill {n_prefill}, decode {n_decode}")
     del cache
     draws1 = tu.tree_map(lambda t: t[:1], server.draws)
-    logits0, caches = ensemble_prefill(draws1, cfg, prompt, total)
+    logits0, caches = ensemble_prefill(draws1, cfg, prompt, total,
+                                       enc_out=enc_out)
     same = torch.equal(logits0, logits)
     tok = predictive_stats(logits0[None]).token[:, None]
     for i, t in enumerate(range(S, total - 1)):
         lk, caches = TM.ensemble_decode_step(
-            draws1, cfg, caches, tok, torch.full((B,), t, device=dev))
+            draws1, cfg, caches, tok, torch.full((B,), t, device=dev),
+            enc_out=enc_out)
         same = same and torch.equal(lk[0], want_logits[i])
         tok = predictive_stats(lk).token[:, None]
-    del caches
+    del caches, enc_out
     res1 = EnsembleServer(cfg, draws=draws1, device=dev).generate(
-        prompt, gen=gen)
+        prompt, gen=gen, enc_embeds=enc_embeds)
     if not (same and torch.equal(res1.tokens, torch.stack(want_tok, 1))):
         raise AssertionError("K=1 ensemble serving differs from the plain "
                              "prefill + decode_step loop")
@@ -1591,25 +1675,28 @@ def phase_train(dev, failures):
         f"{np.round(probe_ll, 4).tolist()} (the driver's final "
         f"{tr.lls[0]:.4f})")
 
-    # one round on each: the driver's sampler (packed, telemetry on) and
+    # one round of CHECK_T steps on each: packed with telemetry on and
     # per_leaf, from theta0 on the driver's generator (per_leaf takes
-    # 4.6 s a step here, so not the whole run)
+    # ~6 s a step here, so not the whole run)
     tr.finals = None
     gen3 = lambda: train._generator(dev, args.seed, 3)  # noqa: E731
+    from repro_torch.obs import Telemetry
+    packed_s = _executor_copy(tr.sampler, "packed", dev)
     (packed, _), _, _, _ = _counted(
-        "train/packed one round", lambda: tr.sampler.sample(
-            gen3(), tr.theta0, rounds=1),
-        _expect("packed", TRAIN_T), attn_layers(cfg) * (TRAIN_T + 1))
+        "train/packed one round", lambda: packed_s.sample(
+            gen3(), tr.theta0, rounds=1, telemetry=Telemetry()),
+        _expect("packed", CHECK_T), attn_layers(cfg) * (CHECK_T + 1))
     per_leaf = _executor_copy(tr.sampler, "per_leaf", dev)
     L = len(tu.leaves(tr.theta0))
     out, dt, _, n = _counted(
         "train/per_leaf", lambda: per_leaf.sample(gen3(), tr.theta0,
                                                   rounds=1),
-        {"fsgld_update_packed": 0, "fsgld_update_2d": TRAIN_T * L},
-        attn_layers(cfg) * TRAIN_T)
-    log(f"  per_leaf, one round: {TRAIN_T * L} fsgld_update_2d launches "
-        f"({L} leaves), {n} flash_attention ({attn_layers(cfg)} per "
-        f"gradient pass), {TRAIN_T / dt:.3f} chain-steps/s")
+        {"fsgld_update_packed": 0, "fsgld_update_2d": CHECK_T * L},
+        attn_layers(cfg) * CHECK_T)
+    log(f"  per_leaf, one round of {CHECK_T} step(s): {CHECK_T * L} "
+        f"fsgld_update_2d launches ({L} leaves), {n} flash_attention "
+        f"({attn_layers(cfg)} per gradient pass), {CHECK_T / dt:.3f} "
+        "chain-steps/s")
     same("train: packed with telemetry == per_leaf without, one round",
          packed, out)
     del out, packed
@@ -1785,9 +1872,9 @@ class FirstUpdateCheck:
         kops.packed_step = self._real
 
 
-def check_flash_diff(dev, shape=TRAIN_ATTN, window=None):
-    """The differentiable flash entry at a train shape (B, S, H, Hkv, hd)
-    and window, bf16 inputs: forward (one launch) and row log-sum-exp
+def check_flash_diff(dev, shape=TRAIN_ATTN, window=None, causal=True):
+    """The differentiable flash entry at a train shape (B, S, H, Hkv, hd),
+    window and mask, bf16 inputs: forward (one launch) and row log-sum-exp
     against the plain scan, dq/dk/dv against autograd through
     ``attention_scan`` on the same values in fp32 (autograd through the
     bf16 scan rounds its probabilities to bf16 before P V, and its dq
@@ -1800,22 +1887,22 @@ def check_flash_diff(dev, shape=TRAIN_ATTN, window=None):
     dout = torch.randn(B, S, H, hd, generator=_gen(dev, 29),
                        device=dev).bfloat16()
     pos = torch.arange(S, device=dev).expand(B, S)
-    out, lse = fa.flash_attention_lse(q, k, v, window=window)
-    ref, m, l = fa.attention_scan(q, k, v, pos, pos, window=window,
-                                  stats=True)
+    mask = dict(causal=causal, window=window)
+    out, lse = fa.flash_attention_lse(q, k, v, **mask)
+    ref, m, l = fa.attention_scan(q, k, v, pos, pos, stats=True, **mask)
     stat_err = float((lse - (m + torch.log(l))).abs().max())
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    got = torch.autograd.grad(fa.flash_attention_diff(*leaves,
-                                                      window=window),
+    got = torch.autograd.grad(fa.flash_attention_diff(*leaves, **mask),
                               leaves, dout)
     plain = [t.float().requires_grad_() for t in (q, k, v)]
-    want = torch.autograd.grad(fa.attention_scan(*plain, pos, pos,
-                                                 window=window), plain,
-                               dout.float())
+    want = torch.autograd.grad(fa.attention_scan(*plain, pos, pos, **mask),
+                               plain, dout.float())
     shares = [flash_err(out, ref)[1]] + [
         flash_err(a, b.to(a.dtype))[1] for a, b in zip(got, want)]
-    log(f"  flash_attention_diff at the train shape {shape}, window "
-        f"{window}, bf16: share of the tolerance used out {shares[0]:.3f}, "
+    del got, want, plain, leaves
+    log(f"  flash_attention_diff at the train shape {shape}, causal "
+        f"{causal}, window {window}, bf16: share of the tolerance used out "
+        f"{shares[0]:.3f}, "
         f"dq {shares[1]:.3f}, dk {shares[2]:.3f}, dv {shares[3]:.3f}; row "
         f"log-sum-exp max|kernel-plain| {stat_err:.3e}")
     if not (max(shares) <= 1 and stat_err <= 1e-3):
@@ -2578,11 +2665,14 @@ def phase_stream_t1(dev, shards, theta0, bank):
 
 
 def phase_stream_qwen3(dev):
-    """qwen3-1.7b at full width and depth through the train driver with
-    10^6 lazy clients and 4 resident: one update launch per step, one
-    flash launch per layer per pass, at most 4 clients' rows built per
-    window, the chain finite and within TRAIN_GUARD of theta0; the stage
-    ms per window, overlap_frac, peak device memory, chain-steps/s."""
+    """qwen3-1.7b at full width and C2_LAYERS of its 28 layers (the
+    streamed mechanism does not depend on depth; [train] runs the full
+    depth) through the train driver with 10^6 lazy clients and 4
+    resident: one update launch per step, one flash launch per layer per
+    pass, at most 4 clients' rows built per window, the chain finite and
+    within TRAIN_GUARD of theta0; the stage ms per window, overlap_frac,
+    peak device memory, chain-steps/s."""
+    from repro_torch.configs import get_config
     from repro_torch.fed import SyntheticClientSource
     from repro_torch.launch import train
     argv = ["--arch", "qwen3-1.7b", "--method", "dsgld", "--clients",
@@ -2599,13 +2689,17 @@ def phase_stream_qwen3(dev):
     steps = TRAIN_R * TRAIN_T
     passes = steps + 1 + args.chains
     SyntheticClientSource.rows = rows
+    real_config = train.get_config
+    train.get_config = lambda arch: dataclasses.replace(
+        get_config(arch), num_layers=C2_LAYERS)
     try:
         with Traced() as tr_trace:
             tr, dt, _, n_flash = _counted(
                 "stream/qwen3", lambda: train.run(args),
-                _expect("packed", steps), QWEN3_WIDTH[0] * passes)
+                _expect("packed", steps), C2_LAYERS * passes)
     finally:
         SyntheticClientSource.rows = real
+        train.get_config = real_config
     stage = [1e3 * r["dur_s"] for r in tr_trace.named("stream.stage")]
     disp = [1e3 * r["dur_s"] for r in tr_trace.named("stream.dispatch")]
     ov, = tr_trace.named("stream.prefetch_overlap")
@@ -2618,7 +2712,7 @@ def phase_stream_qwen3(dev):
                              f"{tr.ll0} at theta0")
     log(f"  {STREAM_CLIENTS} clients, resident 4, dsgld, h {STREAM_H:g} "
         f"(h S N_s / m = {STREAM_H * STREAM_CLIENTS * 64 / 8:g}): "
-        f"{steps} update and {n_flash} flash launches ({QWEN3_WIDTH[0]} x "
+        f"{steps} update and {n_flash} flash launches ({C2_LAYERS} x "
         f"{passes} passes); client rows built per call {built} (never "
         f"{STREAM_CLIENTS}); ll/token theta0 {tr.ll0:.4f}, chains "
         f"{[round(x, 4) for x in tr.lls]}; sampling {tr.sample_s:.2f} s = "
@@ -2637,15 +2731,15 @@ def phase_stream_qwen3(dev):
 
 def phase_stream_c2(dev):
     """The train driver at [train-c2]'s size (full width, C2_LAYERS
-    layers, C = C2_CHAINS) on 8 token shards, FSGLD: ``--resident 2``
-    bitwise the same run without it."""
+    layers, C = C2_CHAINS) on 8 token shards, FSGLD with FAM_FIT fit
+    steps: ``--resident 2`` bitwise the same run without it."""
     from repro_torch.configs import get_config
     from repro_torch.launch import train
     real = train.get_config
     train.get_config = lambda arch: dataclasses.replace(
         get_config(arch), num_layers=C2_LAYERS)
     base = _train_argv() + ["--num-shards", "8", "--chains",
-                            str(C2_CHAINS)]
+                            str(C2_CHAINS), "--fit-steps", str(FAM_FIT)]
     steps = TRAIN_R * TRAIN_T
     try:
         runs = [_counted(f"stream/c2 {what}", lambda: train.run(
@@ -2681,20 +2775,24 @@ def family_config(arch, layers):
     return cfg
 
 
-BLOCKS = ("moe_ffn", "rglru_forward", "linear_scan", "rwkv_forward")
+# (module of repro_torch.models, function): the blocks block_ms ranges
+BLOCKS = (("layers", "moe_ffn"), ("layers", "rglru_forward"),
+          ("layers", "linear_scan"), ("layers", "rwkv_forward"),
+          ("model", "encoder_forward"), ("model", "_cross_attn"))
 
 
 def block_ms(fn, what: str) -> None:
     """One call of ``fn`` (a path the phase has already run, so warm)
-    under torch.profiler with each
-    block of ``repro_torch.models.layers`` named in BLOCKS inside a
-    ``record_function`` range: each block's device ms summed over the
-    call (its kernels' time) and its calls, beside the call's kernels'
-    device ms and wall ms."""
+    under torch.profiler with each block of ``repro_torch.models`` named
+    in BLOCKS inside a ``record_function`` range: each block's device ms
+    summed over the call (its kernels' time) and its calls, beside the
+    call's kernels' device ms and wall ms."""
+    import importlib
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
-    from repro_torch.models import layers as L
-    real = {n: getattr(L, n) for n in BLOCKS}
+    mods = {m: importlib.import_module(f"repro_torch.models.{m}")
+            for m, _ in BLOCKS}
+    real = {(m, n): getattr(mods[m], n) for m, n in BLOCKS}
 
     def ranged(name, f):
         def g(*a, **k):
@@ -2702,8 +2800,8 @@ def block_ms(fn, what: str) -> None:
                 return f(*a, **k)
         return g
 
-    for n, f in real.items():
-        setattr(L, n, ranged(n, f))
+    for (m, n), f in real.items():
+        setattr(mods[m], n, ranged(n, f))
     try:
         cuda_sync()
         with profile(activities=[ProfilerActivity.CPU,
@@ -2713,8 +2811,8 @@ def block_ms(fn, what: str) -> None:
             cuda_sync()
             wall_ms = 1e3 * (time.perf_counter() - t0)
     finally:
-        for n, f in real.items():
-            setattr(L, n, f)
+        for (m, n), f in real.items():
+            setattr(mods[m], n, f)
     # a range is listed twice: on the host (its kernels' time summed) and
     # as a span on the device, which is not a kernel
     ev = prof.key_averages()
@@ -2730,13 +2828,18 @@ def block_ms(fn, what: str) -> None:
 
 def serve_family(dev, arch):
     """``arch`` at its published width and serving depth through
-    ``FSGLD.serve``: K fresh draws, one request of batch x prompt
-    (the main path: flash launches one per attention layer in prefill,
-    none in decode), then ``prompt_checks`` and the blocks' device time
-    in one prefill. Returns the request's flash launches."""
+    ``FSGLD.serve``: K fresh draws, one request of batch x prompt (and
+    its patches or frames, drawn by the server; the main path: flash
+    launches one per self-attention in prefill, the encoder's included,
+    none in decode), the kernel against its plain version at each of the
+    path's attention shapes, then ``prompt_checks`` (for the vlm once
+    more with the anchor's gates opened to VLM_GATE: at 0 they hide the
+    cross-attention) and the blocks' device time in one prefill. Returns
+    the request's flash launches."""
     from repro_torch import api, configs
     from repro_torch import models as TM
     from repro_torch import tree as tu
+    from repro_torch.models.model import ENCODER_FAMILIES
     fam = FAMILIES[arch]
     layers, K, B, S = fam["serve"]
     cfg = family_config(arch, layers)
@@ -2754,8 +2857,10 @@ def serve_family(dev, arch):
         configs.get_config = real
     P = sum(t[0].numel() for t in tu.leaves(server.draws))
     held = sum(t.numel() * t.element_size() for t in tu.leaves(server.draws))
-    log(f"  {K} draws of {cfg.name} ({cfg.num_layers} layers, {n_attn} "
-        f"attending, d {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} "
+    log(f"  {K} draws of {cfg.name} ({cfg.num_layers} layers"
+        + (f" + {cfg.encoder_layers} encoder layers" if cfg.encoder_layers
+           else "") + f", {n_attn} self-attending, d {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} "
         f"heads x {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}"
         f"): {P} parameters per draw, initialised on the card in "
         f"{time.perf_counter() - t0:.2f} s; served weights "
@@ -2783,81 +2888,188 @@ def serve_family(dev, arch):
         f"draws); flash_attention launches {n} (prefill {req.prefill[0]}, "
         f"decode {req.decode[0]}); peak device memory while serving "
         f"{_peak(base)} ({card_line()})")
-    for window in attn_windows(cfg):
-        from repro_torch.kernels import flash_attention as fa
-        shape = (B, S, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+    from repro_torch.kernels import flash_attention as fa
+    for shape, causal, window in attn_shapes(cfg, B, S):
         q, k, v = _qkv(gen, *shape, torch.bfloat16)
-        err, use = flash_err(fa.flash_attention(q, k, v, window=window),
-                             fa.flash_attention_plain(q, k, v,
-                                                      window=window))
+        mask = dict(causal=causal, window=window)
+        err, use = flash_err(fa.flash_attention(q, k, v, **mask),
+                             fa.flash_attention_plain(q, k, v, **mask))
         del q, k, v
         log(f"  flash kernel at the path's shape (B, S, H, Hkv, hd) = "
-            f"{shape}, window {window}, bf16: max|kernel-plain| {err:.3e},"
-            f" {100 * use:.1f}% of the tolerance")
+            f"{shape}, causal {causal}, window {window}, bf16: "
+            f"max|kernel-plain| {err:.3e}, {100 * use:.1f}% of the "
+            "tolerance")
         if not use <= 1:
             raise AssertionError(f"serve-{fam['tag']}: the flash kernel "
                                  "disagrees with its plain version")
     prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
                            device=dev)
-    prompt_checks(server, cfg, prompt, SERVE_GEN)
+    enc = None
+    if cfg.family in ENCODER_FAMILIES:
+        T = cfg.num_patches if cfg.family == "vlm" else cfg.encoder_seq
+        enc = torch.randn((B, T, cfg.d_model), generator=gen, device=dev)
+    prompt_checks(server, cfg, prompt, SERVE_GEN, enc)
     anchor = tu.tree_map(lambda t: t[0], server.draws)
-    block_ms(lambda: TM.prefill_with_cache(anchor, cfg, prompt,
-                                           S + SERVE_GEN),
-             f"one prefill of batch {B} x {S} on one draw")
+    pcfg, panchor = _shallow(cfg, anchor, fam.get("profile"))
+    if cfg.family == "vlm":
+        _, _, launched, rel = _prefill_rel(open_gates(anchor), cfg, prompt,
+                                           S + SERVE_GEN, enc)
+        log(f"  anchor prefill with every gate at {VLM_GATE}: kernel vs "
+            f"plain attention max|diff|/max|logits| {rel:.3e} (limit "
+            f"{PREFILL_REL}); flash_attention launches {launched}")
+    block_ms(lambda: TM.prefill_with_cache(panchor, pcfg, prompt,
+                                           S + SERVE_GEN, enc_embeds=enc),
+             f"one prefill of batch {B} x {S} on one draw, "
+             f"{pcfg.num_layers} of its {cfg.num_layers} layers")
     return n
+
+
+def _shallow(cfg, params, layers):
+    """``cfg`` and one draw ``params`` cut to their first ``layers``
+    decoder layers (whole periods, no remainder; None: as they are)."""
+    if layers is None:
+        return cfg, params
+    from repro_torch import tree as tu
+    n = min(layers, cfg.num_layers) // len(cfg.layer_pattern)
+    out = {k: v for k, v in params.items() if k != "rem_blocks"}
+    out["blocks"] = tu.tree_map(lambda t: t[:n], params["blocks"])
+    return dataclasses.replace(
+        cfg, num_layers=n * len(cfg.layer_pattern)), out
 
 
 def _executor_copy(s, executor, dev):
     """The sampler ``s`` (a train driver's) with its bank, on another
-    executor, without telemetry."""
+    executor, without telemetry, CHECK_T local steps per round."""
     from repro_torch import api
     return api.FSGLD(
         s.posterior, s.data, minibatch=s.minibatch,
         step_size=s.cfg.step_size,
         surrogate=api.SurrogateSpec(kind="scalar", bank=s.bank),
-        schedule=s.schedule,
+        schedule=dataclasses.replace(s.schedule, local_steps=CHECK_T),
         execution=api.Execution(device=dev, executor=executor,
                                 collect=False, dtype=s.execution.dtype,
                                 bank_device=s.execution.bank_device))
 
 
+def _driver_run(cfg, args):
+    """The train driver's run of ``args`` with ``cfg`` in place of its
+    arch's config and its telemetry written to a temporary
+    ``--metrics-dir``: (TrainRun, the telemetry frame)."""
+    from repro_torch.launch import train
+    from repro_torch.obs import read_metrics_jsonl
+    args.metrics_dir = tempfile.mkdtemp(prefix="chip_smoke_metrics_")
+    real = train.get_config
+    train.get_config = lambda a: cfg
+    try:
+        tr = train.run(args)
+        return tr, read_metrics_jsonl(os.path.join(args.metrics_dir,
+                                                   "metrics.jsonl"))
+    finally:
+        train.get_config = real
+        shutil.rmtree(args.metrics_dir, ignore_errors=True)
+
+
+def _facade_run(cfg, args):
+    """What the train driver's run of ``args`` does (its data, parameters,
+    fit, sampling with telemetry and probes, on the packed executor), for
+    a family whose likelihood reads enc_embeds, which the driver refuses:
+    through ``api.FSGLD`` directly, each row of the token shards carrying
+    its frames (``make_batch``'s bf16 normals; the engine gathers them
+    with the row's tokens). (TrainRun, the telemetry frame)."""
+    from repro_torch import api
+    from repro_torch import tree as tu
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data import make_batch, token_shards
+    from repro_torch.launch import train
+    from repro_torch.models import init_params, log_lik_fn
+    dev = torch.device(DEVICE)
+
+    def gen(stream):
+        return train._generator(dev, args.seed, stream)
+
+    params = init_params(cfg, gen(0), device=dev)
+    S, n = args.num_shards, args.shard_size
+    shards = token_shards(gen(1), num_shards=S, shard_size=n,
+                          seq_len=args.seq, vocab_size=cfg.vocab_size)
+    frames = make_batch(cfg, InputShape("shards", seq_len=args.seq,
+                                        global_batch=S * n, kind="train"),
+                        gen(4))["enc_embeds"]
+    shards["enc_embeds"] = frames.reshape((S, n) + tuple(frames.shape[1:]))
+    del frames
+    m = min(args.batch, n)
+    fsgld = api.FSGLD(
+        api.Posterior(lambda p, b: log_lik_fn(p, cfg, b),
+                      prior_precision=1.0),
+        shards, minibatch=m, step_size=args.step_size,
+        surrogate=api.SurrogateSpec(kind="scalar", fit="local_sgld",
+                                    fit_steps=args.fit_steps,
+                                    fit_minibatch=m),
+        schedule=api.Schedule(rounds=args.rounds,
+                              local_steps=args.local_updates,
+                              n_chains=args.chains, reassign="permutation"),
+        execution=api.Execution(device=dev, executor="packed", collect=False,
+                                dtype=getattr(torch, cfg.surrogate_dtype),
+                                bank_device="cpu",
+                                telemetry=api.Telemetry()))
+    probe = tu.tree_map(lambda d: d[0][:args.batch], shards)
+    ll0 = train.ll_per_token(params, cfg, probe)
+    peak = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fsgld.fit(gen(2), params)
+    cuda_sync()
+    fit_s = time.perf_counter() - t0
+    peak["fit"] = torch.cuda.max_memory_allocated() / 1e9
+    params = tu.tree_map(lambda t: t.to("cpu"), params)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    finals, frame = fsgld.sample(gen(3), params)
+    cuda_sync()
+    dt = time.perf_counter() - t0
+    peak["sampling"] = torch.cuda.max_memory_allocated() / 1e9
+    lls = [train.ll_per_token(tu.tree_map(lambda t: t[c], finals), cfg,
+                              probe) for c in range(args.chains)]
+    return train.TrainRun(cfg=cfg, sampler=fsgld, theta0=params,
+                          finals=finals, ll0=ll0, lls=lls, fit_s=fit_s,
+                          sample_s=dt, peak_gb=peak, frame=frame), frame
+
+
 def train_family(dev, arch, failures):
     """``arch`` at its published width and sampling depth through the
-    train driver (the main path: one update launch per step, one flash
-    launch per attention layer per gradient or probe pass), held to
+    train driver, or for the encoder families (whose batches carry
+    enc_embeds, which the driver refuses) through the facade as the
+    driver would run it (the main path: one update launch per step, one
+    flash launch per self-attention per gradient or probe pass), held to
     TRAIN_GUARD like [train] (a breach is appended to ``failures``, with
-    telemetry's conducive and gradient norms printed); then one round on
-    packed and on per_leaf from theta0 on one generator, bitwise; the
-    MoE's aux loss finite at the final state; the blocks' device time in
-    one forward at the train shape."""
+    telemetry's conducive and gradient norms printed); the
+    differentiable flash entry at each of the path's attention shapes;
+    then one round on packed and on per_leaf from theta0 on one
+    generator, bitwise; the MoE's aux loss finite at the final state;
+    the blocks' device time in one forward at the train shape."""
     import numpy as np
     from repro_torch import models as TM
     from repro_torch import tree as tu
     from repro_torch.launch import train
-    from repro_torch.obs import read_metrics_jsonl
+    from repro_torch.models.model import ENCODER_FAMILIES
     fam = FAMILIES[arch]
     cfg = family_config(arch, fam["train"])
     n_attn = attn_layers(cfg)
-    mdir = tempfile.mkdtemp(prefix="chip_smoke_metrics_")
-    args = train.parse_args([
-        "--arch", arch, "--step-size", repr(TRAIN_H), "--fit-steps",
-        str(FAM_FIT), "--rounds", str(FAM_R), "--local-updates", str(FAM_T),
-        "--metrics-dir", mdir])
+    encoded = cfg.family in ENCODER_FAMILIES
+    # the driver's flags; the encoder families' run reads all but --arch
+    args = train.parse_args(
+        ([] if encoded else ["--arch", arch]) + [
+            "--step-size", repr(TRAIN_H), "--fit-steps", str(FAM_FIT),
+            "--rounds", str(FAM_R), "--local-updates", str(FAM_T),
+            "--batch", str(fam.get("batch", 8))])
     steps = FAM_R * FAM_T
     # gradient passes: the fit's, the sampling's, telemetry's probe (one
     # per round); forwards: the probes at theta0 and at the final state
     passes = TRAIN_S * FAM_FIT + steps + FAM_R + 1 + args.chains
-    real = train.get_config
-    train.get_config = lambda a: cfg
-    try:
-        with FirstUpdateCheck() as chk:
-            tr, _, counts, n_flash = _counted(
-                f"train-{fam['tag']}", lambda: train.run(args),
-                _expect("packed", steps), n_attn * passes)
-        frame = read_metrics_jsonl(os.path.join(mdir, "metrics.jsonl"))
-    finally:
-        train.get_config = real
-        shutil.rmtree(mdir, ignore_errors=True)
+    run = _facade_run if encoded else _driver_run
+    with FirstUpdateCheck() as chk:
+        (tr, frame), _, counts, n_flash = _counted(
+            f"train-{fam['tag']}", lambda: run(cfg, args),
+            _expect("packed", steps), n_attn * passes)
     if chk.err is None:
         raise AssertionError(f"train-{fam['tag']}: no packed update was "
                              "held against its plain version")
@@ -2878,9 +3090,8 @@ def train_family(dev, arch, failures):
         f"{1 + args.chains} probe forwards); first update at this packed "
         f"layout ({len(tu.leaves(tr.theta0))} leaves) max|kernel-plain| "
         f"{chk.err:.3e} (tolerance {ATOL:g} + {RTOL:g}|x|)")
-    for window in attn_windows(cfg):
-        check_flash_diff(dev, (args.batch, args.seq, cfg.num_heads,
-                               cfg.num_kv_heads, cfg.head_dim), window)
+    for shape, causal, window in attn_shapes(cfg, args.batch, args.seq):
+        check_flash_diff(dev, shape, window, causal)
     m = frame.metrics
     log("  telemetry per round: " + "; ".join(
         f"{n} {np.round(m[n][:, 0], 6).tolist()}"
@@ -2906,18 +3117,18 @@ def train_family(dev, arch, failures):
     del final
     tr.finals = None
     outs, L = {}, len(tu.leaves(tr.theta0))
-    for ex, expect in (("packed", {"fsgld_update_packed": FAM_T,
+    for ex, expect in (("packed", {"fsgld_update_packed": CHECK_T,
                                    "fsgld_update_2d": 0}),
                        ("per_leaf", {"fsgld_update_packed": 0,
-                                     "fsgld_update_2d": FAM_T * L})):
+                                     "fsgld_update_2d": CHECK_T * L})):
         smp = _executor_copy(s, ex, dev)
         outs[ex], dt, _, _ = _counted(
             f"train-{fam['tag']} {ex}", lambda: smp.sample(
                 train._generator(dev, args.seed, 3), tr.theta0, rounds=1),
-            expect, n_attn * FAM_T)
+            expect, n_attn * CHECK_T)
         if ex == "packed":  # waits on the host while per_leaf runs
             outs[ex] = tu.tree_map(lambda t: t.cpu(), outs[ex])
-        log(f"  one round of {FAM_T} steps on {ex}: {dt:.2f} s; host "
+        log(f"  one round of {CHECK_T} step(s) on {ex}: {dt:.2f} s; host "
             f"{host_gb():.2f} GB resident")
     same(f"train-{fam['tag']}: packed == per_leaf over one round",
          outs["packed"], outs["per_leaf"])
@@ -2935,6 +3146,7 @@ def main() -> int:
     from repro_torch import api
     from repro_torch.kernels import _build
     from repro_torch.kernels import ops as kops
+    from repro_torch.models.model import ENCODER_FAMILIES
     from repro_torch.workloads import (TABLE1_P, avg_loglik, mlp_log_lik,
                                        mlp_problem)
     dev = torch.device(DEVICE)
@@ -3039,9 +3251,10 @@ def main() -> int:
           "Fisher fit) and linear regression (600 x 5), C=1, packed, "
           "uncut")
     phase_calib(dev)
-    phase("[kinds] 'linear' bank on the Figs. 2-3 Gaussian, 100 rounds x "
-          "100 steps; 'full' bank on f1's concrete, 100 rounds x 40 steps; "
-          "both through 'auto' (-> vmap), uncut")
+    phase(f"[kinds] 'linear' bank on the Figs. 2-3 Gaussian, {KINDS_ROUNDS}"
+          " rounds x 100 steps (cut from 100 rounds); 'full' bank on f1's "
+          "concrete, 100 rounds x 40 steps (uncut); both through 'auto' (-> "
+          "vmap)")
     phase_kinds(dev)
     phase(f"[oracle] FederatedSampler.run_vmap(use_kernel=True) vs per_leaf "
           f"on Table 1, {ORACLE_ROUNDS} rounds x {T1_T} steps, "
@@ -3092,15 +3305,15 @@ def main() -> int:
     phase_train_c2(dev)
     check_flash_diff(dev)
     torch.cuda.empty_cache()
-    phase(f"[stream] qwen3-1.7b at full width and depth through "
-          f"repro_torch.launch.train --method dsgld --clients "
+    phase(f"[stream] qwen3-1.7b at full width, {C2_LAYERS} of 28 layers, "
+          f"through repro_torch.launch.train --method dsgld --clients "
           f"{STREAM_CLIENTS} --resident 4 --step-size {STREAM_H:g}: C=1, "
           f"{TRAIN_R} rounds x {TRAIN_T} steps, packed")
     phase_stream_qwen3(dev)
     torch.cuda.empty_cache()
     phase(f"[stream] the train driver at {C2_LAYERS} of 28 layers, "
-          f"C={C2_CHAINS}, --num-shards 8 --resident 2 against the "
-          "resident run")
+          f"C={C2_CHAINS}, --num-shards 8 --fit-steps {FAM_FIT} --resident "
+          "2 against the resident run")
     phase_stream_c2(dev)
     torch.cuda.empty_cache()
     phase(f"[resume] qwen3-1.7b at full width, {C2_LAYERS} of 28 layers, "
@@ -3123,10 +3336,15 @@ def main() -> int:
         serve_family(dev, arch)
         torch.cuda.empty_cache()
     for arch, fam in FAMILIES.items():
+        if fam["train"] is None:
+            continue
+        encoded = family_config(arch, None).family in ENCODER_FAMILIES
         phase(f"[train-{fam['tag']}] {arch} at full width, {fam['train']} "
-              f"layers, through repro_torch.launch.train: S={TRAIN_S} "
-              f"clients, {FAM_FIT} fit steps, {FAM_R} rounds x {FAM_T} "
-              f"steps, C=1, packed, h {TRAIN_H:g}")
+              f"layers, through "
+              + ("api.FSGLD with enc_embeds in the shards (the driver's "
+                 "run)" if encoded else "repro_torch.launch.train")
+              + f": S={TRAIN_S} clients, {FAM_FIT} fit steps, {FAM_R} "
+              f"rounds x {FAM_T} steps, C=1, packed, h {TRAIN_H:g}")
         train_family(dev, arch, failures)
         torch.cuda.empty_cache()
 

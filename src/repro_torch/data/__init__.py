@@ -2,6 +2,7 @@ from repro_torch.data.synthetic import (  # noqa: F401
     LINREG_SPECS,
     gaussian_shards,
     linreg_datasets,
+    make_batch,
     metric_pairs,
     metric_test_pairs,
     split_shards,

@@ -12,6 +12,8 @@ built on the generator's device:
                       (n, d) to concrete / noise / conductivity
   * token_shards    — federated non-IID token streams: each client's own
                       Dirichlet(alpha)-skewed unigram
+  * make_batch      — a random batch for an (arch, input-shape) pair, with
+                      the vlm / audio families' stubbed frontend output
 
 The numbers differ from the JAX package's (another generator); the
 structure is the same.
@@ -212,3 +214,26 @@ def split_shards(data, num_shards: int):
         n = a.shape[0] // num_shards * num_shards
         return a[:n].reshape((num_shards, -1) + tuple(a.shape[1:]))
     return tu.tree_map(sp, data)
+
+
+def make_batch(cfg, shape, generator: torch.Generator,
+               dtype=torch.int32) -> dict:
+    """A random batch for an (arch, input-shape) pair: 'tokens' and
+    'labels' (global_batch, seq_len) uniform over the vocabulary in
+    ``dtype``, and for the vlm and audio families 'enc_embeds' (the
+    stubbed frontend's output: num_patches image patches or encoder_seq
+    audio frames of width d_model) as bf16 standard normals. The
+    reference's shapes and dtypes; its draws share one key, so its tokens
+    and labels are equal, where these are drawn in turn from
+    ``generator`` (tokens, labels, then the embeddings)."""
+    dev = generator.device
+    B, S = shape.global_batch, shape.seq_len
+    batch = {n: torch.randint(0, cfg.vocab_size, (B, S), generator=generator,
+                              device=dev, dtype=dtype)
+             for n in ("tokens", "labels")}
+    if cfg.family in ("vlm", "audio"):
+        T = cfg.num_patches if cfg.family == "vlm" else cfg.encoder_seq
+        batch["enc_embeds"] = torch.randn(
+            (B, T, cfg.d_model), generator=generator,
+            device=dev).to(torch.bfloat16)
+    return batch

@@ -23,9 +23,11 @@ its forward is the kernel on the card, which also writes each row's
 log-sum-exp, or the plain scan with its (m, l) statistics on the CPU; its
 backward is ``attention_scan_bwd``, the reference's ``_flash_bwd`` in plain
 PyTorch (no Pallas kernel to port), which recomputes each key block's
-probabilities from those statistics. Its ``vmap`` rule folds a vmapped
-(chain) axis into the batch, because a ctypes launch cannot read
-functorch's wrapped tensors.
+probabilities from those statistics, and runs without recording a graph
+(``torch.func.grad`` asks for one, for second derivatives that nothing
+takes: it would keep each key block's probabilities to the end of the
+pass). Its ``vmap`` rule folds a vmapped (chain) axis into the batch,
+because a ctypes launch cannot read functorch's wrapped tensors.
 """
 from __future__ import annotations
 
@@ -341,9 +343,14 @@ class _Attention(torch.autograd.Function):
             B, S = q.shape[:2]
             q_positions = kv_positions = torch.arange(
                 S, device=q.device).expand(B, S)
-        dq, dk, dv = attention_scan_bwd(
-            q, k, v, q_positions, kv_positions, m, l, dout,
-            causal=ctx.causal, window=ctx.window, block_k=ctx.block_k)
+        # torch.func.grad differentiates with create_graph=True: recorded,
+        # this backward would keep every key block's fp32 probabilities
+        # until the pass ends (~9 GB per layer at whisper's encoder shape,
+        # B 4 x 1,500 frames) for a second derivative nobody takes
+        with torch.no_grad():
+            dq, dk, dv = attention_scan_bwd(
+                q, k, v, q_positions, kv_positions, m, l, dout,
+                causal=ctx.causal, window=ctx.window, block_k=ctx.block_k)
         return dq, dk, dv, None, None, None, None, None
 
     @staticmethod

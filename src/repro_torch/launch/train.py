@@ -48,7 +48,11 @@ each round brings the chain's client's means to the device. Prints
 ll/token per chain at theta0 and after sampling, and the chain-steps/s.
 
 The reference's ``--multi-pod`` waits for multi-device chains and
-raises NotImplementedError naming ROADMAP item 8.
+raises NotImplementedError naming ROADMAP item 8. The vlm and audio
+families (llama-3.2-vision, whisper) are refused: their likelihood reads
+``enc_embeds`` from every batch, and this driver builds token shards only,
+as the reference's does (whose ``log_lik_fn`` then fails on None). The
+facade samples them with an ``enc_embeds`` leaf in the shards.
 """
 from __future__ import annotations
 
@@ -68,6 +72,7 @@ from repro_torch.core.engine import _not_ported
 from repro_torch.data import token_shards
 from repro_torch.fed import SyntheticClientSource
 from repro_torch.models import init_params, log_lik_fn
+from repro_torch.models.model import ENCODER_FAMILIES
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs import write_metrics_jsonl, write_prometheus
 
@@ -156,6 +161,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     for flag, item in _REFUSED:
         if getattr(args, flag) not in (None, False):
             raise _not_ported(f"--{flag.replace('_', '-')}", item)
+    family = get_config(args.arch).family
+    if family in ENCODER_FAMILIES:
+        raise SystemExit(
+            f"--arch {args.arch}: the {family} family's likelihood reads "
+            "enc_embeds (image patches or audio frames) from every batch, "
+            "and this driver builds token shards only, as the reference's "
+            "does; sample it through repro_torch.api.FSGLD with an "
+            "'enc_embeds' leaf in the shards")
     obs = args.metrics_dir is not None or args.log_every is not None
     if obs and args.draw_bank:
         raise SystemExit(

@@ -1,13 +1,15 @@
-"""Decoder-only language models of the dense, moe, hybrid and ssm
-families (counterpart of ``repro.models.model``): parameters, the
-training forward and log-likelihood, the cache-populating prefill and the
+"""The language models of every family (counterpart of
+``repro.models.model``): parameters, the training forward and
+log-likelihood, the encoder, the cache-populating prefill and the
 single-token decode step.
 
 Parameters are plain nested dicts of tensors in the JAX package's layout:
 ``embed`` (V, D), ``blocks`` with every leaf stacked over the full
 periods of ``cfg.layer_pattern`` (leading axis, layer keys ``l0``...),
 ``rem_blocks`` for a remainder, ``final_norm`` (D,) and ``head`` (D, V),
-with the same leaf names, so a JAX parameter tree converts leaf by leaf
+and for the audio family ``encoder`` ({'blocks': 'attn' layers stacked
+over ``cfg.encoder_layers``, 'final_norm'}), with the same leaf names, so
+a JAX parameter tree converts leaf by leaf
 (``repro_torch.convert.params_from_jax``). A Python loop over the
 layers takes the place of ``lax.scan``.
 
@@ -18,9 +20,16 @@ sums (JAX's ``preferred_element_type=float32``). ``serving_params``
 does those casts once for a served draw.
 
 Layer kinds 'attn', 'swa' (ring cache), 'rglru' and 'rwkv' (recurrent
-states in the cache) run, with the dense or the MoE FFN; 'xattn'
-(vlm/audio) and the encoder raise NotImplementedError (ROADMAP item 15).
-``forward`` / ``chunked_log_lik`` / ``log_lik_fn`` are the sampling
+states in the cache) run, with the dense or the MoE FFN, and 'xattn':
+for the vlm family a gated cross-attention to the image patches (its
+output scaled by tanh(gate), the gate 0 at init), for the audio family
+self-attention then cross-attention to the encoder's output. The
+cross-attention's keys and values are the encoder stream's (``enc_out``:
+the patches cast to bf16 for vlm, ``encoder_forward`` of the frames for
+audio), projected again at every decode step as in the reference (no
+cross cache), with every position 0 and no mask; it runs the plain
+``layers.chunked_attention`` on every device, as the reference runs its
+pure-JAX scan there (the flash kernel takes Sq == Sk only). ``forward`` / ``chunked_log_lik`` / ``log_lik_fn`` are the sampling
 path's likelihood, differentiated by ``torch.func.grad`` (and vmapped
 over chains by the engine): their attention is ``flash_attention_diff``,
 the kernel with the reference's flash backward, and the likelihood
@@ -40,24 +49,28 @@ import torch.nn.functional as F
 
 from repro_torch import tree as tu
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.engine import _not_ported
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_diff)
 from repro_torch.models import layers as L
 
 ACT_DTYPE = torch.bfloat16
-_RUNS = ("attn", "swa", "rglru", "rwkv")
+# the families whose 'xattn' layers attend to a second input stream
+ENCODER_FAMILIES = ("vlm", "audio")
 # the router's load-balance term enters the log-likelihood with this
 # weight per token, as in the reference
 AUX_WEIGHT = 0.01
 
 
 def _check_runs(cfg: ArchConfig) -> None:
-    for kind in cfg.layer_pattern:
-        if kind not in _RUNS:
-            raise _not_ported(f"layer kind {kind!r} ({cfg.name})", 15)
-    if cfg.encoder_layers:
-        raise _not_ported(f"the encoder ({cfg.name})", 15)
+    """Refuse what no model of the repository is: 'xattn' layers without
+    an encoder stream (a family other than vlm and audio), or an encoder
+    outside the audio family."""
+    if "xattn" in cfg.layer_pattern and cfg.family not in ENCODER_FAMILIES:
+        raise ValueError(f"{cfg.name}: 'xattn' layers need the vlm or audio "
+                         f"family's encoder stream, not {cfg.family!r}")
+    if cfg.encoder_layers and cfg.family != "audio":
+        raise ValueError(f"{cfg.name}: an encoder needs the audio family, "
+                         f"not {cfg.family!r}")
 
 
 def _cast_floating(tree, dtype=ACT_DTYPE):
@@ -107,12 +120,21 @@ def _layer_layout(cfg: ArchConfig, lead: tuple, kind: str) -> dict:
     c = lambda fill, *s: _Leaf(lead + s, None, fill)  # noqa: E731
     out = {"norm": c(0.0, d), "ffn_norm": c(0.0, d),
            "ffn": _ffn_layout(cfg, w)}
-    if kind in ("attn", "swa"):
-        attn = {"wq": w(d, d, cfg.q_dim), "wk": w(d, d, cfg.kv_dim),
-                "wv": w(d, d, cfg.kv_dim), "wo": w(cfg.q_dim, cfg.q_dim, d)}
-        if cfg.qk_norm:
-            attn.update(q_norm=c(0.0, hd), k_norm=c(0.0, hd))
-        out["attn"] = attn
+    def attn(cross=False):
+        a = {"wq": w(d, d, cfg.q_dim), "wk": w(d, d, cfg.kv_dim),
+             "wv": w(d, d, cfg.kv_dim), "wo": w(cfg.q_dim, cfg.q_dim, d)}
+        if cfg.qk_norm and not cross:
+            a.update(q_norm=c(0.0, hd), k_norm=c(0.0, hd))
+        return a
+
+    if kind in ("attn", "swa") or (kind == "xattn"
+                                   and cfg.family == "audio"):
+        out["attn"] = attn()
+    if kind == "xattn":  # cross-attention takes no qk-norm
+        out["xattn"] = attn(cross=True)
+        if cfg.family == "vlm":
+            out["xattn"]["gate"] = c(0.0, 1)
+        out["xnorm"] = c(0.0, d)
     elif kind == "rglru":
         out["rec"] = {"w_x": w(d, d, d), "w_gate": w(d, d, d),
                       "w_out": w(d, d, d),
@@ -142,6 +164,10 @@ def param_layout(cfg: ArchConfig) -> dict:
     if rem:
         out["rem_blocks"] = {f"l{i}": _layer_layout(cfg, (), kind)
                              for i, kind in enumerate(rem)}
+    if cfg.encoder_layers:
+        out["encoder"] = {
+            "blocks": _layer_layout(cfg, (cfg.encoder_layers,), "attn"),
+            "final_norm": _Leaf((d,), None)}
     return out
 
 
@@ -177,11 +203,14 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
 def serving_cast(params: dict) -> dict:
     """Each leaf of a draw with the values every cast point of the
     reference would give it: float leaves to bf16, except ``final_norm``
-    (kept as it is: prefill reads it uncast, decode casts it itself).
-    Works on (K, ...) stacked draws and on meta tensors."""
+    (kept as it is: prefill reads it uncast, decode casts it itself) and
+    the encoder's ``final_norm`` (read uncast). Works on (K, ...) stacked
+    draws and on meta tensors."""
     out = _cast_floating({k: v for k, v in params.items()
                           if k != "final_norm"})
     out["final_norm"] = params["final_norm"]
+    if "encoder" in params:
+        out["encoder"]["final_norm"] = params["encoder"]["final_norm"]
     return out
 
 
@@ -249,6 +278,46 @@ def _self_attn(x, p, cfg: ArchConfig, positions, *, window=None,
     return x + o.reshape(B, S, -1) @ a["wo"], k, v
 
 
+def _cross_attn(x, p, cfg: ArchConfig, enc_out, gated: bool):
+    """Cross-attention of the decoder stream x (B, S, D) to ``enc_out``
+    (B, Te, D): q from x normed by ``xnorm``, k and v from ``enc_out``,
+    every position 0 and no mask, through the plain
+    ``layers.chunked_attention`` (the reference's pure-JAX scan, with its
+    flash backward). Gated (vlm): the output is scaled by tanh(gate),
+    taken in the gate's dtype (bf16 after the cast) as the reference
+    does."""
+    B, S, _ = x.shape
+    Te = enc_out.shape[1]
+    a = p["xattn"]
+    h = L.rms_norm(x, p["xnorm"])
+    q = (h @ a["wq"]).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    k = (enc_out @ a["wk"]).reshape(B, Te, cfg.num_kv_heads, cfg.head_dim)
+    v = (enc_out @ a["wv"]).reshape(B, Te, cfg.num_kv_heads, cfg.head_dim)
+    qpos = torch.zeros((B, S), dtype=torch.int32, device=x.device)
+    kpos = torch.zeros((B, Te), dtype=torch.int32, device=x.device)
+    o = L.chunked_attention(q, k, v, q_positions=qpos, kv_positions=kpos,
+                            causal=False)
+    o = o.reshape(B, S, -1) @ a["wo"]
+    if gated:
+        o = torch.tanh(a["gate"]).to(o.dtype) * o
+    return x + o
+
+
+def _attending(kind: str, x, p, cfg: ArchConfig, positions, enc_out,
+               attention: AttentionFn):
+    """An attending layer's sequence mixing over the full sequence ('attn',
+    'swa', 'xattn'), before its FFN: (x, the self-attention's roped k and
+    its v, or None for a vlm 'xattn' layer, which has none)."""
+    k = v = None
+    if kind != "xattn" or cfg.family == "audio":
+        window = cfg.swa_window if kind == "swa" else None
+        x, k, v = _self_attn(x, p, cfg, positions, window=window,
+                             attention=attention)
+    if kind == "xattn":
+        x = _cross_attn(x, p, cfg, enc_out, gated=cfg.family == "vlm")
+    return x, k, v
+
+
 def _ffn_residual(x, p, cfg: ArchConfig):
     """The FFN's residual and its aux loss (fp32; 0 for a dense FFN)."""
     h = L.rms_norm(x, p["ffn_norm"])
@@ -277,10 +346,18 @@ def _recurrent(kind: str, x, p):
 # training forward and log-likelihood
 # ---------------------------------------------------------------------------
 
+def _unbound(node: dict):
+    """The layers of a stacked subtree, each leaf unbound once, so that
+    its gradient is one stack of the layers' gradients, not a full-size
+    scatter per layer."""
+    leaves, treedef = tu.flatten(node)
+    cols = [t.unbind(0) for t in leaves]
+    return [tu.unflatten(treedef, [c[i] for c in cols])
+            for i in range(leaves[0].shape[0])]
+
+
 def _layer_trees(params: dict, cfg: ArchConfig):
-    """(layer subtree, kind) of every layer in order. A stacked leaf is
-    unbound once, so that its gradient is one stack of the layers'
-    gradients, not a full-size scatter per layer."""
+    """(layer subtree, kind) of every layer in order."""
     unbound = {}
     for group, i, key, kind in _layers(cfg):
         node = params[group][key]
@@ -288,31 +365,64 @@ def _layer_trees(params: dict, cfg: ArchConfig):
             yield node, kind
             continue
         if key not in unbound:
-            leaves, treedef = tu.flatten(node)
-            unbound[key] = (treedef, [t.unbind(0) for t in leaves])
-        treedef, cols = unbound[key]
-        yield tu.unflatten(treedef, [c[i] for c in cols]), kind
+            unbound[key] = _unbound(node)
+        yield unbound[key][i], kind
+
+
+def encoder_forward(params: dict, cfg: ArchConfig, enc_embeds: torch.Tensor,
+                    *, attention: AttentionFn = flash_attention_diff):
+    """The audio encoder over stubbed frame embeddings (B, T, D): per
+    layer bidirectional self-attention with rope over the T frames (one
+    ``attention`` call with ``causal=False``) and the FFN, each layer's
+    parameters cast to bf16 at the point of use, then the encoder's
+    ``final_norm`` (uncast). Returns (B, T, D) bf16."""
+    B, T, _ = enc_embeds.shape
+    x = enc_embeds.to(ACT_DTYPE)
+    positions = torch.arange(T, device=x.device).expand(B, T)
+    for p in _unbound(params["encoder"]["blocks"]):
+        p = _cast_floating(p)
+        x, _, _ = _self_attn(x, p, cfg, positions, causal=False,
+                             attention=attention)
+        x, _ = _ffn_residual(x, p, cfg)
+    return L.rms_norm(x, params["encoder"]["final_norm"])
+
+
+def encoder_stream(params: dict, cfg: ArchConfig, enc_embeds, *,
+                   attention: AttentionFn = flash_attention_diff):
+    """``enc_out``, the stream the 'xattn' layers attend to: None for a
+    family without one, the patches ``enc_embeds`` cast to bf16 (vlm),
+    ``encoder_forward`` of the frames ``enc_embeds`` (audio)."""
+    if cfg.family not in ENCODER_FAMILIES:
+        return None
+    if enc_embeds is None:
+        raise ValueError(f"{cfg.name} ({cfg.family}) needs enc_embeds")
+    if cfg.family == "vlm":
+        return enc_embeds.to(ACT_DTYPE)
+    return encoder_forward(params, cfg, enc_embeds, attention=attention)
 
 
 def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
+            enc_embeds: Optional[torch.Tensor] = None,
             attention: AttentionFn = flash_attention_diff):
     """tokens (B, S) integer -> (hidden states (B, S, D) before the head,
     the MoE aux loss summed over the layers (fp32; 0 without MoE)).
+    ``enc_embeds``: the stubbed frontend's output (B, T_enc, D), image
+    patches (vlm) or audio frames (audio), which those families need.
     Every layer's parameters are cast to bf16 at the point of use,
     ``final_norm`` is not; activations are bf16. ``attention`` (default:
     the differentiable flash entry) takes q, k, v with implicit
-    positions."""
+    positions: every self-attention, the encoder's included."""
     _check_runs(cfg)
     B, S = tokens.shape
+    enc_out = encoder_stream(params, cfg, enc_embeds, attention=attention)
     x = params["embed"][tokens].to(ACT_DTYPE)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     aux = x.new_zeros((), dtype=torch.float32)
     for p, kind in _layer_trees(params, cfg):
         p = _cast_floating(p)
-        if kind in ("attn", "swa"):
-            window = cfg.swa_window if kind == "swa" else None
-            x, _, _ = _self_attn(x, p, cfg, positions, window=window,
-                                 attention=attention)
+        if kind in ("attn", "swa", "xattn"):
+            x, _, _ = _attending(kind, x, p, cfg, positions, enc_out,
+                                 attention)
         else:
             x, _, _ = _recurrent(kind, x, p)
         x, a = _ffn_residual(x, p, cfg)
@@ -340,11 +450,14 @@ def chunked_log_lik(hidden: torch.Tensor, head: torch.Tensor,
 def log_lik_fn(params: dict, cfg: ArchConfig, batch: dict, *,
                attention: AttentionFn = flash_attention_diff
                ) -> torch.Tensor:
-    """Total log-likelihood of a (mini)batch {'tokens', 'labels'} (B, S):
-    the quantity whose gradient SGLD/DSGLD/FSGLD scale by N_s/(f_s m).
-    The head enters in bf16, as in the reference, and the MoE router's
-    load-balance loss as a regulariser, ``AUX_WEIGHT`` per token."""
-    hidden, aux = forward(params, cfg, batch["tokens"], attention=attention)
+    """Total log-likelihood of a (mini)batch {'tokens', 'labels'} (B, S),
+    with 'enc_embeds' for the vlm and audio families: the quantity whose
+    gradient SGLD/DSGLD/FSGLD scale by N_s/(f_s m). The head enters in
+    bf16, as in the reference, and the MoE router's load-balance loss as
+    a regulariser, ``AUX_WEIGHT`` per token."""
+    hidden, aux = forward(params, cfg, batch["tokens"],
+                          enc_embeds=batch.get("enc_embeds"),
+                          attention=attention)
     ll = chunked_log_lik(hidden, params["head"].to(ACT_DTYPE),
                          batch["labels"])
     return ll - AUX_WEIGHT * aux * batch["tokens"].numel()
@@ -374,35 +487,45 @@ def _fill_cache(kind: str, cfg: ArchConfig, cache: dict, k, v, positions):
 
 def prefill_with_cache(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
                        cache_len: int, *,
+                       enc_embeds: Optional[torch.Tensor] = None,
+                       enc_out: Optional[torch.Tensor] = None,
                        attention: AttentionFn = flash_attention):
     """Forward over the prompt AND build the decode cache in one pass.
 
     params: one draw cast by ``serving_params``; tokens (B, S) integer.
-    Returns (last-token logits (B, V) fp32, cache) where the cache has
-    ``init_cache(cfg, B, cache_len)``'s layout and
-    ``decode_step`` continues from position S. Each layer's
-    self-attention goes through ``attention`` (default: the
-    flash-attention kernel on CUDA, its plain version on the CPU). A
-    recurrent layer's state is the one its forward ends in: for 'rglru'
-    h and the last W-1 rows of the conv's input ``h @ w_x``
-    (zero-padded), for 'rwkv' S and the normed input's last row.
+    The vlm and audio families take ``enc_embeds`` (as ``forward``), or
+    ``enc_out``, the stream their 'xattn' layers attend to, already made
+    from it (``encoder_forward``'s output for audio, the bf16 patches for
+    vlm): a server that has encoded a request's frames hands them over
+    instead of encoding them again. Returns (last-token logits (B, V)
+    fp32, cache) where the cache has ``init_cache(cfg, B, cache_len)``'s
+    layout and ``decode_step`` continues from position S. Each
+    self-attention, the encoder's included, goes through ``attention``
+    (default: the flash-attention kernel on CUDA, its plain version on
+    the CPU). A recurrent layer's state is the one its forward ends in:
+    for 'rglru' h and the last W-1 rows of the conv's input ``h @ w_x``
+    (zero-padded), for 'rwkv' S and the normed input's last row. A vlm
+    'xattn' layer's cache entry is empty; an audio one holds its
+    self-attention's k/v.
     """
     _check_runs(cfg)
     B, S = tokens.shape
     if cache_len < S:
         raise ValueError(f"cache_len {cache_len} < prompt length {S}")
     dev = tokens.device
+    if enc_out is None:
+        enc_out = encoder_stream(params, cfg, enc_embeds, attention=attention)
     x = params["embed"][tokens].to(ACT_DTYPE)
     positions = torch.arange(S, device=dev).expand(B, S)
     cache = init_cache(cfg, B, cache_len, device=dev)
     for group, i, key, kind in _layers(cfg):
         p = _cast_floating(_take(params, group, i, key))
         c = _take(cache, group, i, key)
-        if kind in ("attn", "swa"):
-            window = cfg.swa_window if kind == "swa" else None
-            x, k, v = _self_attn(x, p, cfg, positions, window=window,
-                                 attention=attention)
-            _fill_cache(kind, cfg, c, k, v, positions)
+        if kind in ("attn", "swa", "xattn"):
+            x, k, v = _attending(kind, x, p, cfg, positions, enc_out,
+                                 attention)
+            if k is not None:
+                _fill_cache(kind, cfg, c, k, v, positions)
         elif kind == "rglru":
             x, h, h_last = _recurrent(kind, x, p)
             W = p["rec"]["conv_w"].shape[0]
@@ -424,6 +547,8 @@ def prefill_with_cache(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
 
 def _layer_cache(kind: str, cfg: ArchConfig, lead: tuple, batch: int,
                  seq_len: int, dtype, device):
+    if kind == "xattn" and cfg.family == "vlm":
+        return {}
     if kind == "rglru":
         return L.rglru_init_state(batch, cfg.d_model, L.RGLRU_CONV, dtype,
                                   lead=lead, device=device)
@@ -442,8 +567,9 @@ def _layer_cache(kind: str, cfg: ArchConfig, lead: tuple, batch: int,
 def init_cache(cfg: ArchConfig, batch: int, seq_len: int, dtype=ACT_DTYPE,
                device=None) -> dict:
     """Empty decode cache, stacked over full periods like the parameters:
-    per attention layer k/v (B, S, K, hd) and pos (B, S) = -1, S =
-    seq_len ('attn') or min(window, seq_len) ('swa', a ring); per
+    per attention layer ('attn', an audio 'xattn' layer's self-attention)
+    k/v (B, S, K, hd) and pos (B, S) = -1, S = seq_len ('attn') or
+    min(window, seq_len) ('swa', a ring); a vlm 'xattn' layer {}; per
     'rglru' layer h (B, D) fp32 and the conv history (B, W-1, D); per
     'rwkv' layer S (B, H, hd, hd) fp32 and x_prev (B, D)."""
     _check_runs(cfg)
@@ -488,19 +614,27 @@ def _decode_self_attn(x, p, cfg: ArchConfig, cache, pos, *, ring):
 
 
 def decode_step(params: dict, cfg: ArchConfig, cache: dict,
-                token: torch.Tensor, pos: torch.Tensor):
+                token: torch.Tensor, pos: torch.Tensor, *,
+                enc_out: Optional[torch.Tensor] = None):
     """One serving step of a draw cast by ``serving_params``. token (B, 1)
-    integer; pos (B,) absolute positions. Returns (logits (B, V) fp32,
-    cache), the cache updated in place: a stacked period's entries are
-    views into the stack, so recurrent states are written with
-    ``copy_``."""
+    integer; pos (B,) absolute positions; ``enc_out`` the vlm / audio
+    stream the 'xattn' layers attend to (their k and v are projected from
+    it at every step). Returns (logits (B, V) fp32, cache), the cache
+    updated in place: a stacked period's entries are views into the
+    stack, so recurrent states are written with ``copy_``."""
     _check_runs(cfg)
     x = params["embed"][token[:, 0]].to(ACT_DTYPE)[:, None, :]
+    if enc_out is not None:
+        enc_out = enc_out.to(ACT_DTYPE)
     for group, i, key, kind in _layers(cfg):
         p = _cast_floating(_take(params, group, i, key))
         c = _take(cache, group, i, key)
         if kind in ("attn", "swa"):
             x = _decode_self_attn(x, p, cfg, c, pos, ring=kind == "swa")
+        elif kind == "xattn":
+            if cfg.family == "audio":
+                x = _decode_self_attn(x, p, cfg, c, pos, ring=False)
+            x = _cross_attn(x, p, cfg, enc_out, gated=cfg.family == "vlm")
         else:
             h = L.rms_norm(x, p["norm"])
             step = L.rglru_decode if kind == "rglru" else L.rwkv_decode
@@ -522,16 +656,18 @@ def broadcast_cache(cache: dict, k: int) -> dict:
 
 
 def ensemble_decode_step(draws: dict, cfg: ArchConfig, caches: dict,
-                         token: torch.Tensor, pos: torch.Tensor):
+                         token: torch.Tensor, pos: torch.Tensor, *,
+                         enc_out: Optional[torch.Tensor] = None):
     """One serving step across K posterior draws sharing ONE token stream:
     ``draws``/``caches`` carry a leading (K, ...) draw axis, ``token``
-    (B, 1) and ``pos`` (B,) are shared. The draw axis is a loop over K
-    (each draw's cache updated in place through views). Returns
-    (logits (K, B, V), caches)."""
+    (B, 1), ``pos`` (B,) and ``enc_out`` are shared. The draw axis is a
+    loop over K (each draw's cache updated in place through views).
+    Returns (logits (K, B, V), caches)."""
     n = tu.leaves(draws)[0].shape[0]
     logits = []
     for kk in range(n):
         lg, _ = decode_step(tu.tree_map(lambda t: t[kk], draws), cfg,
-                            tu.tree_map(lambda t: t[kk], caches), token, pos)
+                            tu.tree_map(lambda t: t[kk], caches), token, pos,
+                            enc_out=enc_out)
         logits.append(lg)
     return torch.stack(logits), caches

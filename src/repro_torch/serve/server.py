@@ -18,6 +18,11 @@ reference's ``serve.prefill`` / ``serve.decode`` spans (each ending after
 a device synchronize, so its duration is ``ServeResult.prefill_s`` /
 ``decode_s``'s interval) and a ``serve.request`` event
 (``repro_torch.obs.trace``).
+
+The vlm and audio families take a request's stubbed frontend output
+(image patches, audio frames; drawn from the request's generator unless
+given): for audio the anchor draw encodes the frames once per request,
+and prefill and every decode step read that output.
 """
 from __future__ import annotations
 
@@ -31,8 +36,11 @@ import torch
 
 from repro_torch import checkpoint
 from repro_torch import tree as tu
-from repro_torch.models import (ensemble_decode_step, init_leaves,
-                                param_layout, serving_cast, serving_params)
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models import (encoder_stream, ensemble_decode_step,
+                                init_leaves, param_layout, serving_cast,
+                                serving_params)
+from repro_torch.models.model import ENCODER_FAMILIES
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serve.ensemble import ensemble_prefill, predictive_stats
 
@@ -221,18 +229,41 @@ class EnsembleServer:
         self._seen_draws = avail
         return True
 
+    def _encoder_inputs(self, generator: torch.Generator, batch: int,
+                        enc_embeds: Optional[torch.Tensor]):
+        """The stream a request's 'xattn' layers attend to
+        (``models.encoder_stream`` on the anchor draw: the vlm family's
+        patches (B, num_patches, D) cast to bf16, the encoder's output of
+        the audio family's frames (B, encoder_seq, D)); standard normals
+        from ``generator`` unless ``enc_embeds`` is given. None for the
+        other families."""
+        cfg, dev = self.cfg, self.device
+        if cfg.family not in ENCODER_FAMILIES:
+            return None
+        if enc_embeds is None:
+            T = cfg.num_patches if cfg.family == "vlm" else cfg.encoder_seq
+            enc_embeds = torch.randn((batch, T, cfg.d_model),
+                                     generator=generator, device=dev)
+        anchor = tu.tree_map(lambda t: t[0], self.draws)
+        return encoder_stream(anchor, cfg, enc_embeds.to(dev),
+                              attention=flash_attention)
+
     def generate(self, prompt: Optional[torch.Tensor] = None, *,
                  generator: Optional[torch.Generator] = None, gen: int = 16,
-                 batch: int = 4, prompt_len: int = 32) -> ServeResult:
+                 batch: int = 4, prompt_len: int = 32,
+                 enc_embeds: Optional[torch.Tensor] = None) -> ServeResult:
         """Serve one request: greedy decode ``gen`` tokens from the
         ensemble predictive mean. ``prompt`` (B, S) integer, or None to
         draw a random prompt from ``generator`` (on the server's device;
-        default seeded 0). Token 0 comes from the shared anchor prefill;
+        default seeded 0). The vlm and audio families' ``enc_embeds``
+        (B, T, D), or None to draw them from ``generator`` after the
+        prompt; the audio encoder runs once, on the anchor, inside the
+        prefill's span. Token 0 comes from the shared anchor prefill;
         ensemble fan-out statistics start at token 1."""
         cfg, dev = self.cfg, self.device
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
         if prompt is None:
-            if generator is None:
-                generator = torch.Generator(device=dev).manual_seed(0)
             prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                                    generator=generator, device=dev)
         prompt = prompt.to(dev)
@@ -245,8 +276,9 @@ class EnsembleServer:
         with obs_trace.span("serve.prefill", batch=B, prompt_len=S,
                             n_draws=self.n_draws):
             t0 = time.perf_counter()
+            enc_out = self._encoder_inputs(generator, B, enc_embeds)
             logits0, caches = ensemble_prefill(self.draws, cfg, prompt,
-                                               total)
+                                               total, enc_out=enc_out)
             # token 0: the anchor's logits as a one-draw ensemble
             stats = [predictive_stats(logits0[None])]
             _sync(dev)
@@ -258,8 +290,8 @@ class EnsembleServer:
             tok = stats[0].token[:, None]
             for t in range(S, total - 1):
                 pos = torch.full((B,), t, dtype=torch.int64, device=dev)
-                logits_k, caches = ensemble_decode_step(self.draws, cfg,
-                                                        caches, tok, pos)
+                logits_k, caches = ensemble_decode_step(
+                    self.draws, cfg, caches, tok, pos, enc_out=enc_out)
                 stats.append(predictive_stats(logits_k))
                 tok = stats[-1].token[:, None]
             _sync(dev)

@@ -317,6 +317,44 @@ def test_differentiable_flash_matches_plain_autograd(dev, dtype, B, S, H,
                      <= fa.tolerance(b)).all())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,Hkv,hd", [
+    (8, 1500, 20, 20, 64),    # whisper's encoder at the train shape
+    (4, 1500, 20, 20, 64)])   # and in a served request of batch 4
+def test_differentiable_flash_non_causal_at_the_encoder_shape(dev, dtype, B,
+                                                              S, H, Hkv, hd):
+    """The bidirectional self-attention of whisper's encoder (1,500
+    frames, 20 heads of 64): the differentiable entry with causal=False,
+    one launch, the output and the row log-sum-exp as in
+    ``test_differentiable_flash_matches_plain_autograd``, dq, dk, dv
+    within ``fa.tolerance`` of fp32 autograd through the plain scan."""
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=dev).manual_seed(S + B)
+    q, k, v, dout = (torch.randn(B, S, n, hd, generator=g, device=dev)
+                     .to(dtype) for n in (H, Hkv, Hkv, H))
+    pos = torch.arange(S, device=dev).expand(B, S)
+    ref, m, l = fa.attention_scan(q, k, v, pos, pos, causal=False,
+                                  stats=True)
+    out, lse = fa.flash_attention_lse(q, k, v, causal=False)
+    assert bool(((out.float() - ref.float()).abs()
+                 <= fa.tolerance(ref)).all())
+    torch.testing.assert_close(lse, m + torch.log(l), atol=1e-3, rtol=0)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fa.reset_launches()
+    got = torch.autograd.grad(
+        fa.flash_attention_diff(*leaves, causal=False), leaves, dout)
+    assert fa.LAUNCHES["flash_attention"] == 1
+    plain = [t.float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(
+        fa.attention_scan(*plain, pos, pos, causal=False), plain,
+        dout.float())
+    for a, b in zip(got, want):
+        b = b.to(dtype)
+        assert a.dtype == dtype
+        assert bool(((a.float() - b.float()).abs()
+                     <= fa.tolerance(b)).all())
+
+
 def test_train_step_launches_the_update_once(dev):
     """qwen3's smoke config on the card, FSGLD with a bf16 'scalar' bank
     on the host: each local step (of 2 chains; of 1 chain, whose second

@@ -1,4 +1,5 @@
-"""The port's MoE FFN, RG-LRU and RWKV-6 blocks against the JAX package.
+"""The port's MoE FFN, RG-LRU and RWKV-6 blocks, cross-attention and the
+encoder against the JAX package.
 
 Same numpy-made inputs and parameters on both sides, fp32 throughout:
 
@@ -12,8 +13,17 @@ Same numpy-made inputs and parameters on both sides, fp32 throughout:
   forward;
 * per model, ``prefill_with_cache`` then ``decode_step`` against the
   reference's, the recurrent caches leaf by leaf, for the smoke configs
-  of phi3.5-moe, grok-1, recurrentgemma-2b and rwkv6-7b, both packages
-  in fp32 activations.
+  of phi3.5-moe, grok-1, recurrentgemma-2b, rwkv6-7b, llama-3.2-vision
+  and whisper, both packages in fp32 activations;
+* the vlm and audio families (llama-3.2-vision's gated cross-attention,
+  whisper's encoder and cross-attention) at their smoke configs:
+  ``encoder_forward``, ``forward`` and ``log_lik_fn`` with ``enc_embeds``
+  and ``torch.func.grad`` of it against ``jax.grad``, in fp32
+  activations, every vlm gate set to 0.5 in both trees (at init a gate
+  is 0, and tanh(0) hides the cross-attention); the port's own forward
+  against its token-by-token decode in bf16 (5e-2 of the largest logit,
+  the reference's ``test_prefill_decode_parity``); the layouts against
+  the reference's ``init_params`` at full width; ``make_batch``.
 
 Tolerances are 1e-5 of the largest magnitude (the same fp32 arithmetic in
 another order; measured at most 2e-6 over these cases).
@@ -30,11 +40,20 @@ from test_torch_train import fp32_activations  # noqa: F401 (fixture)
 
 import repro.models.model as JM
 import repro_torch.models.model as TM
+from repro.configs import get_config as jax_config
 from repro.configs import get_smoke_config as jax_smoke
+from repro.configs.base import InputShape as JShape
+from repro.data.synthetic import make_batch as jax_make_batch
 from repro.models import layers as JL
+from repro_torch import api
 from repro_torch import tree as tu
+from repro_torch.configs import ARCH_NAMES
+from repro_torch.configs import get_config as torch_config
 from repro_torch.configs import get_smoke_config as torch_smoke
+from repro_torch.configs.base import InputShape as TShape
 from repro_torch.convert import params_from_jax
+from repro_torch.data import make_batch, token_shards
+from repro_torch.launch import train as ttrain
 from repro_torch.models import layers as TL
 
 TOL = 1e-5
@@ -346,8 +365,51 @@ def test_rwkv_decode_steps_the_forward(carried):
 # per model: prefill, the caches, decode
 # ---------------------------------------------------------------------------
 
+ENC_ARCHS = ("llama-3.2-vision-90b", "whisper-large-v3")
 NEW_ARCHS = ("phi3.5-moe-42b-a6.6b", "grok-1-314b", "recurrentgemma-2b",
-             "rwkv6-7b")
+             "rwkv6-7b") + ENC_ARCHS
+
+
+def _open_gates(tree, value=0.5):
+    """Every vlm 'xattn' gate of a numpy parameter tree set to ``value``
+    (in place; a tree without gates is left as it is)."""
+    for group in ("blocks", "rem_blocks"):
+        for layer in tree.get(group, {}).values():
+            if "gate" in layer.get("xattn", {}):
+                layer["xattn"]["gate"] = np.full_like(layer["xattn"]["gate"],
+                                                      value)
+    return tree
+
+
+def _model_params(arch, seed=0):
+    """(JAX config, port config, JAX params, port params) of ``arch``'s
+    smoke config: the reference's init, its vlm gates opened to 0.5,
+    carried across."""
+    jcfg, tcfg = jax_smoke(arch), torch_smoke(arch)
+    pn = _open_gates(jax.tree.map(
+        np.array, JM.init_params(jcfg, jax.random.PRNGKey(seed))))
+    return jcfg, tcfg, jax.tree.map(jnp.asarray, pn), params_from_jax(pn,
+                                                                      tcfg)
+
+
+def _enc_embeds(cfg, B, seed=5):
+    """The stubbed frontend's output of a batch of ``B`` for ``cfg``, fp32
+    standard normals (None for a family without one)."""
+    if cfg.family not in TM.ENCODER_FAMILIES:
+        return None
+    T = cfg.num_patches if cfg.family == "vlm" else cfg.encoder_seq
+    return np.random.default_rng(seed).standard_normal(
+        (B, T, cfg.d_model)).astype(np.float32)
+
+
+
+def _enc_out_jax(pj, jcfg, enc):
+    if enc is None:
+        return None
+    if jcfg.family == "vlm":
+        return jnp.asarray(enc).astype(JM.ACT_DTYPE)
+    return jax.jit(lambda p, e: JM.encoder_forward(p, jcfg, e))(
+        pj, jnp.asarray(enc))
 
 
 @pytest.mark.parametrize("arch", NEW_ARCHS)
@@ -355,20 +417,28 @@ def test_prefill_then_decode_matches_jax_fp32(arch, fp32_activations):
     """The smoke config, a (2, 70) prompt (recurrentgemma's 64-slot window
     ring wraps), 4 greedy steps of the JAX stream teacher-forced: the
     prefill logits and every cache leaf (k/v and positions, RG-LRU's h
-    and conv history, RWKV's S and x_prev) after the prefill and after
-    the decode, and each step's logits."""
-    jcfg, tcfg = jax_smoke(arch), torch_smoke(arch)
-    pj = JM.init_params(jcfg, jax.random.PRNGKey(0))
-    pt = TM.serving_params(params_from_jax(jax.tree.map(np.asarray, pj),
-                                           tcfg))
+    and conv history, RWKV's S and x_prev, whisper's self-attention k/v;
+    a vlm cross-attention layer's empty entry) after the prefill and
+    after the decode, and each step's logits. The vlm and audio families
+    prefill from ``enc_embeds`` and decode against the reference's
+    ``enc_out``; the port decodes against its own."""
+    jcfg, tcfg, pj, pt = _model_params(arch)
+    pt = TM.serving_params(pt)
     B, S, G = 2, 70, 4
     prompt = np.random.default_rng(8).integers(
         0, jcfg.vocab_size, (B, S)).astype(np.int32)
-    lj, cj = jax.jit(lambda p, t: JM.prefill_with_cache(p, jcfg, t, S + G))(
+    enc = _enc_embeds(jcfg, B)
+    kj = {} if enc is None else {"enc_embeds": jnp.asarray(enc)}
+    kt = {} if enc is None else {"enc_embeds": torch.from_numpy(enc)}
+    eoj = _enc_out_jax(pj, jcfg, enc)
+    eot = TM.encoder_stream(pt, tcfg, kt.get("enc_embeds"))
+    lj, cj = jax.jit(lambda p, t: JM.prefill_with_cache(p, jcfg, t, S + G,
+                                                        **kj))(
         pj, jnp.asarray(prompt))
-    step = jax.jit(lambda c, t, q: JM.decode_step(pj, jcfg, c, t, q))
+    step = jax.jit(lambda c, t, q: JM.decode_step(pj, jcfg, c, t, q,
+                                                  enc_out=eoj))
     lt, ct = TM.prefill_with_cache(pt, tcfg, torch.from_numpy(prompt).long(),
-                                   S + G)
+                                   S + G, **kt)
 
     def same_cache():
         jl = jax.tree.leaves(cj)
@@ -390,7 +460,7 @@ def test_prefill_then_decode_matches_jax_fp32(arch, fp32_activations):
                       jnp.full((B,), t, jnp.int32))
         lt, ct = TM.decode_step(pt, tcfg, ct,
                                 torch.from_numpy(tok[:, None]).long(),
-                                torch.full((B,), t))
+                                torch.full((B,), t), enc_out=eot)
         _close(lt, lj)
         tok = np.asarray(jnp.argmax(lj, -1))
     same_cache()
@@ -425,17 +495,214 @@ def test_recurrent_and_moe_layouts_match_the_reference():
         params_from_jax(pj, tcfg)
         pt = TM.init_params(tcfg, torch.Generator().manual_seed(0))
         for (n, a), b in zip(tu.leaves_with_names(pt), jax.tree.leaves(pj)):
-            if n.split("/")[-1] in ("lam", "w0", "u", "norm", "ffn_norm") \
+            if n.split("/")[-1] in ("lam", "w0", "u", "norm", "ffn_norm",
+                                    "xnorm", "gate", "final_norm") \
                     or n.split("/")[-1].startswith("mu_"):
                 np.testing.assert_array_equal(a.numpy(), b, err_msg=n)
 
 
-def test_only_cross_attention_and_the_encoder_are_refused():
-    """whisper (encoder + 'xattn') and llama-3.2-vision ('xattn') still
-    wait for ROADMAP item 15."""
-    for arch in ("whisper-large-v3", "llama-3.2-vision-90b"):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            TM.param_layout(torch_smoke(arch))
+@pytest.mark.parametrize("arch", sorted(ARCH_NAMES))
+def test_only_the_encoder_families_are_refused_by_the_train_driver(arch):
+    """The train driver builds token shards only, so it refuses the vlm
+    and audio families, whose likelihood reads enc_embeds (as the
+    reference's driver cannot carry them), naming the facade; it parses
+    every other arch, and the model builds every arch's layout."""
+    TM.param_layout(torch_smoke(arch))
+    if torch_smoke(arch).family in TM.ENCODER_FAMILIES:
+        with pytest.raises(SystemExit, match="enc_embeds.*api.FSGLD"):
+            ttrain.parse_args(["--arch", arch, "--smoke", "--device", "cpu"])
+    else:
+        assert ttrain.parse_args(["--arch", arch]).arch == arch
+
+
+def test_an_encoder_outside_the_audio_family_is_refused():
+    """Only the audio family's decoder reads an encoder's output (an
+    'xattn' layer outside vlm and audio: ``test_torch_train.py``)."""
     cfg = dataclasses.replace(torch_smoke("qwen3-1.7b"), encoder_layers=1)
-    with pytest.raises(NotImplementedError, match="encoder.*item 15"):
+    with pytest.raises(ValueError, match="audio family"):
         TM.param_layout(cfg)
+
+
+# ---------------------------------------------------------------------------
+# cross-attention and the encoder (vlm, audio)
+# ---------------------------------------------------------------------------
+
+def test_encoder_forward_matches_jax(fp32_activations):
+    """whisper's smoke encoder (2 layers, 32 frames, d 256) on (2, 32,
+    256) frames: the output within 1e-5 of the largest."""
+    jcfg, tcfg, pj, pt = _model_params("whisper-large-v3")
+    enc = _enc_embeds(jcfg, 2)
+    want = _enc_out_jax(pj, jcfg, enc)
+    _close(TM.encoder_forward(pt, tcfg, torch.from_numpy(enc)), want)
+
+
+def _batch_pair(jcfg, B=2, S=24, seed=3):
+    toks = np.random.default_rng(seed).integers(
+        0, jcfg.vocab_size, (B, S + 1)).astype(np.int32)
+    enc = _enc_embeds(jcfg, B)
+    bj = {"tokens": jnp.asarray(toks[:, :-1]),
+          "labels": jnp.asarray(toks[:, 1:]), "enc_embeds": jnp.asarray(enc)}
+    bt = {"tokens": torch.from_numpy(toks[:, :-1]).long(),
+          "labels": torch.from_numpy(toks[:, 1:]).long(),
+          "enc_embeds": torch.from_numpy(enc)}
+    return bj, bt
+
+
+@pytest.mark.parametrize("arch", ENC_ARCHS)
+def test_forward_and_log_lik_with_enc_embeds_match_jax(arch,
+                                                       fp32_activations):
+    """(2, 24) tokens and their enc_embeds: the hidden states within 1e-5
+    of the largest and ``log_lik_fn`` within 1e-6 relative. The frames
+    move the output (the vlm's through its opened gates): other
+    enc_embeds give other hidden states."""
+    jcfg, tcfg, pj, pt = _model_params(arch)
+    bj, bt = _batch_pair(jcfg)
+    hj, _ = jax.jit(lambda p, b: JM.forward(
+        p, jcfg, b["tokens"], enc_embeds=b["enc_embeds"]))(pj, bj)
+    ht, _ = TM.forward(pt, tcfg, bt["tokens"], enc_embeds=bt["enc_embeds"])
+    _close(ht, hj)
+    other, _ = TM.forward(pt, tcfg, bt["tokens"], enc_embeds=torch.from_numpy(
+        _enc_embeds(jcfg, 2, seed=6)))
+    assert not torch.allclose(other, ht, rtol=0, atol=1e-3)
+    lj = jax.jit(lambda p, b: JM.log_lik_fn(p, jcfg, b))(pj, bj)
+    assert abs(float(TM.log_lik_fn(pt, tcfg, bt)) / float(lj) - 1) < 1e-6
+
+
+@pytest.mark.parametrize("arch", ENC_ARCHS)
+def test_log_lik_grad_with_enc_embeds_matches_jax(arch, fp32_activations):
+    """``torch.func.grad`` of ``log_lik_fn`` against ``jax.grad``: every
+    leaf within 1e-5 of its largest (measured: at most 2e-6), and the
+    encoder's, the cross-attention's and the vlm gate's nonzero (a vlm
+    'xattn' layer's ``norm`` is unused, its gradient 0 in both)."""
+    jcfg, tcfg, pj, pt = _model_params(arch)
+    bj, bt = _batch_pair(jcfg)
+    gj = jax.jit(jax.grad(lambda p: JM.log_lik_fn(p, jcfg, bj)))(pj)
+    gt = grad(lambda p: TM.log_lik_fn(p, tcfg, bt))(pt)
+    names = [n for n, _ in tu.leaves_with_names(gt)]
+    assert any("encoder" in n for n in names) == (arch == ENC_ARCHS[1])
+    for n, a, b in zip(names, tu.leaves(gt), jax.tree.leaves(gj)):
+        assert a.dtype == torch.float32, n
+        if any(w in n for w in ("xattn", "xnorm", "encoder")):
+            assert float(np.abs(np.asarray(b)).max()) > 0, n
+        _close(a, b)
+
+
+PARITY_ARCHS = ("qwen3-1.7b", "h2o-danube-1.8b", "llama-3.2-vision-90b",
+                "whisper-large-v3", "recurrentgemma-2b", "rwkv6-7b")
+
+
+@pytest.mark.parametrize("arch", PARITY_ARCHS)
+def test_prefill_decode_parity(arch):
+    """The port in bf16, as it runs: the full-sequence forward's logits
+    and those of decoding the same (2, 24) tokens one at a time from an
+    empty cache agree within 5e-2 of the largest (the reference's
+    ``test_archs.py::test_prefill_decode_parity``); the vlm decodes
+    against the bf16 patches, whisper against ``encoder_forward``."""
+    cfg = torch_smoke(arch)
+    gen = torch.Generator().manual_seed(1)
+    params = TM.init_params(cfg, gen)
+    if cfg.family == "vlm":
+        params = params_from_jax(_open_gates(tu.tree_map(
+            lambda t: t.numpy(), params)), cfg)
+    B, S = 2, 24
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen)
+    enc = None if cfg.family not in TM.ENCODER_FAMILIES else torch.randn(
+        (B, cfg.num_patches or cfg.encoder_seq, cfg.d_model), generator=gen)
+    hidden, _ = TM.forward(params, cfg, tokens, enc_embeds=enc)
+    full = hidden.float() @ params["head"].to(torch.bfloat16).float()
+    served = TM.serving_params(params)
+    enc_out = TM.encoder_stream(served, cfg, enc)
+    cache = TM.init_cache(cfg, B, S)
+    steps = [TM.decode_step(served, cfg, cache, tokens[:, t:t + 1],
+                            torch.full((B,), t), enc_out=enc_out)[0]
+             for t in range(S)]
+    dec = torch.stack(steps, 1)
+    rel = float((full - dec).abs().max() / full.abs().max())
+    assert rel < 0.05, rel
+
+
+@pytest.mark.parametrize("arch", ENC_ARCHS)
+def test_layouts_match_the_reference_at_full_width(arch):
+    """``param_layout`` at the published width (llama-3.2-vision at one
+    period, 5 of 100 layers: 4 'attn' and 1 gated 'xattn') against the
+    shapes of the reference's ``init_params`` (``jax.eval_shape``: no
+    parameter is made), leaf by leaf, names included: whisper's 25 leaves
+    hold 1,600,990,720 parameters, the vision period 6,379,634,689."""
+    import math
+    jcfg, tcfg = jax_config(arch), torch_config(arch)
+    if arch.startswith("llama"):
+        jcfg = dataclasses.replace(jcfg, num_layers=5)
+        tcfg = dataclasses.replace(tcfg, num_layers=5)
+    want = jax.eval_shape(lambda: JM.init_params(jcfg,
+                                                 jax.random.PRNGKey(0)))
+    got = tu.leaves_with_names(TM.param_layout(tcfg))
+    paths = [jax.tree_util.keystr(k, simple=True, separator="/")
+             for k, _ in jax.tree_util.tree_flatten_with_path(want)[0]]
+    assert [n for n, _ in got] == paths
+    for (n, leaf), w in zip(got, jax.tree.leaves(want)):
+        assert tuple(leaf.shape) == w.shape, n
+    total = sum(math.prod(leaf.shape) for _, leaf in got)
+    assert (len(got), total) == {"whisper-large-v3": (25, 1_600_990_720),
+                                 "llama-3.2-vision-90b": (50, 6_379_634_689)
+                                 }[arch]
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "llama-3.2-vision-90b",
+                                  "whisper-large-v3"])
+def test_make_batch_has_the_reference_keys_shapes_and_dtypes(arch):
+    """At the smoke configs and a (3, 12) input shape: the same keys,
+    shapes and dtypes as the reference's ``make_batch`` (int32 tokens
+    and labels in the vocabulary; bf16 enc_embeds for vlm and audio);
+    the draws come from the generator."""
+    shape = dict(name="t", seq_len=12, global_batch=3, kind="train")
+    want = jax_make_batch(jax_smoke(arch), JShape(**shape),
+                          jax.random.PRNGKey(0))
+    got = make_batch(torch_smoke(arch), TShape(**shape),
+                     torch.Generator().manual_seed(0))
+    assert sorted(got) == sorted(want)
+    for n, w in want.items():
+        assert tuple(got[n].shape) == w.shape, n
+        assert str(got[n].dtype) == f"torch.{w.dtype}", n
+    assert 0 <= int(got["tokens"].min()) and \
+        int(got["tokens"].max()) < torch_smoke(arch).vocab_size
+    again = make_batch(torch_smoke(arch), TShape(**shape),
+                       torch.Generator().manual_seed(0))
+    assert all(torch.equal(got[n], again[n]) for n in got)
+
+
+def test_a_facade_round_with_enc_embeds_packed_equals_per_leaf():
+    """whisper's smoke posterior through ``api.FSGLD`` with an
+    'enc_embeds' leaf in the shards (each row's frames, gathered with its
+    tokens by the engine): a bf16 'scalar' bank fitted by local SGLD, C =
+    2, one round of 2 steps, bf16 activations; the packed and per_leaf
+    executors end in the same states, bitwise, and the chains moved."""
+    cfg = torch_smoke("whisper-large-v3")
+    theta0 = TM.init_params(cfg, torch.Generator().manual_seed(0))
+    data = token_shards(torch.Generator().manual_seed(1), num_shards=2,
+                        shard_size=3, seq_len=8, vocab_size=cfg.vocab_size)
+    frames = make_batch(cfg, TShape("t", seq_len=8, global_batch=6,
+                                    kind="train"),
+                        torch.Generator().manual_seed(2))["enc_embeds"]
+    data["enc_embeds"] = frames.reshape((2, 3) + tuple(frames.shape[1:]))
+    ll = lambda p, b: TM.log_lik_fn(p, cfg, b)  # noqa: E731
+    bank = api.fit_bank_local_sgld(ll, data, theta0,
+                                   torch.Generator().manual_seed(3),
+                                   fit_steps=2, minibatch=2, step_size=1e-5,
+                                   store_dtype=torch.bfloat16)
+    out = {}
+    for ex in ("packed", "per_leaf"):
+        s = api.FSGLD(
+            api.Posterior(ll, prior_precision=1.0), data, minibatch=2,
+            step_size=1e-5,
+            surrogate=api.SurrogateSpec(kind="scalar", bank=bank),
+            schedule=api.Schedule(rounds=1, local_steps=2, n_chains=2,
+                                  reassign="permutation"),
+            execution=api.Execution(device="cpu", executor=ex,
+                                    collect=False, dtype=torch.bfloat16))
+        out[ex] = s.sample(torch.Generator().manual_seed(4), theta0)
+    moved = False
+    for (n, a), b, t0 in zip(tu.leaves_with_names(out["packed"]),
+                             tu.leaves(out["per_leaf"]), tu.leaves(theta0)):
+        assert a.shape == (2,) + t0.shape and torch.equal(a, b), n
+        moved = moved or not torch.equal(a[0], t0)
+    assert moved and len(tu.leaves(theta0)) == 25

@@ -586,7 +586,7 @@ def test_f1_through_both_facades_on_one_data_set():
 def test_linear_surrogates_zero_mean_and_stable_on_the_cpu():
     """tests/test_extensions.py's linear-surrogate run through the port's
     facade, cut from 100 to 30 rounds of 100 steps (the chain relaxes in
-    ~10 steps; chip_smoke.py's [kinds] runs all 100): the conducive terms
+    ~10 steps; chip_smoke.py's [kinds] runs 50): the conducive terms
     sum to 0 within 1e-2 and the posterior-mean MSE is under 5e-3."""
     data, post, bank, total = W.linear_surrogate_problem(
         torch.Generator().manual_seed(0))

@@ -2,7 +2,10 @@
 of qwen3-1.7b (GQA, qk_norm, full attention), h2o-danube-1.8b (sliding
 window: the prompt plus generation outruns the 64-slot ring cache),
 phi3.5-moe and grok-1 (MoE FFN), recurrentgemma-2b (RG-LRU states and a
-64-slot window) and rwkv6-7b (RWKV-6 states).
+64-slot window), rwkv6-7b (RWKV-6 states), llama-3.2-vision (gated
+cross-attention to image patches, every gate set to 0.5: at init a gate
+is 0 and hides the cross-attention) and whisper (the audio encoder and
+cross-attention), the last two with the same numpy patches or frames.
 
 JAX parameters are carried across by ``convert.params_from_jax``; the
 same numpy prompt goes to both. Tolerances: logits and cache entries are
@@ -34,9 +37,12 @@ from repro_torch.configs import ARCH_NAMES, get_config, get_smoke_config
 from repro_torch.launch import serve as serve_cli
 from repro_torch.serve import (EnsembleServer, ensemble_prefill,
                                predictive_stats)
+from test_torch_models import _enc_embeds, _enc_out_jax, _open_gates
+from test_torch_train import fp32_activations  # noqa: F401 (fixture)
 
 ARCHS = ["qwen3-1.7b", "h2o-danube-1.8b", "phi3.5-moe-42b-a6.6b",
-         "grok-1-314b", "recurrentgemma-2b", "rwkv6-7b"]
+         "grok-1-314b", "recurrentgemma-2b", "rwkv6-7b",
+         "llama-3.2-vision-90b", "whisper-large-v3"]
 NEW_ARCHS = ARCHS[2:]
 B, S, GEN = 2, 80, 6
 REL = 5e-2
@@ -58,12 +64,18 @@ def case(request):
     once per arch."""
     arch = request.param
     jc, cfg = jax_smoke_config(arch), get_smoke_config(arch)
-    jp = JM.init_params(jc, jax.random.PRNGKey(0))
+    jp = jax.tree.map(jnp.asarray, _open_gates(jax.tree.map(
+        np.array, JM.init_params(jc, jax.random.PRNGKey(0)))))
     prompt = np.random.default_rng(1).integers(
         0, cfg.vocab_size, (B, S)).astype(np.int32)
     total = S + GEN
-    logits, cache = JM.prefill_with_cache(jp, jc, jnp.asarray(prompt), total)
-    step = jax.jit(lambda c, t, p: JM.decode_step(jp, jc, c, t, p))
+    enc = _enc_embeds(cfg, B)
+    kw = {} if enc is None else {"enc_embeds": jnp.asarray(enc)}
+    logits, cache = JM.prefill_with_cache(jp, jc, jnp.asarray(prompt), total,
+                                          **kw)
+    enc_out = _enc_out_jax(jp, jc, enc)
+    step = jax.jit(lambda c, t, p: JM.decode_step(jp, jc, c, t, p,
+                                                  enc_out=enc_out))
     tokens = [np.asarray(jnp.argmax(logits, -1))]
     step_logits = []
     c = cache
@@ -75,6 +87,7 @@ def case(request):
     return dict(cfg=cfg, params=TM.serving_params(convert.params_from_jax(
                     jax.tree.map(np.asarray, jp), cfg)),
                 prompt=prompt, total=total, logits=np.asarray(logits),
+                enc=None if enc is None else torch.from_numpy(enc),
                 cache=jax.tree.map(_f32, cache),
                 cache_dtypes=[str(t.dtype) for t in jax.tree.leaves(cache)],
                 tokens=tokens,
@@ -85,7 +98,7 @@ def test_prefill_logits_and_cache_match_jax(case):
     cfg = case["cfg"]
     logits, cache = TM.prefill_with_cache(
         case["params"], cfg, torch.from_numpy(case["prompt"]).long(),
-        case["total"])
+        case["total"], enc_embeds=case["enc"])
     assert logits.dtype == torch.float32
     assert _rel(logits.numpy(), case["logits"]) < REL
     jl, jd = jax.tree.flatten(case["cache"])
@@ -104,12 +117,14 @@ def test_teacher_forced_decode_matches_jax(case):
     """Decode fed JAX's own greedy stream, so a bf16 argmax tie cannot
     fork the comparison."""
     cfg, params = case["cfg"], case["params"]
+    enc_out = TM.encoder_stream(params, cfg, case["enc"])
     _, cache = TM.prefill_with_cache(
-        params, cfg, torch.from_numpy(case["prompt"]).long(), case["total"])
+        params, cfg, torch.from_numpy(case["prompt"]).long(), case["total"],
+        enc_out=enc_out)
     for i, t in enumerate(range(S, case["total"] - 1)):
         tok = torch.tensor(case["tokens"][i][:, None], dtype=torch.long)
         lg, cache = TM.decode_step(params, cfg, cache, tok,
-                                   torch.full((B,), t))
+                                   torch.full((B,), t), enc_out=enc_out)
         assert _rel(lg.numpy(), case["step_logits"][i]) < REL, t
 
 
@@ -130,29 +145,33 @@ def test_predictive_stats_match_jax(K):
 
 
 def test_k1_ensemble_bitwise_matches_plain_loop(case):
-    cfg, params = case["cfg"], case["params"]
+    cfg, params, enc = case["cfg"], case["params"], case["enc"]
     prompt = torch.from_numpy(case["prompt"]).long()
     total = case["total"]
-    logits, cache = TM.prefill_with_cache(params, cfg, prompt, total)
+    enc_out = TM.encoder_stream(params, cfg, enc)
+    logits, cache = TM.prefill_with_cache(params, cfg, prompt, total,
+                                          enc_embeds=enc)
     want_tok = [torch.argmax(logits, -1)]
     want_logits = []
     for t in range(S, total - 1):
         lg, cache = TM.decode_step(params, cfg, cache, want_tok[-1][:, None],
-                                   torch.full((B,), t))
+                                   torch.full((B,), t), enc_out=enc_out)
         want_logits.append(lg)
         want_tok.append(torch.argmax(lg, -1))
 
     draws = tu.tree_map(lambda t: t[None], params)
-    logits0, caches = ensemble_prefill(draws, cfg, prompt, total)
+    logits0, caches = ensemble_prefill(draws, cfg, prompt, total,
+                                       enc_out=enc_out)
     tok = predictive_stats(logits0[None]).token[:, None]
     for i, t in enumerate(range(S, total - 1)):
         lk, caches = TM.ensemble_decode_step(draws, cfg, caches, tok,
-                                             torch.full((B,), t))
+                                             torch.full((B,), t),
+                                             enc_out=enc_out)
         assert torch.equal(lk[0], want_logits[i])
         tok = predictive_stats(lk).token[:, None]
 
     res = EnsembleServer(cfg, draws=draws, device="cpu").generate(
-        prompt, gen=GEN)
+        prompt, gen=GEN, enc_embeds=enc)
     assert torch.equal(res.tokens, torch.stack(want_tok, 1))
     assert torch.all(res.mutual_info == 0)
     assert torch.all(res.token_var == 0)
@@ -163,15 +182,15 @@ def test_distinct_draws_disagree(case):
     zero epistemic uncertainty at the anchor's token 0, positive after."""
     cfg = case["cfg"]
     jc = jax_smoke_config(cfg.name)
-    stacked = jax.tree.map(
+    stacked = _open_gates(jax.tree.map(
         lambda *ls: np.stack(ls),
         *[jax.tree.map(np.asarray, JM.init_params(jc, jax.random.PRNGKey(s)))
-          for s in range(3)])
+          for s in range(3)]))
     srv = EnsembleServer(cfg, draws=convert.draws_from_jax(stacked, cfg),
                          device="cpu")
     assert srv.n_draws == 3
     res = srv.generate(torch.from_numpy(case["prompt"][:, :16]).long(),
-                       gen=4)
+                       gen=4, enc_embeds=case["enc"])
     assert res.tokens.shape == (B, 4)
     for f in (res.mean_logprob, res.entropy, res.mutual_info,
               res.token_var):
@@ -228,14 +247,80 @@ def test_fresh_draws_are_the_cast_inits(arch):
         assert torch.equal(a, torch.stack(ws)), n
 
 
-@pytest.mark.parametrize("arch", ["whisper-large-v3", "llama-3.2-vision-90b"])
-def test_unported_kinds_are_refused(arch):
-    cfg = get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        TM.init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="item 15"):
-        TM.prefill_with_cache({}, cfg, torch.zeros(1, 4, dtype=torch.long),
-                              8)
+def _whisper_draws(k=2):
+    """(JAX config, port config, k stacked JAX inits as numpy, the frames
+    of a batch of B, a (B, 12) prompt) at whisper's smoke config."""
+    jc, cfg = (jax_smoke_config("whisper-large-v3"),
+               get_smoke_config("whisper-large-v3"))
+    stacked = jax.tree.map(
+        lambda *ls: np.stack(ls),
+        *[jax.tree.map(np.asarray, JM.init_params(jc, jax.random.PRNGKey(s)))
+          for s in range(k)])
+    prompt = np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (B, 12)).astype(np.int32)
+    return jc, cfg, stacked, _enc_embeds(cfg, B, seed=7), prompt
+
+
+def test_a_whisper_request_equals_the_reference_servers(fp32_activations):
+    """K = 2 draws, the same prompt and injected frames (the reference's
+    ``_encoder_inputs`` replaced by them), both packages in fp32
+    activations: the same tokens, each signal within 1e-5 of its largest
+    (the same fp32 arithmetic in another order)."""
+    from repro.serve import EnsembleServer as JServer
+    jc, cfg, stacked, enc, prompt = _whisper_draws()
+    jsrv = JServer(jc, draws=jax.tree.map(jnp.asarray, stacked))
+    anchor = jax.tree.map(lambda t: t[0], jsrv.draws)
+    jsrv._encoder_inputs = lambda key, batch: (
+        jnp.asarray(enc), JM.encoder_forward(anchor, jc, jnp.asarray(enc)))
+    want = jsrv.generate(jnp.asarray(prompt), gen=GEN)
+    got = EnsembleServer(cfg, draws=convert.draws_from_jax(stacked, cfg),
+                         device="cpu").generate(
+        torch.from_numpy(prompt).long(), gen=GEN,
+        enc_embeds=torch.from_numpy(enc))
+    np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(want.tokens))
+    for f in ("mean_logprob", "entropy", "mutual_info", "token_var"):
+        w = np.asarray(getattr(want, f))
+        np.testing.assert_allclose(getattr(got, f).numpy(), w, rtol=0,
+                                   atol=1e-5 * float(np.abs(w).max()),
+                                   err_msg=f)
+
+
+def test_the_encoder_runs_once_per_request(monkeypatch):
+    """The port encodes a request's frames once, on the anchor, and hands
+    the output to the prefill (the reference encodes them again inside
+    ``prefill_with_cache``): one ``encoder_forward`` call per request; the
+    anchor's prefill from that ``enc_out`` equals the prefill from the
+    frames bitwise, and the reference's two-pass prefill (the encoder
+    inside it) within ``REL`` in logits and every cache leaf (bf16, as
+    served)."""
+    import repro_torch.serve.server as tserver
+    jc, cfg, stacked, enc, prompt = _whisper_draws()
+    calls = []
+    real = tserver.encoder_stream
+    monkeypatch.setattr(tserver, "encoder_stream",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    srv = EnsembleServer(cfg, draws=convert.draws_from_jax(stacked, cfg),
+                         device="cpu")
+    srv.generate(torch.from_numpy(prompt).long(), gen=3,
+                 enc_embeds=torch.from_numpy(enc))
+    assert len(calls) == 1
+    anchor = tu.tree_map(lambda t: t[0], srv.draws)
+    tok = torch.from_numpy(prompt).long()
+    once = TM.prefill_with_cache(anchor, cfg, tok, 16, enc_out=real(
+        anchor, cfg, torch.from_numpy(enc)))
+    twice = TM.prefill_with_cache(anchor, cfg, tok, 16,
+                                  enc_embeds=torch.from_numpy(enc))
+    for a, b in zip(tu.leaves(once), tu.leaves(twice)):
+        assert torch.equal(a, b)
+    jl, jcache = JM.prefill_with_cache(
+        jax.tree.map(lambda t: jnp.asarray(t[0]), stacked), jc,
+        jnp.asarray(prompt), 16, enc_embeds=jnp.asarray(enc))
+    assert _rel(once[0].numpy(), jl) < REL
+    for a, b in zip(tu.leaves(once[1]), jax.tree.leaves(jcache)):
+        if a.dtype == torch.int32:
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        else:
+            assert _rel(a.float().numpy(), _f32(b)) < REL
 
 
 def test_unported_serving_options_are_refused():
