@@ -149,9 +149,10 @@ SGHMC_DIVERGED = -10.0
 # MSE (workloads.chain_mse)
 FIG_ROUNDS, FIG_CHAINS = 2000, 32
 # the frontier (benchmarks/bench_frontier.py: 4,000 rounds, 4 chains,
-# d = 64), cut to FRONTIER_ROUNDS (2,000 until the script's time was
-# cut: FSGLD's MSE was 1.2e-3 to 1.9e-3 there); its FSGLD MSE ceiling
-FRONTIER_ROUNDS, FRONTIER_CHAINS, FRONTIER_CEILING = 1000, 4, 0.1
+# d = 64), cut to FRONTIER_ROUNDS (2,000, then 1,000 until the
+# script's time was cut again: FSGLD's MSE was 1.2e-3 to 1.9e-3 at
+# 2,000); its FSGLD MSE ceiling
+FRONTIER_ROUNDS, FRONTIER_CHAINS, FRONTIER_CEILING = 500, 4, 0.1
 
 # The paper's own workloads (src/repro_torch/workloads.py), at their
 # benchmarks' full lengths, C = PAPER_CHAINS chains standing for the 3
@@ -209,11 +210,14 @@ CHECK_T = 1
 # 50-point minibatch log-likelihood), and the timing's repetitions.
 # [resume]: Table-1 RESUME_ROUNDS rounds, a snapshot every RESUME_EVERY;
 # [train-c2]'s model C2_RESUME_ROUNDS rounds, every C2_RESUME_EVERY.
-# [bank]: the train driver at full width and depth, BANK_ROUNDS rounds,
-# a draw every BANK_EVERY; the refresh checks at BANK_LAYERS layers.
+# [bank]: the train driver at full width and BANK_LAYERS layers with
+# FAM_FIT fit steps (the pipeline does not depend on the fit's length),
+# BANK_ROUNDS rounds, a draw every BANK_EVERY, then the refresh checks.
 CHAOS_THRESHOLD, CHAOS_REPS, CHAOS_TIME_ROUNDS = 1e4, 3, 100
 RESUME_ROUNDS, RESUME_EVERY = 7, 3
-C2_RESUME_ROUNDS, C2_RESUME_EVERY = 4, 2
+# (one chain since PR 21, for the script's time: the snapshot I/O scales
+# with the chains, and [resume]'s Table-1 run resumes four)
+C2_RESUME_ROUNDS, C2_RESUME_EVERY, C2_RESUME_CHAINS = 4, 2, 1
 BANK_ROUNDS, BANK_EVERY, BANK_LAYERS = 4, 2, 2
 # a serving span closes right after the request's own timer: at most this
 # many seconds apart
@@ -239,10 +243,10 @@ STREAM_CLIENTS, STREAM_H = 1_000_000, 4e-13
 # 4), for the script's time.
 # whisper's request is 30 s of audio (1,500 frames) per row and a prompt
 # that stays inside its 448-token decoder context with the new tokens;
-# it samples with minibatches of 4 rows, not the driver's 8: at 8 one
-# gradient pass alone peaks at ~66 GB (the encoder over 8 x 1,500
-# frames), more than the card holds beside the sampler's ~32 GB of
-# packed buffers (PERF.md section 4);
+# it samples with the driver's minibatches of 8 rows since the recompute
+# (cfg.remat): without it one gradient pass alone peaked at ~66 GB (the
+# encoder over 8 x 1,500 frames), more than the card holds beside the
+# sampler's ~32 GB of packed buffers (PERF.md section 4);
 # llama-3.2-vision serves one period of its 100 layers (4 'attn', 1 gated
 # 'xattn'): a full-depth bf16 draw is ~175 GB.
 FAMILIES = {
@@ -256,7 +260,7 @@ FAMILIES = {
                      serve=(None, 2, 4, 2048), train=3, profile=4),
     "whisper-large-v3": dict(tag="whisper", width=(1280, 20, 20, 64, 5120,
                                                    51_866),
-                             serve=(None, 4, 4, 256), train=32, batch=4),
+                             serve=(None, 4, 4, 256), train=32, batch=8),
     "llama-3.2-vision-90b": dict(tag="vlm", width=(8192, 64, 8, 128, 28_672,
                                                    128_256),
                                  serve=(5, 2, 2, 2048), train=None),
@@ -269,6 +273,9 @@ VLM_GATE = 0.5
 # steps and FAM_R rounds x FAM_T steps (3 rounds until the script's time
 # was cut)
 FAM_FIT, FAM_R, FAM_T = 4, 2, 2
+# Adaptive refresh in [fig2-3]: REFRESH_ROUNDS rounds x REFRESH_T steps,
+# the bank re-fitted every REFRESH_EVERY rounds.
+REFRESH_ROUNDS, REFRESH_T, REFRESH_EVERY = 20, 50, 5
 
 
 def log(msg: str) -> None:
@@ -970,6 +977,49 @@ def phase_fald(dev, shards, theta0):
                        theta0)
 
 
+def phase_mesh(dev, shards, theta0, bank):
+    """The mesh path at one rank: an NCCL world of one process and a
+    (1, 1) ('data', 'model') DeviceMesh on the card; a Table-1 packed run
+    and an FA-LD run on it, each bitwise the run without it (the chains'
+    gathers and FA-LD's average go through NCCL all-gathers), and the
+    mesh's cost per round (the runs in turns). Returns the mesh."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as lmesh
+    mesh = lmesh.make_host_mesh("cuda")
+    log(f"  backend {dist.get_backend()}, world {dist.get_world_size()}, "
+        f"mesh {dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))} on "
+        f"{mesh.device_type}")
+    steps = T1_ROUNDS * T1_T
+    packed = {"fsgld_update_packed": steps, "fsgld_update_2d": 0}
+    runs = {}
+    # the first run on the mesh sets up NCCL's communicators: untimed
+    for tag in ("mesh",) + ("meshless", "mesh", "mesh", "meshless") * 2:
+        exe = {"mesh": mesh} if tag == "mesh" else None
+        out, dt, _, _ = _counted(
+            f"mesh/table1 {tag}", lambda: t1_sampler(
+                dev, shards, bank, "packed", exe=exe).sample(
+                _gen(dev, 20), theta0), packed)
+        runs.setdefault(tag, []).append((out, dt))
+    same("mesh: Table-1 packed on the mesh == without",
+         runs["mesh"][0][0], runs["meshless"][0][0])
+    ms = {t: sorted(round(1e3 * dt / T1_ROUNDS, 3) for _, dt in r[-4:])
+          for t, r in runs.items()}
+    log(f"  Table-1 packed, {T1_ROUNDS} rounds x {T1_T} steps, C="
+        f"{T1_CHAINS}: ms per round on the mesh {ms['mesh']}, without "
+        f"{ms['meshless']} (in turns; {card_line()})")
+    fed = "elf-bidir-qsgd-8bit"
+    outs = []
+    for exe in ({"mesh": mesh}, None):
+        s = t1_sampler(dev, shards, None, "packed", rounds=FED_ROUNDS,
+                       local_steps=FED_T, thin=5, method="fald",
+                       federation=fed, exe=exe)
+        outs.append(_counted(f"mesh/fald {fed} {'on' if exe else 'off'}",
+                             lambda: s.sample(_gen(dev, 23), theta0),
+                             _expect("packed", FED_ROUNDS * FED_T))[0])
+    same(f"mesh: FA-LD under {fed} on the mesh == without", *outs)
+    return mesh
+
+
 def phase_fig2_3(dev):
     from repro_torch import api
     from repro_torch.workloads import (FIG2_3_CASES, FIG2_3_D, FIG2_3_H,
@@ -996,6 +1046,29 @@ def phase_fig2_3(dev):
     log(f"  claims of fig2_3_gaussian.py: {claims}")
     if not all(claims.values()):
         raise AssertionError(f"Figs. 2-3 claims fail: {claims}")
+    # adaptive refresh: the 'diag' bank re-fitted at the chain mean every
+    # REFRESH_EVERY rounds (refresh_bank's per-example gradient pass over
+    # each client), packed against per_leaf on one generator
+    rounds, T = REFRESH_ROUNDS, REFRESH_T
+    outs = {}
+    for ex in ("packed", "per_leaf"):
+        s = api.FSGLD(
+            api.Posterior(gaussian_log_lik, prior_precision=1.0), data,
+            minibatch=FIG2_3_M, step_size=FIG2_3_H,
+            surrogate=api.SurrogateSpec(kind="diag", bank=bank,
+                                        refresh_every=REFRESH_EVERY),
+            schedule=api.Schedule(rounds=rounds, local_steps=T,
+                                  n_chains=FIG_CHAINS),
+            execution=api.Execution(device=dev, executor=ex))
+        outs[ex], _ = run_path(
+            f"fig2-3/fsgld refresh_every={REFRESH_EVERY} {ex}", s,
+            _gen(dev, 4), torch.zeros(FIG2_3_D, device=dev),
+            _expect(ex, rounds * T), dynamics="langevin")
+    same("fig2-3: the refreshing run, packed == per_leaf", outs["packed"],
+         outs["per_leaf"])
+    log(f"    {rounds} rounds x {T} steps, {rounds // REFRESH_EVERY - 1} "
+        f"refreshes: single-chain posterior-mean MSE "
+        f"{chain_mse(outs['packed'], post):.4e}")
 
 
 def phase_frontier(dev):
@@ -1353,6 +1426,28 @@ def attn_layers(cfg) -> int:
     return len(_self_attending(cfg)) + cfg.encoder_layers
 
 
+def grad_attn_launches(cfg) -> int:
+    """Flash launches of one gradient pass: every self-attention once in
+    the forward, and once more in the backward's re-run where the
+    recompute covers it (``cfg.remat``: the layers of the full periods
+    of ``cfg.layer_pattern`` and every encoder layer, not the remainder
+    layers)."""
+    if not cfg.remat:
+        return attn_layers(cfg)
+    pat = cfg.layer_pattern
+    in_periods = (cfg.num_layers // len(pat)) * len(pat)
+    again = sum(1 for i in range(in_periods)
+                if pat[i % len(pat)] in ("attn", "swa")
+                or (pat[i % len(pat)] == "xattn" and cfg.family == "audio"))
+    return attn_layers(cfg) + again + cfg.encoder_layers
+
+
+def flash_expected(cfg, grads: int, forwards: int = 0) -> int:
+    """Flash launches of ``grads`` gradient passes and ``forwards``
+    forwards of ``cfg``."""
+    return grads * grad_attn_launches(cfg) + forwards * attn_layers(cfg)
+
+
 def attn_shapes(cfg, B, S) -> list:
     """(shape (B, S, H, Hkv, hd), causal, window) of each kind of
     self-attention ``cfg`` gives the flash kernel at batch B x S tokens:
@@ -1473,9 +1568,12 @@ def prompt_checks(server, cfg, prompt, gen, enc_embeds=None):
         "info 0")
 
 
-def serve_qwen3(dev):
+def serve_qwen3(dev, mesh=None):
     """The serving path at full width, through ``FSGLD.serve``; returns
-    the flash-attention launches of its two requests."""
+    the flash-attention launches of its two requests. With ``mesh`` (the
+    one-rank NCCL mesh of [mesh]) a server on it, over the same K draws,
+    serves one of the requests again: every token and statistic equal to
+    the meshless server's."""
     from repro_torch import api
     from repro_torch import models as TM
     from repro_torch import tree as tu
@@ -1532,6 +1630,24 @@ def serve_qwen3(dev):
             f"{float(res.entropy.mean()):.3f}")
     log(f"  main path: {launches} flash_attention launches in 2 requests; "
         f"peak device memory while serving {_peak(base)}")
+    if mesh is not None:
+        from repro_torch.serve import EnsembleServer
+        on = EnsembleServer(cfg, draws=server.draws, device=dev, mesh=mesh)
+        if not on.sharded or on.n_draws != SERVE_K:
+            raise AssertionError("mesh server: the draws are not on 'data'")
+        again = [s.generate(generator=torch.Generator(device=dev)
+                            .manual_seed(12), gen=SERVE_GEN, batch=SERVE_B,
+                            prompt_len=SERVE_S) for s in (on, server)]
+        for f in ("tokens", "mean_logprob", "entropy", "mutual_info",
+                  "token_var"):
+            same(f"serve: Serving(mesh=) {f} == the meshless server's",
+                 getattr(again[0], f), getattr(again[1], f))
+        log(f"  Serving(mesh=): K={SERVE_K} draws on 'data' of a "
+            f"{dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))} mesh, one "
+            f"request: prefill {again[0].prefill_s:.3f} s, decode "
+            f"{again[0].decode_s:.3f} s (meshless {again[1].prefill_s:.3f} / "
+            f"{again[1].decode_s:.3f} s); tokens and statistics bitwise")
+        del on
 
     # one prompt: prefill through the kernel vs the plain attention, the
     # launches of prefill and decode apart, and K=1 against a plain loop
@@ -1630,12 +1746,14 @@ def phase_train(dev, failures):
     # gradient passes: the fit's, the sampling's and telemetry's probe
     # (one per round); forwards: the probes at theta0 and at each chain's
     # final state
-    passes = TRAIN_S * TRAIN_FIT + steps + TRAIN_R + 1 + args.chains
+    grads = TRAIN_S * TRAIN_FIT + steps + TRAIN_R
+    passes = grads + 1 + args.chains
     if counts != {"fsgld_update_packed": steps, "fsgld_update_2d": 0} or \
-            n_flash != attn_layers(cfg) * passes:
+            n_flash != flash_expected(cfg, grads, 1 + args.chains):
         raise AssertionError(f"train: launches {counts}, flash {n_flash}; "
                              f"expected {steps} packed and "
-                             f"{attn_layers(cfg)} x {passes} flash")
+                             f"{flash_expected(cfg, grads, 1 + args.chains)}"
+                             " flash")
     if not (all(math.isfinite(x) for x in tr.lls)
             and min(tr.lls) >= tr.ll0 - TRAIN_GUARD):
         failures.append(f"train diverged: ll/token {tr.lls} against "
@@ -1649,10 +1767,11 @@ def phase_train(dev, failures):
         f"{tr.peak_gb['sampling']:.2f} GB; ll/token theta0 {tr.ll0:.4f}, "
         f"chains {[round(x, 4) for x in tr.lls]}")
     log(f"  main path launches: fsgld_update_packed {counts['fsgld_update_packed']}"
-        f" (1 per step), flash_attention {n_flash} = {attn_layers(cfg)} x "
-        f"{passes} passes ({TRAIN_S} x {TRAIN_FIT} fit + {steps} sampling "
-        f"gradient passes + {TRAIN_R} telemetry probe passes, "
-        f"{1 + args.chains} probe forwards)")
+        f" (1 per step), flash_attention {n_flash} = "
+        f"{grad_attn_launches(cfg)} x {grads} gradient passes ({TRAIN_S} x "
+        f"{TRAIN_FIT} fit + {steps} sampling + {TRAIN_R} telemetry probe; "
+        f"the recompute runs each layer's forward twice) + "
+        f"{attn_layers(cfg)} x {1 + args.chains} probe forwards")
     import numpy as np
     _finite_frame("train telemetry", frame, TRAIN_R, args.chains)
     if len(frame.names) != 9 or \
@@ -1685,18 +1804,18 @@ def phase_train(dev, failures):
     (packed, _), _, _, _ = _counted(
         "train/packed one round", lambda: packed_s.sample(
             gen3(), tr.theta0, rounds=1, telemetry=Telemetry()),
-        _expect("packed", CHECK_T), attn_layers(cfg) * (CHECK_T + 1))
+        _expect("packed", CHECK_T), flash_expected(cfg, CHECK_T + 1))
     per_leaf = _executor_copy(tr.sampler, "per_leaf", dev)
     L = len(tu.leaves(tr.theta0))
     out, dt, _, n = _counted(
         "train/per_leaf", lambda: per_leaf.sample(gen3(), tr.theta0,
                                                   rounds=1),
         {"fsgld_update_packed": 0, "fsgld_update_2d": CHECK_T * L},
-        attn_layers(cfg) * CHECK_T)
+        flash_expected(cfg, CHECK_T))
     log(f"  per_leaf, one round of {CHECK_T} step(s): {CHECK_T * L} "
         f"fsgld_update_2d launches ({L} leaves), {n} flash_attention "
-        f"({attn_layers(cfg)} per gradient pass), {CHECK_T / dt:.3f} "
-        "chain-steps/s")
+        f"({grad_attn_launches(cfg)} per gradient pass), {CHECK_T / dt:.3f}"
+        " chain-steps/s")
     same("train: packed with telemetry == per_leaf without, one round",
          packed, out)
     del out, packed
@@ -1938,7 +2057,8 @@ def phase_train_c2(dev):
         out = s.sample(_gen(dev, 43), theta0)
         cuda_sync()
     n_flash = fa.LAUNCHES["flash_attention"]
-    if fk.LAUNCHES["fsgld_update_packed"] != T or n_flash != C2_LAYERS * T:
+    if fk.LAUNCHES["fsgld_update_packed"] != T or \
+            n_flash != flash_expected(cfg, T):
         raise AssertionError(f"train-c2: launches {fk.LAUNCHES}, flash "
                              f"{n_flash}")
     if not all(bool(torch.isfinite(t).all()) for t in tu.leaves(out)):
@@ -1946,16 +2066,18 @@ def phase_train_c2(dev):
     P = sum(t.numel() for t in tu.leaves(theta0))
     log(f"  {C2_LAYERS} layers, {P} parameters per chain, C={C2_CHAINS} "
         f"(C*P = {C2_CHAINS * P}): {T} fsgld_update_packed launches, "
-        f"{n_flash} flash_attention ({C2_LAYERS} per gradient pass, chains "
-        f"folded); first update max|kernel-plain| {chk.err:.3e}")
+        f"{n_flash} flash_attention ({grad_attn_launches(cfg)} per gradient "
+        f"pass, chains folded); first update max|kernel-plain| "
+        f"{chk.err:.3e}")
     from repro_torch.obs import Telemetry
     (on, frame), _, _, _ = _counted(
         "train-c2 telemetry", lambda: s.sample(_gen(dev, 43), theta0,
                                                telemetry=Telemetry()),
-        _expect("packed", T), C2_LAYERS * (T + 1))
+        _expect("packed", T), flash_expected(cfg, T + 1))
     same("train-c2: telemetry on == off", out, on)
     _finite_frame("train-c2 telemetry", frame, 1, C2_CHAINS)
-    log(f"  train-c2 telemetry: {T} update and {C2_LAYERS * (T + 1)} flash "
+    log(f"  train-c2 telemetry: {T} update and "
+        f"{flash_expected(cfg, T + 1)} flash "
         "launches (one probe pass); " + ", ".join(
             f"{n} {frame.metrics[n][0].tolist()}" for n in frame.names))
     return chk.err
@@ -2217,17 +2339,17 @@ def _c2_problem(dev):
 
 
 def phase_resume_c2(dev, root):
-    """[train-c2]'s model, C = C2_CHAINS, collect=False, C2_RESUME_ROUNDS
-    rounds x 2 steps, snapshots every C2_RESUME_EVERY: the killed and
-    resumed run's final states == the uninterrupted run's, bitwise; the
-    snapshot I/O timed."""
+    """[train-c2]'s model, C = C2_RESUME_CHAINS, collect=False,
+    C2_RESUME_ROUNDS rounds x 2 steps, snapshots every C2_RESUME_EVERY:
+    the killed and resumed run's final states == the uninterrupted run's,
+    bitwise; the snapshot I/O timed."""
     from repro_torch import api
     from repro_torch import tree as tu
     from repro_torch.checkpoint import list_snapshots
     from repro_torch.core import engine as teng
     cfg, theta0, data, bank, ll = _c2_problem(dev)
     T = 2
-    state_b = C2_CHAINS * _tree_bytes(theta0)
+    state_b = C2_RESUME_CHAINS * _tree_bytes(theta0)
     _need_disk(root, 3 * state_b, f"{C2_RESUME_ROUNDS // C2_RESUME_EVERY} "
                "snapshots kept and one being written")
 
@@ -2237,14 +2359,15 @@ def phase_resume_c2(dev, root):
             step_size=TRAIN_H,
             surrogate=api.SurrogateSpec(kind="scalar", bank=bank),
             schedule=api.Schedule(rounds=C2_RESUME_ROUNDS, local_steps=T,
-                                  n_chains=C2_CHAINS, reassign="permutation"),
+                                  n_chains=C2_RESUME_CHAINS,
+                                  reassign="permutation"),
             execution=api.Execution(device=dev, executor="packed",
                                     collect=False, dtype=torch.bfloat16,
                                     **exe))
         return s.sample(_gen(dev, 43), theta0)
 
     steps = C2_RESUME_ROUNDS * T
-    flash = C2_LAYERS * steps
+    flash = flash_expected(cfg, steps)
     ref, dt, _, _ = _counted("resume/c2", sample,
                              _expect("packed", steps), flash)
     ref = tu.tree_map(lambda t: t.cpu(), ref)
@@ -2260,8 +2383,9 @@ def phase_resume_c2(dev, root):
             Timed(teng, "save_snapshot") as saves2:
         b, _, _, _ = _counted("resume/c2 resumed",
                               lambda: sample(resume=True, **kw),
-                              _expect("packed", left * T), C2_LAYERS * left * T)
-    same(f"resume/c2 ({C2_LAYERS} layers, C={C2_CHAINS}, "
+                              _expect("packed", left * T),
+                              flash_expected(cfg, left * T))
+    same(f"resume/c2 ({C2_LAYERS} layers, C={C2_RESUME_CHAINS}, "
          f"{state_b / 1e9:.2f} GB of fp32 chain state): snapshots {kept}, "
          f"the newest deleted, resumed from round {kept[-2]}: final states "
          "== uninterrupted", ref, tu.tree_map(lambda t: t.cpu(), b))
@@ -2303,15 +2427,15 @@ def phase_bank(dev, root):
     D = os.path.join(root, "bank")
     args = train.parse_args(_train_argv() + [
         "--rounds", str(BANK_ROUNDS), "--draw-bank", D, "--bank-every",
-        str(BANK_EVERY)])
+        str(BANK_EVERY), "--fit-steps", str(FAM_FIT)])
     steps = BANK_ROUNDS * TRAIN_T
-    passes = TRAIN_S * TRAIN_FIT + steps + 1 + args.chains
+    grads = TRAIN_S * FAM_FIT + steps
     real_cfg = (train.get_config, configs.get_config)
     train.get_config = configs.get_config = lambda arch: cfg
     try:
         tr, dt, _, n_flash = _counted(
             "bank/train", lambda: train.run(args), _expect("packed", steps),
-            BANK_LAYERS * passes)
+            flash_expected(cfg, grads, 1 + args.chains))
     finally:
         train.get_config, configs.get_config = real_cfg
     want = checkpoint.tree_fingerprint(like)
@@ -2690,13 +2814,16 @@ def phase_stream_qwen3(dev):
     passes = steps + 1 + args.chains
     SyntheticClientSource.rows = rows
     real_config = train.get_config
+    c2_cfg = dataclasses.replace(get_config("qwen3-1.7b"),
+                                 num_layers=C2_LAYERS)
     train.get_config = lambda arch: dataclasses.replace(
         get_config(arch), num_layers=C2_LAYERS)
     try:
         with Traced() as tr_trace:
             tr, dt, _, n_flash = _counted(
                 "stream/qwen3", lambda: train.run(args),
-                _expect("packed", steps), C2_LAYERS * passes)
+                _expect("packed", steps),
+                flash_expected(c2_cfg, steps, 1 + args.chains))
     finally:
         SyntheticClientSource.rows = real
         train.get_config = real_config
@@ -2712,8 +2839,10 @@ def phase_stream_qwen3(dev):
                              f"{tr.ll0} at theta0")
     log(f"  {STREAM_CLIENTS} clients, resident 4, dsgld, h {STREAM_H:g} "
         f"(h S N_s / m = {STREAM_H * STREAM_CLIENTS * 64 / 8:g}): "
-        f"{steps} update and {n_flash} flash launches ({C2_LAYERS} x "
-        f"{passes} passes); client rows built per call {built} (never "
+        f"{steps} update and {n_flash} flash launches "
+        f"({grad_attn_launches(c2_cfg)} x {steps} gradient passes + "
+        f"{C2_LAYERS} x {passes - steps} forwards); client rows built per "
+        f"call {built} (never "
         f"{STREAM_CLIENTS}); ll/token theta0 {tr.ll0:.4f}, chains "
         f"{[round(x, 4) for x in tr.lls]}; sampling {tr.sample_s:.2f} s = "
         f"{steps / tr.sample_s:.3f} chain-steps/s; peak device memory "
@@ -3034,6 +3163,45 @@ def _facade_run(cfg, args):
                           sample_s=dt, peak_gb=peak, frame=frame), frame
 
 
+def remat_check(dev, arch, layers):
+    """One chain's ``vmap(grad(log_lik_fn))`` at ``arch``'s published width
+    and ``layers`` layers, on one minibatch of the driver's shape (8 x
+    128 tokens), with the recompute (``cfg.remat``) on and off: every
+    gradient leaf within ATOL + RTOL|x| of the other and the pass's peak
+    device memory lower with it on."""
+    from torch.func import grad, vmap
+    from repro_torch import tree as tu
+    from repro_torch.models import model as TM
+    cfg = family_config(arch, layers)
+    gen = _gen(dev, 31)
+    params = tu.tree_map(lambda t: t[None],
+                         TM.init_params(cfg, gen, device=dev))
+    batch = {k: torch.randint(0, cfg.vocab_size, (1, 8, 128), generator=gen,
+                              device=dev) for k in ("tokens", "labels")}
+    grads, peaks, secs = {}, {}, {}
+    for remat in (True, False):
+        c = dataclasses.replace(cfg, remat=remat)
+        cuda_sync()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        grads[remat] = vmap(grad(lambda p, b: TM.log_lik_fn(p, c, b)))(
+            params, batch)
+        cuda_sync()
+        secs[remat] = time.perf_counter() - t0
+        peaks[remat] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    worst = _err(tuple(tu.leaves(grads[True])),
+                 tuple(tu.leaves(grads[False])))
+    if not peaks[True] < peaks[False]:
+        raise AssertionError(f"remat: peak {peaks[True]:.2f} GB with the "
+                             f"recompute, {peaks[False]:.2f} GB without")
+    log(f"  remat on vs off, {cfg.name} at {layers} layers, one gradient "
+        f"pass of 8 x 128 tokens: max |on - off| {worst:.3e} (tolerance "
+        f"{ATOL:g} + {RTOL:g}|x|); peak above the parameters "
+        f"{peaks[True]:.2f} GB on, {peaks[False]:.2f} GB off; {secs[True]:.3f}"
+        f" s / {secs[False]:.3f} s ({card_line()})")
+
+
 def train_family(dev, arch, failures):
     """``arch`` at its published width and sampling depth through the
     train driver, or for the encoder families (whose batches carry
@@ -3064,12 +3232,13 @@ def train_family(dev, arch, failures):
     steps = FAM_R * FAM_T
     # gradient passes: the fit's, the sampling's, telemetry's probe (one
     # per round); forwards: the probes at theta0 and at the final state
-    passes = TRAIN_S * FAM_FIT + steps + FAM_R + 1 + args.chains
+    grads = TRAIN_S * FAM_FIT + steps + FAM_R
     run = _facade_run if encoded else _driver_run
     with FirstUpdateCheck() as chk:
         (tr, frame), _, counts, n_flash = _counted(
             f"train-{fam['tag']}", lambda: run(cfg, args),
-            _expect("packed", steps), n_attn * passes)
+            _expect("packed", steps),
+            flash_expected(cfg, grads, 1 + args.chains))
     if chk.err is None:
         raise AssertionError(f"train-{fam['tag']}: no packed update was "
                              "held against its plain version")
@@ -3085,9 +3254,10 @@ def train_family(dev, arch, failures):
         f"({card_line()})")
     log(f"  main path launches: fsgld_update_packed "
         f"{counts['fsgld_update_packed']} (1 per step), flash_attention "
-        f"{n_flash} = {n_attn} x {passes} passes ({TRAIN_S} x {FAM_FIT} fit"
-        f" + {steps} sampling + {FAM_R} telemetry probe gradient passes, "
-        f"{1 + args.chains} probe forwards); first update at this packed "
+        f"{n_flash} = {grad_attn_launches(cfg)} x {grads} gradient passes "
+        f"({TRAIN_S} x {FAM_FIT} fit + {steps} sampling + {FAM_R} telemetry "
+        f"probe) + {n_attn} x {1 + args.chains} probe forwards; first update"
+        f" at this packed "
         f"layout ({len(tu.leaves(tr.theta0))} leaves) max|kernel-plain| "
         f"{chk.err:.3e} (tolerance {ATOL:g} + {RTOL:g}|x|)")
     for shape, causal, window in attn_shapes(cfg, args.batch, args.seq):
@@ -3125,7 +3295,7 @@ def train_family(dev, arch, failures):
         outs[ex], dt, _, _ = _counted(
             f"train-{fam['tag']} {ex}", lambda: smp.sample(
                 train._generator(dev, args.seed, 3), tr.theta0, rounds=1),
-            expect, n_attn * CHECK_T)
+            expect, flash_expected(cfg, CHECK_T))
         if ex == "packed":  # waits on the host while per_leaf runs
             outs[ex] = tu.tree_map(lambda t: t.cpu(), outs[ex])
         log(f"  one round of {CHECK_T} step(s) on {ex}: {dt:.2f} s; host "
@@ -3278,6 +3448,11 @@ def main() -> int:
           f"windows, C={T1_CHAINS}, permutation, packed and per_leaf")
     phase_stream_t1(dev, shards, theta0, bank)
 
+    phase(f"[mesh] the mesh path at one rank (NCCL): Table-1 packed and "
+          f"FA-LD under elf-bidir-qsgd-8bit, C={T1_CHAINS}, on a (1, 1) "
+          "DeviceMesh against the runs without it")
+    mesh = phase_mesh(dev, shards, theta0, bank)
+
     phase("[profile] one packed Table-1 round (40 steps) under "
         "torch.profiler")
     prof_sampler = t1("packed")
@@ -3287,8 +3462,9 @@ def main() -> int:
 
     phase(f"[serve] qwen3-1.7b at full width through FSGLD.serve: K="
         f"{SERVE_K} draws, 2 requests of batch {SERVE_B} x prompt "
-        f"{SERVE_S}, {SERVE_GEN} new tokens each")
-    serve_launches = serve_qwen3(dev)
+        f"{SERVE_S}, {SERVE_GEN} new tokens each; one more through "
+        "Serving(mesh=) on [mesh]'s mesh")
+    serve_launches = serve_qwen3(dev, mesh)
     phase("[serve] h2o-danube-1.8b at full width, 2 layers (sliding window)")
     serve_danube(dev)
 
@@ -3317,8 +3493,8 @@ def main() -> int:
     phase_stream_c2(dev)
     torch.cuda.empty_cache()
     phase(f"[resume] qwen3-1.7b at full width, {C2_LAYERS} of 28 layers, "
-          f"C={C2_CHAINS}, collect=False, {C2_RESUME_ROUNDS} rounds x 2 "
-          f"steps, a snapshot every {C2_RESUME_EVERY}")
+          f"C={C2_RESUME_CHAINS}, collect=False, {C2_RESUME_ROUNDS} rounds x "
+          f"2 steps, a snapshot every {C2_RESUME_EVERY}")
     in_scratch(phase_resume_c2, dev)
     torch.cuda.empty_cache()
     phase(f"[bank] repro_torch.launch.train at full width, {BANK_LAYERS} "
@@ -3347,6 +3523,9 @@ def main() -> int:
               f"rounds x {FAM_T} steps, C=1, packed, h {TRAIN_H:g}")
         train_family(dev, arch, failures)
         torch.cuda.empty_cache()
+        if fam["tag"] == "rwkv":
+            remat_check(dev, arch, fam["train"])
+            torch.cuda.empty_cache()
 
     phase("[times] device time per launch: CUDA graphs of back-to-back "
         "launches replayed 20 times between CUDA events (median)")

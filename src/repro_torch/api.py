@@ -26,8 +26,8 @@ import torch
 
 from repro_torch import tree as tu
 from repro_torch.configs.base import SamplerConfig
-from repro_torch.core.engine import (MeshChainEngine, _not_ported,
-                                     check_kernel_kind, pad_shards)
+from repro_torch.core.engine import (MeshChainEngine, check_kernel_kind,
+                                     pad_shards)
 from repro_torch.core.federated import (fit_bank_fisher, local_sgld_moments,
                                         refresh_bank, sample_local_likelihood)
 from repro_torch.core.health import Recovery, RunHealth
@@ -89,10 +89,13 @@ class SurrogateSpec:
     'refresh' (gradient-matching Fisher fit at theta0), 'fisher'
     (Fisher-Laplace at theta0, diag) or 'local_sgld' (short per-client
     SGLD runs + moment fits, using fit_steps / fit_minibatch /
-    fit_step_size)."""
+    fit_step_size). ``refresh_every`` re-fits the bank every that many
+    rounds at the current chain mean (adaptive refresh: flat-vector
+    'diag' banks only)."""
     kind: str = "diag"
     bank: Optional[SurrogateBank] = None
     fit: str = "auto"
+    refresh_every: Optional[int] = None
     fit_steps: int = 200
     fit_minibatch: int = 32
     fit_step_size: Optional[float] = None
@@ -125,7 +128,12 @@ class Execution:
     """Where and how the chains run.
 
     device: None -> 'cuda', which must be available (no quiet CPU run);
-      pass 'cpu' to run on the CPU.
+      pass 'cpu' to run on the CPU. On a mesh, this rank's device.
+    mesh: a ('data', 'model') ``torch.distributed`` DeviceMesh
+      (``repro_torch.launch.mesh``), every rank calling ``sample`` alike:
+      the chains ride 'data' (odd counts padded; each rank's chains
+      bitwise the one-device run's), the refresh's clients 'model'; each
+      rank returns the gathered result. None: this one device.
     executor: 'vmap' (plain reference), 'per_leaf' (one kernel launch per
       leaf per step), 'packed' (one launch per step for the whole chain
       block) or 'auto' (packed on CUDA, vmap on the CPU, and vmap for
@@ -169,8 +177,10 @@ class Execution:
     resume: bool = False
     stream: Optional[Stream] = None
     telemetry: Optional[Telemetry] = None
+    mesh: Any = None
 
     def __post_init__(self):
+        _check_mesh(self.mesh)
         if self.executor not in _EXECUTORS:
             raise ValueError(f"unknown executor {self.executor!r}; pick "
                              f"from {_EXECUTORS}")
@@ -195,8 +205,11 @@ class Serving:
     launchers default to. collect: which per-token uncertainty signals
     launchers report, a subset of ('mean', 'entropy', 'mutual_info',
     'variance') (all are computed). device: None -> 'cuda', which must be
-    available; pass 'cpu' to serve on the CPU. mesh: multi-device serving
-    is not ported (ROADMAP item 8).
+    available; pass 'cpu' to serve on the CPU (on a mesh, this rank's
+    device). mesh: a ``launch.mesh`` DeviceMesh: the K draws ride its
+    'data' axis when K divides it (replicated otherwise), and each decode
+    step gathers the per-draw logits before they are combined, so every
+    rank serves the one-device tokens and statistics.
     """
     draws: int = 1
     arch: str = "qwen3-1.7b"
@@ -215,9 +228,17 @@ class Serving:
         if bad:
             raise ValueError(f"unknown collect signals {bad}; pick from "
                              f"{_COLLECT_SIGNALS}")
-        if self.mesh is not None:
-            raise _not_ported("Serving(mesh=)", 8)
+        _check_mesh(self.mesh)
         object.__setattr__(self, "device", _device(self.device))
+
+
+def _check_mesh(mesh) -> None:
+    """A mesh must be a DeviceMesh with a 'data' axis (None: one
+    device)."""
+    if mesh is not None and "data" not in (
+            getattr(mesh, "mesh_dim_names", None) or ()):
+        raise ValueError("mesh must be a torch.distributed DeviceMesh with "
+                         "a 'data' axis (repro_torch.launch.mesh)")
 
 
 def _to(tree: PyTree, device) -> PyTree:
@@ -428,7 +449,7 @@ class FSGLD:
                                    temperature=self.posterior.temperature)
                        if self.kernel == "sghmc" else None),
                 aggregation=self.method.aggregation,
-                device=self.execution.device)
+                device=self.execution.device, mesh=self.execution.mesh)
         return self._engine
 
     # -- phase 2: sampling -------------------------------------------------
@@ -481,6 +502,7 @@ class FSGLD:
             rounds if rounds is not None else sched.rounds,
             n_chains=n_chains if n_chains is not None else sched.n_chains,
             reassign=sched.reassign, collect_every=sched.thin,
+            refresh_every=self.surrogate.refresh_every,
             collect=exe.collect, federation=fed, recovery=exe.recovery,
             snapshot_every=exe.snapshot_every,
             snapshot_path=exe.snapshot_path, resume=exe.resume,
@@ -508,7 +530,7 @@ class FSGLD:
                else get_config(spec.arch))
         n = None if (bank is None and draws is not None) else spec.draws
         return EnsembleServer(cfg, bank=bank, draws=draws, n_draws=n,
-                              seed=seed, device=spec.device)
+                              seed=seed, device=spec.device, mesh=spec.mesh)
 
     @staticmethod
     def load_bank(path: str, like: PyTree, *, k: Optional[int] = None,

@@ -1,4 +1,4 @@
-"""Multi-chain FSGLD runtime on one device (counterpart of
+"""Multi-chain FSGLD runtime on one device or a mesh of ranks (counterpart of
 ``repro.core.engine``).
 
 A run is a host loop over communication rounds. Each round is split in
@@ -43,10 +43,22 @@ the others are never written. Straggling chains get their pre-round state
 back and their trace repeats it.
 
 The same round loop carries per-round telemetry (``run(telemetry=)``:
-metric rows on the device, a probe generator of its own) and the streamed
+metric rows on the device, a probe generator of its own), the streamed
 client axis (``run(stream=)``: the held clients' rows looked up in a
 resident window, planned by replaying the run's draws on a clone of its
-generator, ``replay_sids``).
+generator, ``replay_sids``) and adaptive refresh (``run(refresh_every=)``:
+the 'diag' bank re-fitted at the chain mean between segments, drawing
+nothing from the generator).
+
+On a mesh (``MeshChainEngine(mesh=)``, a ``launch.mesh`` DeviceMesh) the
+chains ride the 'data' axis: each rank holds a ``ChainBlock`` of
+ceil(C / |data|) chains, the pad chains at the global tail. Every rank
+draws the WHOLE round from the same generator and takes its rows, so a
+rank's chains are bitwise those of the one-device run; only the real
+chains take a gradient, FA-LD's average is taken over the chains
+gathered from the data group (the same (C, P) sum as one device), and
+the refresh splits the clients over 'model'. Results are gathered, so
+every rank returns what the one-device run returns.
 """
 from __future__ import annotations
 
@@ -77,6 +89,7 @@ from repro_torch.fed.partition import is_client_source
 from repro_torch.fed.registry import get_scenario
 from repro_torch.fed.spec import Federation
 from repro_torch.kernels import ops as kops
+from repro_torch.launch import mesh as lmesh
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.telemetry import (TELEMETRY_PROBE_SALT, MetricsFrame,
                                        Telemetry)
@@ -228,6 +241,104 @@ def _make_batch_sampler(cfg: SamplerConfig, scheme: ShardScheme):
 
 
 # ---------------------------------------------------------------------------
+# the chains one rank holds
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ChainBlock:
+    """The rows of a run's ``n_chains`` chains that this rank holds: on a
+    mesh ``per`` = ceil(n_chains / |data|) chains from ``lo``, of which
+    ``real`` are chains of the run and the rest pad chains (the global
+    tail), which repeat chain 0's row wherever a row is taken. Without a
+    mesh the block is the whole run and every method is the identity."""
+    n_chains: int
+    per: int
+    lo: int = 0
+    mesh: Any = None
+
+    @classmethod
+    def of(cls, n_chains: int, mesh=None) -> "ChainBlock":
+        if mesh is None:
+            return cls(n_chains, n_chains)
+        per = -(-n_chains // lmesh.axis_size(mesh, "data"))
+        return cls(n_chains, per, lmesh.axis_rank(mesh, "data") * per, mesh)
+
+    @property
+    def real(self) -> int:
+        return max(0, min(self.n_chains - self.lo, self.per))
+
+    def take(self, t, dim: int = 0):
+        """This block's rows of a global (..., n_chains, ...) tensor along
+        ``dim`` (None passes through)."""
+        if self.mesh is None or t is None:
+            return t
+        rows = t.narrow(dim, self.lo, self.real) if self.real else \
+            t.narrow(dim, 0, 0)
+        pad = self.per - self.real
+        if pad:
+            shape = list(t.shape)
+            shape[dim] = pad
+            rows = torch.cat([rows, t.narrow(dim, 0, 1).expand(shape)], dim)
+        return rows.contiguous()   # kernel operands (a step's seeds)
+
+    def take_tree(self, tree):
+        return tu.tree_map(self.take, tree)
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """The real rows of every rank's (per, ...) block, in chain order:
+        the global (n_chains, ...) tensor."""
+        if self.mesh is None:
+            return t
+        return lmesh.all_gather_rows(t, self.mesh, "data")[:self.n_chains]
+
+    def gather_tree(self, tree):
+        return tu.tree_map(self.gather, tree)
+
+    def draws(self, d: "RoundDraws") -> "RoundDraws":
+        """This block's rows of a round's global draws."""
+        if self.mesh is None:
+            return d
+        return RoundDraws(
+            sids=self.take(d.sids), idx=self.take(d.idx, 1),
+            seeds=self.take(d.seeds, 1), part_u=self.take(d.part_u),
+            strag_u=self.take(d.strag_u), primal_u=self.take(d.primal_u),
+            dual_u=self.take(d.dual_u))
+
+
+def masked_vmap(fn, block: Optional[ChainBlock] = None):
+    """``vmap(fn)`` over a chain block whose first argument is the chains'
+    states, taken over the block's REAL chains only (the reference's
+    ``make_masked_grad_vmap``): the pad chains' rows of the result are
+    zeros, and their gradient work is skipped, not discarded."""
+    v = vmap(fn)
+    if block is None or block.real == block.per:
+        return v
+
+    def masked(*args):
+        real, pad = block.real, block.per - block.real
+        if real == 0:
+            return tu.tree_map(torch.zeros_like, args[0])
+        out = v(*(tu.tree_map(lambda t: t[:real], a) for a in args))
+        return tu.tree_map(lambda g: torch.cat(
+            [g, g.new_zeros((pad,) + tuple(g.shape[1:]))]), out)
+
+    return masked
+
+
+def _noise(generator: torch.Generator, thetas: PyTree,
+           block: Optional[ChainBlock]) -> Optional[PyTree]:
+    """A plain step's normals for a mesh block: drawn for every chain of
+    the run, as one device draws them, and this block's rows taken (None
+    without a mesh: the update draws its own)."""
+    if block is None or block.mesh is None:
+        return None
+    glob = tu.tree_map(lambda l: torch.randn(
+        (block.n_chains,) + tuple(l.shape[1:]), generator=generator,
+        device=l.device, dtype=l.dtype), thetas)
+    return block.take_tree(glob)
+
+
+# ---------------------------------------------------------------------------
 # round functions (one per executor)
 # ---------------------------------------------------------------------------
 
@@ -243,7 +354,8 @@ def check_kernel_kind(bank_kind: Optional[str]) -> None:
 def make_round_fn(log_lik_fn: LogLikFn, cfg: SamplerConfig,
                   scheme: ShardScheme, minibatch: int,
                   bank: Optional[SurrogateBank] = None,
-                  hmc: Optional[SGHMCConfig] = None):
+                  hmc: Optional[SGHMCConfig] = None,
+                  block: Optional[ChainBlock] = None):
     """The plain reference executor ('vmap'): returns
     round_fn(state, draws, shard_data, bank_rt=None, *, generator,
     on_step=None, rows=None) over a (C, ...) chain block; state is the
@@ -253,7 +365,9 @@ def make_round_fn(log_lik_fn: LogLikFn, cfg: SamplerConfig,
     each step's states. ``rows`` (C,) are the held clients' rows in
     ``shard_data`` and in the bank (default ``draws.sids``; a streamed
     window holds only its resident clients), while sizes and
-    probabilities stay indexed by the global ids ``draws.sids``."""
+    probabilities stay indexed by the global ids ``draws.sids``. A mesh
+    ``block`` takes the drift of its real chains only and the noise drawn
+    for every chain of the run."""
     sample = _make_batch_sampler(cfg, scheme)
     drift_fn = make_drift_fn(log_lik_fn, cfg, scheme, bank)
 
@@ -261,17 +375,19 @@ def make_round_fn(log_lik_fn: LogLikFn, cfg: SamplerConfig,
                  on_step=None, rows=None):
         thetas, r = state if hmc else (state, None)
         rows = draws.sids if rows is None else rows
-        drift_v = vmap(lambda th, b, s, q: drift_fn(th, b, s, minibatch,
-                                                    bank_rt, bank_id=q))
+        drift_v = masked_vmap(lambda th, b, s, q: drift_fn(
+            th, b, s, minibatch, bank_rt, bank_id=q), block)
         for t in range(cfg.local_updates):
             batches = sample(draws.idx[t], rows, shard_data)
             d = drift_v(thetas, batches, draws.sids, rows)
+            noise = _noise(generator, thetas, block)
             if hmc is None:
                 thetas = langevin_update(thetas, d, cfg.step_size,
-                                         generator, cfg.temperature)
+                                         generator, cfg.temperature,
+                                         noise=noise)
             else:
                 thetas, r = sghmc_update(thetas, r, d, cfg.step_size,
-                                         generator, hmc)
+                                         generator, hmc, noise=noise)
             if on_step is not None:
                 on_step(t, thetas)
         return (thetas, r) if hmc else thetas
@@ -282,13 +398,15 @@ def make_round_fn(log_lik_fn: LogLikFn, cfg: SamplerConfig,
 def make_chain_round_fn(log_lik_fn: LogLikFn, cfg: SamplerConfig,
                         scheme: ShardScheme, minibatch: int,
                         bank_kind: Optional[str],
-                        hmc: Optional[SGHMCConfig] = None):
-    """The 'per_leaf' executor: gradients vmapped over the chain block,
-    then one chain-batched kernel launch per leaf per step. Returns
-    round_fn(state, draws, shard_data, bank=None, *, on_step=None,
-    rows=None); state and ``rows`` as in ``make_round_fn``."""
+                        hmc: Optional[SGHMCConfig] = None,
+                        block: Optional[ChainBlock] = None):
+    """The 'per_leaf' executor: gradients vmapped over the chain block
+    (a mesh ``block``'s real chains), then one chain-batched kernel launch
+    per leaf per step. Returns round_fn(state, draws, shard_data,
+    bank=None, *, on_step=None, rows=None); state and ``rows`` as in
+    ``make_round_fn``."""
     sample = _make_batch_sampler(cfg, scheme)
-    grad_v = vmap(grad(log_lik_fn))
+    grad_v = masked_vmap(grad(log_lik_fn), block)
     # only FSGLD carries the conducive correction
     use_surrogate = cfg.method == "fsgld"
     bank_kind = bank_kind if use_surrogate else None
@@ -384,7 +502,8 @@ def make_packed_round_fn(log_lik_fn: LogLikFn, cfg: SamplerConfig,
                          scheme: ShardScheme, minibatch: int,
                          bank_kind: Optional[str],
                          layout: kops.PackedChains,
-                         hmc: Optional[SGHMCConfig] = None):
+                         hmc: Optional[SGHMCConfig] = None,
+                         block: Optional[ChainBlock] = None):
     """The 'packed' executor: ONE kernel launch per step for the whole
     chain block. Returns round_fn(state, draws, shard_data, pbank=None, *,
     on_step=None, rows=None, opnds=None) with state = (packed buffer,
@@ -406,9 +525,11 @@ def make_packed_round_fn(log_lik_fn: LogLikFn, cfg: SamplerConfig,
     rows are gathered (widened to fp32) and the scalar rows built once.
     At qwen3-1.7b's width a step then holds, per chain, the state, the
     gradient buffer and the gathered client mean (8.1 GB each in fp32),
-    plus the shared global mean and the per-client stack."""
+    plus the shared global mean and the per-client stack. On a mesh the
+    layout is the ``block``'s (one launch per step on each rank) and only
+    its real chains take a gradient."""
     sample = _make_batch_sampler(cfg, scheme)
-    grad_v = vmap(grad(log_lik_fn))
+    grad_v = masked_vmap(grad(log_lik_fn), block)
     use_surrogate = cfg.method == "fsgld"
     bank_kind = bank_kind if use_surrogate else None
     check_kernel_kind(bank_kind)
@@ -479,7 +600,8 @@ def _keep(mask: torch.Tensor, new: torch.Tensor,
                        new.reshape(c, -1)).reshape(new.shape)
 
 
-def make_exchange(comp: Compression, agg: bool, thetas: PyTree):
+def make_exchange(comp: Compression, agg: bool, thetas: PyTree,
+                  gather=None):
     """The exchange of a communication round over (C, ...) chain leaves
     shaped like ``thetas``. Returns (exchange, carry0):
 
@@ -494,7 +616,10 @@ def make_exchange(comp: Compression, agg: bool, thetas: PyTree):
     they came, and their carry rows are not written. Masks, counts and
     averages stay on the device. ``poison`` (C,) bool NaNs those chains'
     payload (the compressed delta, or the model itself without primal
-    compression) before the server applies it: a corrupted upload."""
+    compression) before the server applies it: a corrupted upload.
+    ``gather`` (a mesh ``ChainBlock.gather``) brings every rank's rows
+    for the FA-LD average, which is then the one device's (C, P) sum;
+    the carry stays per rank, with its chains."""
     flatten, unflatten, dim = make_flattener(thetas)
     compress = None if comp.identity else make_compressor(comp, dim)
 
@@ -522,8 +647,11 @@ def make_exchange(comp: Compression, agg: bool, thetas: PyTree):
                 m_flat = torch.where(poison[:, None], float("nan"), m_flat)
         if agg:
             w = exch[:, None]
-            cnt = exch.to(torch.float32).sum()
-            avg = torch.where(w, m_flat, 0.0).sum(0) / cnt.clamp_min(1.0)
+            m_all, e_all = ((m_flat, exch) if gather is None
+                            else (gather(m_flat), gather(exch)))
+            cnt = e_all.to(torch.float32).sum()
+            avg = torch.where(e_all[:, None], m_all, 0.0).sum(0) \
+                / cnt.clamp_min(1.0)
             m_flat = torch.where(w, avg[None], m_flat)
         if comp.use_dual:
             dupd = m_flat - ref + cst[2]
@@ -547,12 +675,6 @@ def make_exchange(comp: Compression, agg: bool, thetas: PyTree):
         return th, cst
 
     return exchange, carry0
-
-
-def _not_ported(what: str, item: int):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md open item "
-        f"{item})")
 
 
 # ---------------------------------------------------------------------------
@@ -891,7 +1013,7 @@ def _bank_tensors(bank) -> list:
 
 @dataclasses.dataclass
 class MeshChainEngine:
-    """Multi-chain FSGLD runtime on ONE device.
+    """Multi-chain FSGLD runtime on one device, or on a mesh of ranks.
 
     shard_data: pytree with leaves (S, max_n, ...) on the run's device —
     shards padded to the longest client; ``sizes`` carries the true
@@ -914,6 +1036,12 @@ class MeshChainEngine:
     a federation), so it shares that path's draws. Langevin only.
     ``stream_hook(window_idx, StreamWindow)`` fires after each streamed
     window's rounds are dispatched.
+
+    ``mesh`` (a ``launch.mesh`` DeviceMesh with 'data' and 'model' axes;
+    None: this one device) puts the chains on 'data' (each rank a
+    ``ChainBlock``, odd counts padded) and the refresh's clients on
+    'model'; every rank holds the whole shard stack and bank, as the
+    reference replicates them, and ``device`` is the rank's own.
     """
     log_lik_fn: LogLikFn
     cfg: SamplerConfig
@@ -928,8 +1056,12 @@ class MeshChainEngine:
     aggregation: str = "none"
     device: Any = None
     stream_hook: Any = None
+    mesh: Any = None
 
     def __post_init__(self):
+        if self.mesh is not None and "data" not in self.mesh.mesh_dim_names:
+            raise ValueError("the engine's mesh needs a 'data' axis, got "
+                             f"{self.mesh.mesh_dim_names}")
         if self.dynamics not in ("langevin", "sghmc"):
             raise ValueError(f"unknown dynamics {self.dynamics!r}")
         if self.aggregation not in ("none", "fald"):
@@ -1117,7 +1249,21 @@ class MeshChainEngine:
         device that each chain's held client is in its window, and the
         next window's rows are staged (``Stream.prefetch``: on a side
         stream) after the current window's rounds are dispatched.
-        Streamed runs are bitwise the resident runs."""
+        Streamed runs are bitwise the resident runs.
+
+        ``refresh_every`` (FSGLD, a flat-vector 'diag' bank): at every
+        round r > 0 with r % refresh_every == 0 the bank is re-fitted at
+        the mean of the real chains (``refresh``; an ``engine.refresh``
+        span) and the rounds from there on use it. The fit draws nothing,
+        so the run draws exactly what the run without refresh draws.
+
+        On a mesh every rank runs its ``ChainBlock`` and returns the
+        gathered result, the one-device run's. A snapshot is the gathered
+        carry (the real chains, the generator, the run's client ids, the
+        compression carry's real rows, the trace), written by global rank
+        0 while the others wait; a resume reads it on every rank and each
+        takes its block's rows again, the pad chains repeating chain 0.
+        Recovery and telemetry run on a mesh with one data rank only."""
         hmc = self.sghmc if self.dynamics == "sghmc" else None
         chaos = chaos if chaos is not None and chaos.active else None
         if stream is not None:
@@ -1136,11 +1282,20 @@ class MeshChainEngine:
                 "snapshot_every/refresh_every: pick ONE segmentation "
                 "driver (progress events already fire at snapshot/"
                 "refresh segment boundaries)")
+        if snapshot_path and refresh_every:
+            raise NotImplementedError(
+                "snapshots do not compose with adaptive refresh yet: the "
+                "refreshed surrogate bank is not part of the snapshot "
+                "payload")
         if hmc is not None and refresh_every:
             raise NotImplementedError(
                 "adaptive refresh is not wired for sghmc dynamics")
-        if refresh_every:
-            raise _not_ported("refresh_every (adaptive refresh)", 8)
+        if lmesh.axis_size(self.mesh, "data") > 1 and (
+                recovery is not None or telemetry is not None):
+            raise NotImplementedError(
+                "recovery= and telemetry= run on a mesh with one data "
+                "rank only: the health words, the respawn donor and the "
+                "metric rows are not gathered across ranks")
         if reassign not in ("categorical", "permutation"):
             raise ValueError(reassign)
         if generator.device.type != self.device.type:
@@ -1150,9 +1305,20 @@ class MeshChainEngine:
         fed = get_scenario(federation) if federation is not None else None
         if fed is not None and fed.engine_identity:
             fed = None
+        if fed is not None and refresh_every and self.cfg.method == "fsgld":
+            raise NotImplementedError(
+                "adaptive refresh does not compose with a non-identity "
+                "communication schedule/compression yet: the carried "
+                "sids / error-feedback state would reset at every "
+                "refresh segment boundary")
         if agg and fed is None:
             fed = Federation()  # FA-LD: every round exchanges, exactly
         C, T = n_chains, self.cfg.local_updates
+        # this rank's chains (the whole run without a mesh); C counts the
+        # run's chains, Cl the rows held here
+        block = ChainBlock.of(C, self.mesh)
+        Cl = block.per
+        gather = None if self.mesh is None else block.gather
         if stacked:
             if tu.leaves(theta0)[0].shape[0] != C:
                 raise ValueError("stacked theta0 needs a leading "
@@ -1162,18 +1328,21 @@ class MeshChainEngine:
             example = theta0
         layout = self._layout_for(example)
         dev = self.device
+        if stacked:
+            theta0 = block.take_tree(theta0)
         if layout is not None:
-            # (C, ...) views of theta0, wherever it lies: packing copies
+            # (Cl, ...) views of theta0, wherever it lies: packing copies
             chains = theta0 if stacked else tu.tree_map(
-                lambda t: torch.broadcast_to(t, (C,) + t.shape), theta0)
+                lambda t: torch.broadcast_to(t, (Cl,) + t.shape), theta0)
         elif stacked:
             chains = tu.tree_map(lambda t: t.to(dev).clone(), theta0)
         else:
             chains = tu.tree_map(lambda t: torch.broadcast_to(
-                t.to(dev), (C,) + t.shape).clone(), theta0)
+                t.to(dev), (Cl,) + t.shape).clone(), theta0)
         num_leaves = len(tu.leaves(chains))
         fsgld_bank = self.bank if self.cfg.method == "fsgld" else None
         bank_kind = fsgld_bank.kind if fsgld_bank is not None else None
+        refreshing = bool(refresh_every) and self.cfg.method == "fsgld"
         # FA-LD noise calibration: averaging C clients shrinks the noise
         # variance by C, so each client samples at temperature * C
         cfg = (dataclasses.replace(
@@ -1183,8 +1352,12 @@ class MeshChainEngine:
         if layout is not None:
             round_fn = make_packed_round_fn(
                 self.log_lik_fn, cfg, self.scheme, self.minibatch,
-                bank_kind, layout, hmc)
+                bank_kind, layout, hmc, block)
             bank_arg = pack_bank(layout, fsgld_bank, dev)
+
+            def install(bank):
+                nonlocal bank_arg
+                bank_arg = pack_bank(layout, bank, dev)
 
             def bank_rows(ids):
                 # a window's client rows (a stack on the host stays whole,
@@ -1233,16 +1406,24 @@ class MeshChainEngine:
             if self.use_kernel:
                 round_fn = make_chain_round_fn(
                     self.log_lik_fn, cfg, self.scheme, self.minibatch,
-                    bank_kind, hmc)
+                    bank_kind, hmc, block)
                 bank_arg = fsgld_bank
             else:
+                bank_arg = None
+                kw["generator"] = generator
+
+            def install(bank):
+                nonlocal round_fn, bank_arg
+                if self.use_kernel:
+                    bank_arg = bank
+                    return
                 # the plain drift indexes the bank under vmap: on the device
                 round_fn = make_round_fn(
                     self.log_lik_fn, cfg, self.scheme, self.minibatch,
-                    fsgld_bank.to(dev) if fsgld_bank is not None else None,
-                    hmc)
-                bank_arg = None
-                kw["generator"] = generator
+                    bank.to(dev) if bank is not None else None, hmc, block)
+
+            if not self.use_kernel:
+                install(fsgld_bank)
 
             def bank_rows(ids):
                 if fsgld_bank is None:
@@ -1288,13 +1469,16 @@ class MeshChainEngine:
         trace = None
         if collect:
             trace = tu.tree_map(
-                lambda t: torch.empty((C, num_rounds * per_round)
+                lambda t: torch.empty((Cl, num_rounds * per_round)
                                       + tuple(t.shape[1:]), dtype=t.dtype,
                                       device=t.device), chains)
+        # sids: the client every chain of the run holds (global on every
+        # rank: the next round's draws read it); cst: this block's rows
         sids, cst, dim = None, None, 0
         if fed is not None:
             sched = fed.schedule
-            exchange, carry0 = make_exchange(fed.compression, agg, chains)
+            exchange, carry0 = make_exchange(fed.compression, agg, chains,
+                                             gather)
             exchanges = agg or not fed.compression.identity
             cst = carry0(chains)
             sids = torch.zeros(C, dtype=torch.int64, device=self.device)
@@ -1346,12 +1530,6 @@ class MeshChainEngine:
                     if fed is not None else 8.0 * tel_dim)
             vg = vmap(grad_and_value(self.log_lik_fn)) \
                 if telemetry.probe else None
-            glob = None
-            if fsgld_bank is not None and layout is None:
-                glob = Gaussian(*(tu.tree_map(lambda a: a.to(dev), g) for g
-                                  in (fsgld_bank.global_.mean,
-                                      fsgld_bank.global_.prec)),
-                                fsgld_bank.kind)
 
             def tel_rows(st, pre_th, run_sids, rows, exch, opnds):
                 """One round's closed-form metric rows, each (C,) fp32,
@@ -1366,11 +1544,17 @@ class MeshChainEngine:
                 if fsgld_bank is not None:
                     _, f_s = chain_scales(self.cfg, self.scheme, run_sids,
                                           self.minibatch)
-                    sq = (_packed_conducive_sq(layout, th, opnds, f_s,
-                                               self.cfg.alpha)
-                          if layout is not None else
-                          _bank_conducive_sq(fsgld_bank, glob, th, rows,
-                                             f_s, self.cfg.alpha, dev))
+                    if layout is not None:
+                        sq = _packed_conducive_sq(layout, th, opnds, f_s,
+                                                  self.cfg.alpha)
+                    else:
+                        # the bank in use (a refresh replaces it)
+                        glob = Gaussian(*(tu.tree_map(
+                            lambda a: a.to(dev), g) for g in (
+                            fsgld_bank.global_.mean,
+                            fsgld_bank.global_.prec)), fsgld_bank.kind)
+                        sq = _bank_conducive_sq(fsgld_bank, glob, th, rows,
+                                                f_s, self.cfg.alpha, dev)
                     m["conducive_norm"] = sq.sqrt()
                 else:
                     m["conducive_norm"] = torch.zeros(
@@ -1397,20 +1581,23 @@ class MeshChainEngine:
                         - 0.5 * self.cfg.prior_precision * _sq(th, C)}
 
         def payload(st, rounds_done):
-            """The whole carry after ``rounds_done`` rounds: everything a
-            resumed run needs to be bitwise the uninterrupted one."""
-            p = {"chains": final(st), "key": generator.get_state()}
+            """The whole carry after ``rounds_done`` rounds, gathered from
+            the mesh's ranks: everything a resumed run needs to be bitwise
+            the uninterrupted one."""
+            p = {"chains": block.gather_tree(final(st)),
+                 "key": generator.get_state()}
             if fed is not None:
                 p["sids"] = sids.to(torch.int32)
                 if cst is not None:
-                    p["ref"], p["err"] = cst[0], cst[1]
+                    p["ref"], p["err"] = (block.gather(cst[0]),
+                                          block.gather(cst[1]))
                     if len(cst) == 3:
-                        p["derr"] = cst[2]
+                        p["derr"] = block.gather(cst[2])
             if health is not None:
                 p["word"], p["lp_ref"] = health.word, health.lp_win
             if collect:
-                p["trace"] = tu.tree_map(
-                    lambda t: t[:, :rounds_done * per_round], trace)
+                p["trace"] = block.gather_tree(tu.tree_map(
+                    lambda t: t[:, :rounds_done * per_round], trace))
             return p
 
         r_start = 0
@@ -1420,21 +1607,23 @@ class MeshChainEngine:
             if snap is None:
                 r_start = 0       # nothing to resume: a fresh run
             else:
-                ch = tu.tree_map(lambda t: t.to(dev), snap["chains"])
+                # each rank takes its block's rows of the gathered carry
+                ch = tu.tree_map(lambda t: block.take(t.to(dev)),
+                                 snap["chains"])
                 state = from_chains(*ch) if hmc else from_chains(ch)
                 generator.set_state(snap["key"])
                 if fed is not None:
                     sids = snap["sids"].to(dev, torch.int64)
                     if cst is not None:
-                        cst = tuple(snap[k].to(dev) for k in
+                        cst = tuple(block.take(snap[k].to(dev)) for k in
                                     ("ref", "err", "derr")[:len(cst)])
                 if health is not None:
                     health.word = snap["word"].to(dev)
                     health.lp_win = snap["lp_ref"].to(dev)
                 if collect:
                     tu.tree_map(
-                        lambda dst, src: dst[:, :src.shape[1]].copy_(src),
-                        trace, snap["trace"])
+                        lambda dst, src: dst[:, :src.shape[1]].copy_(
+                            block.take(src)), trace, snap["trace"])
         quarantine = recovery is not None and recovery.policy == "quarantine"
 
         def one_round(r, data, bank_r, rows=None, window_ids=None):
@@ -1455,6 +1644,7 @@ class MeshChainEngine:
             tgen = (probe_generator(generator, r, TELEMETRY_PROBE_SALT)
                     if metrics is not None and telemetry.probe else None)
             live = health.word == 0 if quarantine else None
+            # the whole round's draws, then this block's rows of them
             draws = draw_round(generator, self.cfg, self.scheme, n_chains=C,
                                minibatch=self.minibatch,
                                num_leaves=num_leaves, reassign=reassign,
@@ -1468,12 +1658,13 @@ class MeshChainEngine:
                     exch = exch & live
                 sids = torch.where(exch, draws.sids, sids)
                 draws.sids = sids
+                draws, exch = block.draws(draws), block.take(exch)
                 if exchanges and fsched.comm_mask(sched, r):
                     poison = None
                     if chaos is not None and chaos.poisons_payload \
                             and r in chaos.payload_nan_rounds:
-                        poison = _chain_mask(chaos.payload_nan_chains, C,
-                                             dev)
+                        poison = block.take(_chain_mask(
+                            chaos.payload_nan_chains, C, dev))
                     th, cst = exchange(thetas_of(state), cst, exch, draws,
                                        poison)
                     state = with_thetas(state, th)
@@ -1481,6 +1672,8 @@ class MeshChainEngine:
                     # dropped updates: the state goes back to its
                     # pre-round value and the trace repeats it
                     strag = fsched.straggler_mask(sched, draws.strag_u)
+            else:
+                draws = block.draws(draws)
             if window_ids is not None:
                 # the replayed plan put every held client in this window
                 torch._assert_async((window_ids[rows] == draws.sids).all())
@@ -1506,7 +1699,7 @@ class MeshChainEngine:
                 state = restore(state, pre, strag)
             if chaos is not None and chaos.poisons_state \
                     and r in chaos.nan_rounds:
-                m = _chain_mask(chaos.nan_chains, C, dev)
+                m = block.take(_chain_mask(chaos.nan_chains, C, dev))
                 state = with_thetas(state, tu.tree_map(
                     lambda l: _keep(m, l, torch.full_like(l, float("nan")))
                     if l.dtype.is_floating_point else l, thetas_of(state)))
@@ -1542,15 +1735,30 @@ class MeshChainEngine:
                 metrics.add(m)
             if snapshot_every and ((r + 1 - r_start) % snapshot_every == 0
                                    or r + 1 == num_rounds):
-                save_snapshot(snapshot_path, payload(state, r + 1),
-                              rounds_done=r + 1)
+                p = payload(state, r + 1)
+                if lmesh.is_writer(self.mesh):
+                    save_snapshot(snapshot_path, p, rounds_done=r + 1)
+                lmesh.barrier(self.mesh)
 
         if stream is None:
             seg_len = (telemetry.log_every if telemetry is not None
-                       and telemetry.log_every else num_rounds)
+                       and telemetry.log_every else
+                       refresh_every if refreshing else num_rounds)
             data = self._data()
             r0 = r_start
             while r0 < num_rounds:
+                if refreshing and r0 > 0:
+                    # a refresh boundary (r0 is a refresh_every multiple)
+                    if fsgld_bank is None or fsgld_bank.kind != "diag":
+                        raise NotImplementedError(
+                            "adaptive refresh supports flat-parameter "
+                            "'diag' banks only (got "
+                            f"{getattr(fsgld_bank, 'kind', None)!r})")
+                    center = tu.tree_map(lambda t: block.gather(t).mean(0),
+                                         thetas_of(state))
+                    with obs_trace.span("engine.refresh", round=int(r0)):
+                        fsgld_bank = self.refresh(center)
+                        install(fsgld_bank)
                 seg = min(seg_len, num_rounds - r0)
                 t_seg = time.monotonic()
                 with obs_trace.span("engine.segment", r0=int(r0),
@@ -1574,8 +1782,10 @@ class MeshChainEngine:
                                 n_chains=C, reassign=reassign,
                                 federation=fed, dim=dim,
                                 num_leaves=num_leaves,
-                                noise_like=(None if self.use_kernel
-                                            else thetas_of(state)))
+                                noise_like=(None if self.use_kernel else
+                                            tu.tree_map(lambda t: t.new_empty(
+                                                (C,) + t.shape[1:]),
+                                                thetas_of(state))))
             windows = fsched.plan_stream(holds, resident=stream.resident,
                                          window=stream.window)
             streamer = _Streamer(self, windows, holds, bank_rows, dev,
@@ -1597,8 +1807,8 @@ class MeshChainEngine:
                 with obs_trace.span("stream.dispatch", window=w,
                                     r0=int(win.r0), rounds=int(win.length)):
                     for j in range(win.length):
-                        one_round(win.r0 + j, data_k, bank_k, local_k[j],
-                                  ids_k)
+                        one_round(win.r0 + j, data_k, bank_k,
+                                  block.take(local_k[j]), ids_k)
                 del data_k, bank_k, ids_k, local_k
                 if w + 1 < len(windows):
                     if not stream.prefetch and dev.type == "cuda":
@@ -1617,8 +1827,42 @@ class MeshChainEngine:
                     overlap_frac=round(
                         (hidden / max(wall, 1e-9))
                         if stream.prefetch else 0.0, 6))
-        res = trace if collect else final(state)
+        res = block.gather_tree(trace if collect else final(state))
         out = (res,) if health is None else (res, health.report())
         if metrics is not None:
             out = out + (metrics.frame(),)
         return out[0] if len(out) == 1 else out
+
+    def refresh(self, theta: torch.Tensor) -> SurrogateBank:
+        """Adaptive surrogate refresh at ``theta`` (flat), the clients split
+        over the mesh's 'model' axis (``refresh_bank_mesh``); the same math
+        as ``core.federated.refresh_bank``."""
+        return refresh_bank_mesh(self.log_lik_fn, self._data(), theta,
+                                 self.mesh, sizes=self.scheme.sizes)
+
+
+def refresh_bank_mesh(log_lik_fn: LogLikFn, shard_data: PyTree,
+                      theta: torch.Tensor, mesh=None, *, sizes=None,
+                      jitter: float = 1e-3, batch: int = 256
+                      ) -> SurrogateBank:
+    """``core.federated.refresh_bank`` with the client axis S split over
+    the mesh's 'model' axis (S % |model| == 0): each model rank computes
+    its clients' score sums and centered Fishers over their live prefixes
+    (``sizes``), and the (S, P) statistics are all-gathered, so every rank
+    builds the same bank. A client's statistics do not depend on the
+    split, so the bank is bitwise the serial one (no mesh: the serial
+    pass)."""
+    from repro_torch.core.federated import bank_from_stats, refresh_stats
+    S, max_n = tu.leaves(shard_data)[0].shape[:2]
+    sizes = (max_n,) * S if sizes is None else tuple(sizes)
+    m, i = lmesh.axis_size(mesh, "model"), lmesh.axis_rank(mesh, "model")
+    if S % m:
+        raise ValueError(f"refresh_bank_mesh splits {S} clients over a "
+                         f"'model' axis of {m}: S % |model| must be 0")
+    per = S // m
+    gsum, centered = refresh_stats(log_lik_fn, shard_data, theta,
+                                   range(i * per, (i + 1) * per), sizes,
+                                   batch)
+    gsum = lmesh.all_gather_rows(gsum, mesh, "model")
+    centered = lmesh.all_gather_rows(centered, mesh, "model")
+    return bank_from_stats(theta, gsum, centered, jitter)

@@ -20,7 +20,7 @@ from torch.func import grad, vmap
 
 from repro_torch import tree as tu
 from repro_torch.configs.base import SamplerConfig
-from repro_torch.core.engine import _not_ported, draw_round
+from repro_torch.core.engine import draw_round
 from repro_torch.core.sampler import (LogLikFn, ShardScheme,
                                       kernel_step_operands, langevin_update,
                                       make_drift_fn)
@@ -134,26 +134,65 @@ def fit_bank_fisher(log_lik_fn: LogLikFn, shard_data: PyTree,
     return make_bank(means, precs, "diag")
 
 
+def _client_score_stats(log_lik_fn: LogLikFn, data_s: PyTree,
+                        theta: torch.Tensor, n_s: int, batch: int):
+    """One client's (sum_i g_i, sum_i (g_i - g_bar)^2) over its live prefix
+    [0, n_s) of per-example scores at theta (flat), ``batch`` examples per
+    vmapped gradient pass, the chunks summed in order. Pad rows (NaN by
+    ``pad_shards``) are masked with a where, never multiplied away."""
+    max_n = tu.leaves(data_s)[0].shape[0]
+
+    def one(item):
+        return grad(log_lik_fn)(theta, tu.tree_map(lambda a: a[None], item))
+
+    per_example = vmap(one)
+    gsum = torch.zeros_like(theta)
+    g2 = torch.zeros_like(theta)
+    for start in range(0, min(n_s, max_n), batch):
+        stop = min(start + batch, n_s)
+        g = per_example(tu.tree_map(lambda d: d[start:stop], data_s))
+        gsum = gsum + g.sum(0)
+        g2 = g2 + (g * g).sum(0)
+    return gsum, g2 - gsum * gsum / n_s
+
+
+def refresh_stats(log_lik_fn: LogLikFn, shard_data: PyTree,
+                  theta: torch.Tensor, clients, sizes, batch: int = 256):
+    """(S', P) score sums and centered Fishers of the clients ``clients``
+    (an iterable of indices into the (S, max_n, ...) stack), one client at
+    a time: a client's statistics do not depend on which others are
+    computed with it, so a refresh split over ranks is bitwise the serial
+    one."""
+    out = [_client_score_stats(log_lik_fn,
+                               tu.tree_map(lambda d: d[s], shard_data),
+                               theta, int(sizes[s]), batch)
+           for s in clients]
+    return (torch.stack([g for g, _ in out]),
+            torch.stack([c for _, c in out]))
+
+
+def bank_from_stats(theta: torch.Tensor, gsum: torch.Tensor,
+                    centered: torch.Tensor,
+                    jitter: float = 1e-3) -> SurrogateBank:
+    """The refreshed 'diag' bank: Lambda_s = max(centered Fisher, 0) +
+    jitter, mu_s = theta + Lambda_s^{-1} sum_i g_i."""
+    precs = torch.clamp(centered, min=0.0) + jitter
+    return make_bank(theta[None] + gsum / precs, precs, "diag")
+
+
 def refresh_bank(log_lik_fn: LogLikFn, shard_data: PyTree,
                  theta: torch.Tensor, jitter: float = 1e-3,
-                 batch: int = 256) -> SurrogateBank:
+                 batch: int = 256, sizes=None) -> SurrogateBank:
     """Surrogates re-fitted at the chain position theta (flat):
     Lambda_s = CENTERED diag empirical Fisher sum_i (g_i - g_bar)^2 and
     mu_s = theta + Lambda_s^{-1} grad log p(x_s | theta), so that
-    grad log q_s(theta) == grad log p(x_s|theta) at theta."""
-    n_s = tu.leaves(shard_data)[0].shape[1]
-    S = tu.leaves(shard_data)[0].shape[0]
-    gsum = torch.zeros((S,) + theta.shape, dtype=theta.dtype,
-                       device=theta.device)
-    g2 = torch.zeros_like(gsum)
-    for g in _per_example_grads(log_lik_fn, shard_data, theta, batch,
-                                shared=True):
-        gsum = gsum + g.sum(1)
-        g2 = g2 + (g * g).sum(1)
-    centered = g2 - gsum * gsum / n_s
-    precs = torch.clamp(centered, min=0.0) + jitter
-    mus = theta[None] + gsum / precs
-    return make_bank(mus, precs, "diag")
+    grad log q_s(theta) == grad log p(x_s|theta) at theta. ``sizes``: each
+    client's live prefix (None: every row of the padded stack)."""
+    S, max_n = tu.leaves(shard_data)[0].shape[:2]
+    sizes = (max_n,) * S if sizes is None else tuple(sizes)
+    gsum, centered = refresh_stats(log_lik_fn, shard_data, theta, range(S),
+                                   sizes, batch)
+    return bank_from_stats(theta, gsum, centered, jitter)
 
 
 def fit_bank_linear(log_lik_fn: LogLikFn, shard_data: PyTree,
@@ -246,7 +285,12 @@ class FederatedSampler:
         if self.dynamics == "sghmc" and self.sghmc is None:
             self.sghmc = SGHMCConfig()
         self.scheme = ShardScheme(sizes=(n,) * s, probs=self.cfg.probs())
-        self.fsgld_bank = self.bank if self.cfg.method == "fsgld" else None
+        self._use_bank(self.bank)
+
+    def _use_bank(self, bank: Optional[SurrogateBank]) -> None:
+        """Build the drift and the kernel's operands on ``bank`` (FSGLD
+        only); a refresh installs its re-fitted bank here."""
+        self.fsgld_bank = bank if self.cfg.method == "fsgld" else None
         self._drift = make_drift_fn(self.log_lik_fn, self.cfg, self.scheme,
                                     self.fsgld_bank)
         self._operands = kernel_step_operands(self.cfg, self.scheme,
@@ -323,19 +367,36 @@ class FederatedSampler:
                  refresh_every: Optional[int] = None) -> PyTree:
         """Server-side loop: ``num_rounds`` rounds of ``n_chains`` chains
         from ``theta0``. Returns the trace, leaves (n_chains, num_rounds *
-        ceil(T / collect_every), ...)."""
+        ceil(T / collect_every), ...). ``refresh_every`` (FSGLD, flat
+        'diag' banks): at every round r > 0 with r % refresh_every == 0
+        the bank is re-fitted at the chain mean (``refresh_bank``) and the
+        rounds from there on use it; the constructor's bank is back in
+        place when the call returns."""
         if refresh_every and self.dynamics == "sghmc":
             raise NotImplementedError(
                 "adaptive refresh is not wired for sghmc dynamics")
-        if refresh_every:
-            raise _not_ported("refresh_every (adaptive refresh)", 8)
+        try:
+            return self._run(generator, theta0, num_rounds, n_chains,
+                             reassign, collect_every, refresh_every)
+        finally:
+            self._use_bank(self.bank)
+
+    def _run(self, generator, theta0, num_rounds, n_chains, reassign,
+             collect_every, refresh_every):
         C = n_chains
         thetas = tu.tree_map(
             lambda t: torch.broadcast_to(t, (C,) + t.shape).clone(), theta0)
         r = init_momentum(thetas) if self.dynamics == "sghmc" else None
         num_leaves = len(tu.leaves(thetas))
         out = []
-        for _ in range(num_rounds):
+        for rnd in range(num_rounds):
+            if (refresh_every and self.cfg.method == "fsgld" and rnd > 0
+                    and rnd % refresh_every == 0):
+                # adaptive refresh: the surrogates re-fitted at the chain
+                # mean (the fit draws nothing from the generator)
+                self._use_bank(refresh_bank(
+                    self.log_lik_fn, self.shard_data,
+                    tu.tree_map(lambda t: t.mean(0), thetas)))
             draws = draw_round(generator, self.cfg, self.scheme, n_chains=C,
                                minibatch=self.minibatch,
                                num_leaves=num_leaves, reassign=reassign)

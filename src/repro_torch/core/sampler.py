@@ -37,12 +37,13 @@ def tree_randn_like(generator: torch.Generator, tree: PyTree) -> PyTree:
 
 
 def langevin_update(theta: PyTree, drift: PyTree, h, generator,
-                    temperature: float = 1.0) -> PyTree:
+                    temperature: float = 1.0, noise=None) -> PyTree:
     """theta + h/2 drift + N(0, h*tau I), the noise drawn from
-    ``generator``. Plain reference path; the fused kernel
-    (``repro_torch.kernels.ops``) implements the same contract in one
-    pass with hashed noise."""
-    noise = tree_randn_like(generator, theta)
+    ``generator`` (or the standard normals ``noise``, drawn by the caller).
+    Plain reference path; the fused kernel (``repro_torch.kernels.ops``)
+    implements the same contract in one pass with hashed noise."""
+    if noise is None:
+        noise = tree_randn_like(generator, theta)
     sig = math.sqrt(h * temperature)
     return tu.tree_map(
         lambda t, d, n: t + (h / 2) * d.to(t.dtype) + (sig * n).to(t.dtype),

@@ -37,13 +37,13 @@ class SGHMCConfig:
 
 
 def sghmc_update(theta: PyTree, r: PyTree, drift: PyTree, h,
-                 generator: torch.Generator, hmc: SGHMCConfig):
+                 generator: torch.Generator, hmc: SGHMCConfig, noise=None):
     """(theta', r') of one SGHMC step, xi drawn from ``generator`` leaf by
-    leaf (the plain path; the fused kernel implements the same
-    contract)."""
+    leaf, or the caller's standard normals ``noise`` (the plain path; the
+    fused kernel implements the same contract)."""
     a = hmc.friction
     noise_sig = math.sqrt(2.0 * a * hmc.temperature) * math.sqrt(h)
-    xi = tree_randn_like(generator, theta)
+    xi = tree_randn_like(generator, theta) if noise is None else noise
     r = tu.tree_map(
         lambda rr, dd, nn: ((1.0 - a) * rr + h * dd.to(rr.dtype)
                             + noise_sig * nn.to(rr.dtype)),

@@ -47,8 +47,19 @@ the surrogate means stay on the host (``Execution(bank_device='cpu')``):
 each round brings the chain's client's means to the device. Prints
 ll/token per chain at theta0 and after sampling, and the chain-steps/s.
 
-The reference's ``--multi-pod`` waits for multi-device chains and
-raises NotImplementedError naming ROADMAP item 8. The vlm and audio
+Several devices: under ``torchrun`` (RANK / WORLD_SIZE in the
+environment) the driver builds the production mesh from the launched
+world (``launch.mesh.make_production_mesh``: (W, 1) ('data', 'model'),
+or with ``--multi-pod`` (2, W / 2, 1) ('pod', 'data', 'model'), which
+needs an even world) and samples the chains over its 'data' axis; every
+rank fits the same surrogates, holds the whole shard stack and prints
+the gathered result, and global rank 0 alone writes files. Without
+``torchrun`` it runs on one device (``--multi-pod`` then refuses: one
+rank is not two pods)::
+
+    torchrun --nproc-per-node 1 -m repro_torch.launch.train --arch qwen3-1.7b
+
+The vlm and audio
 families (llama-3.2-vision, whisper) are refused: their likelihood reads
 ``enc_embeds`` from every batch, and this driver builds token shards only,
 as the reference's does (whose ``log_lik_fn`` then fails on None). The
@@ -68,17 +79,13 @@ import torch
 from repro_torch import api, checkpoint
 from repro_torch import tree as tu
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.core.engine import _not_ported
 from repro_torch.data import token_shards
 from repro_torch.fed import SyntheticClientSource
+from repro_torch.launch import mesh as lmesh
 from repro_torch.models import init_params, log_lik_fn
 from repro_torch.models.model import ENCODER_FAMILIES
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs import write_metrics_jsonl, write_prometheus
-
-# flag -> the ROADMAP item its port waits for
-_REFUSED = (("multi_pod", 8),)
-
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -125,7 +132,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "clients on the device, the next window staged "
                          "while the current one runs")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="not ported (item 8)")
+                    help="under torchrun: a ('pod', 'data', 'model') mesh "
+                         "of two pods (an even world)")
     ap.add_argument("--ckpt", default=None,
                     help="save chain 0's final parameters as one "
                          "checkpoint (served as a one-draw bank)")
@@ -158,9 +166,6 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "means) every N rounds during the run — "
                          "segmentation is bitwise-lossless")
     args = ap.parse_args(argv)
-    for flag, item in _REFUSED:
-        if getattr(args, flag) not in (None, False):
-            raise _not_ported(f"--{flag.replace('_', '-')}", item)
     family = get_config(args.arch).family
     if family in ENCODER_FAMILIES:
         raise SystemExit(
@@ -214,6 +219,19 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
+def _under_torchrun() -> bool:
+    return "RANK" in os.environ and "WORLD_SIZE" in os.environ
+
+
+def _mesh(args, dev: torch.device):
+    """The production mesh under torchrun (or when --multi-pod asks for
+    one), None for a one-device run."""
+    if not (_under_torchrun() or args.multi_pod):
+        return None
+    return lmesh.make_production_mesh(multi_pod=args.multi_pod,
+                                      device_type=dev.type)
+
+
 def _executor(args) -> str:
     if args.use_kernel is None and args.packed is None:
         return "auto"
@@ -232,7 +250,8 @@ def _generator(device, seed: int, stream: int) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(s)
 
 
-def _sample_into_bank(fsgld, gen, params, cfg, args, federation):
+def _sample_into_bank(fsgld, gen, params, cfg, args, federation,
+                      mesh=None):
     """Sample in SEGMENTS of ``--bank-every`` rounds, carrying the stacked
     per-chain states across them (``engine.run(stacked=True)``), and
     append chain 0's parameters to the draw bank after every segment:
@@ -262,12 +281,14 @@ def _sample_into_bank(fsgld, gen, params, cfg, args, federation):
             dtype=checkpoint.dtype_name(tu.leaves(draw)[0].dtype),
             arch=cfg.name, chain=0)
         t0 = time.perf_counter()
-        paths.append(checkpoint.save_draw(args.draw_bank, draw, meta,
-                                          step=done))
-        write_s.append(time.perf_counter() - t0)
+        if lmesh.is_writer(mesh):
+            paths.append(checkpoint.save_draw(args.draw_bank, draw, meta,
+                                              step=done))
+            write_s.append(time.perf_counter() - t0)
+            print(f"draw {len(paths) - 1} (round {done}) -> {paths[-1]} "
+                  f"({write_s[-1]:.2f} s)", flush=True)
+        lmesh.barrier(mesh)
         del draw
-        print(f"draw {len(paths) - 1} (round {done}) -> {paths[-1]} "
-              f"({write_s[-1]:.2f} s)", flush=True)
         if done >= args.rounds:
             return theta, paths, write_s
         state = tu.tree_map(lambda t: t.to("cpu"), theta)
@@ -334,10 +355,12 @@ def _train(args: argparse.Namespace, telemetry) -> TrainRun:
                 "pick a schedule/compression scenario")
     n_clients = args.clients if args.clients is not None \
         else args.num_shards
+    mesh = _mesh(args, dev)
     print(f"arch={cfg.name} method={args.method} shards={n_clients} "
           f"device={dev}"
-          + (f" resident={args.resident}" if args.resident else ""),
-          flush=True)
+          + (f" resident={args.resident}" if args.resident else "")
+          + (f" mesh={dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}"
+             if mesh is not None else ""), flush=True)
     params = init_params(cfg, _generator(dev, args.seed, 0), device=dev)
     n_params = sum(t.numel() for t in tu.leaves(params))
     print(f"params: {n_params / 1e6:.2f}M", flush=True)
@@ -375,7 +398,7 @@ def _train(args: argparse.Namespace, telemetry) -> TrainRun:
                                 stream=(api.Stream(resident=args.resident)
                                         if args.resident is not None
                                         else None),
-                                telemetry=telemetry),
+                                telemetry=telemetry, mesh=mesh),
         federation=federation)
     probe_rows = (tu.tree_map(lambda a: torch.as_tensor(a).to(dev),
                               shards.rows(np.arange(1)))
@@ -405,7 +428,7 @@ def _train(args: argparse.Namespace, telemetry) -> TrainRun:
     if args.draw_bank:
         finals, paths, write_s = _sample_into_bank(
             fsgld, _generator(dev, args.seed, 3), params, cfg, args,
-            federation)
+            federation, mesh)
     frame = None
     if not args.draw_bank:
         finals = fsgld.sample(_generator(dev, args.seed, 3), params)
@@ -425,13 +448,13 @@ def _train(args: argparse.Namespace, telemetry) -> TrainRun:
           f"chain-steps) in {dt:.1f}s = {steps / dt:.1f} steps/s "
           f"[reassign=permutation executor={executor}"
           f"{' federation=' + args.federation if args.federation else ''}]")
-    if args.ckpt:
+    if args.ckpt and lmesh.is_writer(mesh):
         checkpoint.save(args.ckpt, tu.tree_map(lambda t: t[0], finals),
                         step=args.rounds,
                         extra={"method": args.method, "arch": cfg.name,
                                "chains": args.chains})
         print(f"checkpoint -> {args.ckpt}")
-    if args.metrics_dir is not None:
+    if args.metrics_dir is not None and lmesh.is_writer(mesh):
         mj = os.path.join(args.metrics_dir, "metrics.jsonl")
         mp = os.path.join(args.metrics_dir, "metrics.prom")
         write_metrics_jsonl(frame, mj)

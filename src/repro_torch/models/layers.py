@@ -113,10 +113,18 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+def _silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``, x * sigmoid(x), as its formula: ``F.silu``'s
+    fused backward gives other roundings under ``torch.func.grad`` than
+    inside a recomputed body's vjp, so a recomputed pass would not be
+    bitwise the pass it replaces."""
+    return x * torch.sigmoid(x)
+
+
 def ffn_apply(x: torch.Tensor, p: dict, ffn_type: str) -> torch.Tensor:
     """Dense FFN."""
     if ffn_type == "silu":
-        h = F.silu(x @ p["wi_gate"]) * (x @ p["wi_up"])
+        h = _silu(x @ p["wi_gate"]) * (x @ p["wi_up"])
     elif ffn_type == "geglu":
         h = _gelu(x @ p["wi_gate"]) * (x @ p["wi_up"])
     elif ffn_type == "gelu":
@@ -129,7 +137,7 @@ def ffn_apply(x: torch.Tensor, p: dict, ffn_type: str) -> torch.Tensor:
 def _experts(h: torch.Tensor, p: dict, ffn_type: str) -> torch.Tensor:
     """Every expert's FFN on its own rows: h (E, R, D) -> (E, R, D)."""
     if ffn_type in ("silu", "geglu"):
-        act = F.silu if ffn_type == "silu" else _gelu
+        act = _silu if ffn_type == "silu" else _gelu
         hh = act(h @ p["experts_wi_gate"]) * (h @ p["experts_wi_up"])
     elif ffn_type == "gelu":
         hh = _gelu(h @ p["experts_wi_up"])
@@ -402,10 +410,14 @@ class _RwkvScores(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         r, k, Lq, L = ctx.saved_tensors
-        ge = g[..., None] * _pair_decays(Lq, L)              # (..., t, s, c)
-        dr = (ge * k[..., None, :, :]).sum(-2)
-        dk = (ge * r[..., :, None, :]).sum(-3)
-        return dr, dk, r * dr, -(k * dk)
+        # torch.func.grad differentiates with create_graph=True: recorded,
+        # this backward would keep its (..., t, s, c) products for a
+        # second derivative nobody takes
+        with torch.no_grad():
+            ge = g[..., None] * _pair_decays(Lq, L)          # (..., t, s, c)
+            dr = (ge * k[..., None, :, :]).sum(-2)
+            dk = (ge * r[..., :, None, :]).sum(-3)
+            return dr, dk, r * dr, -(k * dk)
 
 
 def rwkv_forward(x: torch.Tensor, p: dict, state: Optional[dict] = None,

@@ -33,11 +33,18 @@ pure-JAX scan there (the flash kernel takes Sq == Sk only). ``forward`` / ``chun
 path's likelihood, differentiated by ``torch.func.grad`` (and vmapped
 over chains by the engine): their attention is ``flash_attention_diff``,
 the kernel with the reference's flash backward, and the likelihood
-carries the MoE router's load-balance term, as the reference's does. No
-layer is checkpointed (functorch's transforms take no saved-tensor
-hooks); the one large residual of the families, RWKV's pairwise decays,
-is recomputed by its own backward (``layers._RwkvScores``), as the
-reference's ``jax.checkpoint`` of the chunk body recomputes it.
+carries the MoE router's load-balance term, as the reference's does.
+
+Recompute (the reference's ``jax.checkpoint``) sits at the reference's
+three boundaries: one decoder period of ``cfg.layer_pattern`` and one
+encoder layer when ``cfg.remat`` is set (the remainder layers never),
+and each head chunk of ``chunked_log_lik`` always. Each is one
+``_Recompute`` call, an ``autograd.Function`` that keeps only its
+inputs and re-runs its body in the backward: functorch's transforms take
+no saved-tensor hooks, so ``torch.utils.checkpoint`` cannot serve. RWKV's
+pairwise decays are recomputed inside the period's backward by their own
+``layers._RwkvScores``, as the reference's checkpointed chunk body
+recomputes them.
 """
 from __future__ import annotations
 
@@ -342,6 +349,17 @@ def _recurrent(kind: str, x, p):
     return x + y, h, state
 
 
+def _apply_layer(kind: str, x, p, cfg: ArchConfig, positions, enc_out,
+                 attention: AttentionFn):
+    """One layer of the training forward, its parameters already cast:
+    (x, its aux loss)."""
+    if kind in ("attn", "swa", "xattn"):
+        x, _, _ = _attending(kind, x, p, cfg, positions, enc_out, attention)
+    else:
+        x, _, _ = _recurrent(kind, x, p)
+    return _ffn_residual(x, p, cfg)
+
+
 # ---------------------------------------------------------------------------
 # training forward and log-likelihood
 # ---------------------------------------------------------------------------
@@ -356,17 +374,80 @@ def _unbound(node: dict):
             for i in range(leaves[0].shape[0])]
 
 
-def _layer_trees(params: dict, cfg: ArchConfig):
-    """(layer subtree, kind) of every layer in order."""
-    unbound = {}
-    for group, i, key, kind in _layers(cfg):
-        node = params[group][key]
-        if i is None:
-            yield node, kind
-            continue
-        if key not in unbound:
-            unbound[key] = _unbound(node)
-        yield unbound[key][i], kind
+class _Recompute(torch.autograd.Function):
+    """``body(*inputs)`` -> a tuple of tensors, keeping only ``inputs``
+    for the backward, which runs ``body`` again and takes its vjp with
+    ``torch.func.vjp`` (the reference's ``jax.checkpoint``). ``body``
+    closes over what is not differentiated (the config, positions, the
+    attention function); every tensor that may carry a gradient is an
+    input. The backward runs under ``no_grad``, as the flash entry's does:
+    ``torch.func.grad`` differentiates with ``create_graph=True``, and a
+    recorded re-run would keep the body's residuals for a second
+    derivative. Differentiable functions inside ``body`` (the flash entry,
+    ``layers._RwkvScores``) nest: the re-run records them for the vjp.
+    ``generate_vmap_rule`` lets the engine vmap it over chains."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(body, *inputs):
+        return tuple(body(*inputs))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.body = inputs[0]
+        ctx.save_for_backward(*inputs[1:])
+
+    @staticmethod
+    def backward(ctx, *grads):
+        inputs = ctx.saved_tensors
+        wrt = [i for i, t in enumerate(inputs)
+               if t is not None and t.is_floating_point()]
+
+        def f(*diff):
+            args = list(inputs)
+            for i, t in zip(wrt, diff):
+                args[i] = t
+            return tuple(ctx.body(*args))
+
+        with torch.no_grad():
+            _, vjp_fn = torch.func.vjp(f, *(inputs[i] for i in wrt))
+            got = vjp_fn(grads)
+        out = [None] * len(inputs)
+        for i, g in zip(wrt, got):
+            out[i] = g
+        return (None, *out)
+
+
+def _checkpointed(body: Callable, x, tree, *extra, remat: bool = True):
+    """``body(x, tree, *extra)`` -> tuple, through ``_Recompute`` when
+    ``remat``: the tree's leaves and ``extra`` (tensors or None) are
+    inputs of the recompute, so their gradients flow."""
+    if not remat:
+        return body(x, tree, *extra)
+    leaves, treedef = tu.flatten(tree)
+    n = len(leaves)
+
+    def flat(x, *rest):
+        return body(x, tu.unflatten(treedef, list(rest[:n])), *rest[n:])
+
+    return _Recompute.apply(flat, x, *leaves, *extra)
+
+
+def _positions(x: torch.Tensor) -> torch.Tensor:
+    """(B, S) implicit positions of x (B, S, D). A recomputed body makes
+    its own: a tensor made under a transform outside it cannot be read by
+    its backward's re-run."""
+    B, S = x.shape[:2]
+    return torch.arange(S, device=x.device).expand(B, S)
+
+
+def _encoder_layer(x, p, cfg: ArchConfig, attention):
+    """One encoder layer: bidirectional self-attention over the frames,
+    then the FFN, its parameters cast to bf16 here."""
+    p = _cast_floating(p)
+    x, _, _ = _self_attn(x, p, cfg, _positions(x), causal=False,
+                         attention=attention)
+    return _ffn_residual(x, p, cfg)[:1]
 
 
 def encoder_forward(params: dict, cfg: ArchConfig, enc_embeds: torch.Tensor,
@@ -374,16 +455,16 @@ def encoder_forward(params: dict, cfg: ArchConfig, enc_embeds: torch.Tensor,
     """The audio encoder over stubbed frame embeddings (B, T, D): per
     layer bidirectional self-attention with rope over the T frames (one
     ``attention`` call with ``causal=False``) and the FFN, each layer's
-    parameters cast to bf16 at the point of use, then the encoder's
-    ``final_norm`` (uncast). Returns (B, T, D) bf16."""
-    B, T, _ = enc_embeds.shape
+    parameters cast to bf16 at the point of use (each layer recomputed in
+    the backward under ``cfg.remat``), then the encoder's ``final_norm``
+    (uncast). Returns (B, T, D) bf16."""
     x = enc_embeds.to(ACT_DTYPE)
-    positions = torch.arange(T, device=x.device).expand(B, T)
+
+    def body(x, p):
+        return _encoder_layer(x, p, cfg, attention)
+
     for p in _unbound(params["encoder"]["blocks"]):
-        p = _cast_floating(p)
-        x, _, _ = _self_attn(x, p, cfg, positions, causal=False,
-                             attention=attention)
-        x, _ = _ffn_residual(x, p, cfg)
+        x, = _checkpointed(body, x, p, remat=cfg.remat)
     return L.rms_norm(x, params["encoder"]["final_norm"])
 
 
@@ -413,21 +494,42 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
     the differentiable flash entry) takes q, k, v with implicit
     positions: every self-attention, the encoder's included."""
     _check_runs(cfg)
-    B, S = tokens.shape
     enc_out = encoder_stream(params, cfg, enc_embeds, attention=attention)
     x = params["embed"][tokens].to(ACT_DTYPE)
-    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    pat, n_full, rem = _period_kinds(cfg)
+
+    def period(x, layers, enc_out, kinds=pat):
+        """Layers of ``kinds`` in turn: (x, their summed aux loss)."""
+        aux = x.new_zeros((), dtype=torch.float32)
+        positions = _positions(x)
+        for p, kind in zip(layers, kinds):
+            x, a = _apply_layer(kind, x, _cast_floating(p), cfg, positions,
+                                enc_out, attention)
+            aux = aux + a
+        return x, aux
+
     aux = x.new_zeros((), dtype=torch.float32)
-    for p, kind in _layer_trees(params, cfg):
-        p = _cast_floating(p)
-        if kind in ("attn", "swa", "xattn"):
-            x, _, _ = _attending(kind, x, p, cfg, positions, enc_out,
-                                 attention)
-        else:
-            x, _, _ = _recurrent(kind, x, p)
-        x, a = _ffn_residual(x, p, cfg)
+    if n_full:
+        stacks = [_unbound(params["blocks"][f"l{j}"])
+                  for j in range(len(pat))]
+        for i in range(n_full):
+            x, a = _checkpointed(period, x, [s[i] for s in stacks], enc_out,
+                                 remat=cfg.remat)
+            aux = aux + a
+    if rem:
+        x, a = period(x, [params["rem_blocks"][f"l{j}"]
+                          for j in range(len(rem))], enc_out, rem)
         aux = aux + a
     return L.rms_norm(x, params["final_norm"]), aux
+
+
+def _chunk_log_lik(h, head, lab):
+    """One chunk's summed log-likelihood (a one-tuple), the logits fp32
+    products and sums of ``h`` and ``head`` widened to fp32."""
+    logits = h.to(torch.float32) @ head.to(torch.float32)
+    ll = torch.gather(logits, -1, lab.clamp_min(0)[..., None])[..., 0] \
+        - torch.logsumexp(logits, -1)
+    return (torch.where(lab >= 0, ll, 0.0).sum(),)
 
 
 def chunked_log_lik(hidden: torch.Tensor, head: torch.Tensor,
@@ -435,15 +537,15 @@ def chunked_log_lik(hidden: torch.Tensor, head: torch.Tensor,
     """sum_t log p(label_t | hidden_t) over sequence chunks, so no (B, S, V)
     logits exist at once; labels < 0 count nothing. ``head`` (D, V) is
     used widened to fp32 and the logits are fp32 products and sums (the
-    reference's ``preferred_element_type=float32``)."""
-    head = head.to(torch.float32)
+    reference's ``preferred_element_type=float32``). Each chunk is
+    recomputed in the backward, always, as the reference checkpoints its
+    chunk body: the backward keeps neither the fp32 logits nor the
+    widened head."""
     tot = hidden.new_zeros((), dtype=torch.float32)
     for s0 in range(0, hidden.shape[1], chunk):
-        lab = labels[:, s0:s0 + chunk]
-        logits = hidden[:, s0:s0 + chunk].to(torch.float32) @ head
-        ll = torch.gather(logits, -1, lab.clamp_min(0)[..., None])[..., 0] \
-            - torch.logsumexp(logits, -1)
-        tot = tot + torch.where(lab >= 0, ll, 0.0).sum()
+        ll, = _Recompute.apply(_chunk_log_lik, hidden[:, s0:s0 + chunk],
+                               head, labels[:, s0:s0 + chunk])
+        tot = tot + ll
     return tot
 
 

@@ -68,15 +68,19 @@ def ensemble_prefill(draws: PyTree, cfg, prompt: torch.Tensor,
                      cache_len: int, *,
                      enc_embeds: Optional[torch.Tensor] = None,
                      enc_out: Optional[torch.Tensor] = None,
-                     attention: AttentionFn = flash_attention):
+                     attention: AttentionFn = flash_attention,
+                     anchor: Optional[PyTree] = None):
     """ONE prefill for the whole ensemble: the anchor draw (k=0) runs the
     prompt and its decode cache is copied to all K draws. The vlm and
     audio families take ``enc_embeds`` or the ``enc_out`` already made
-    from it (``prefill_with_cache``). Returns (anchor last-token logits
-    (B, V), caches with (K, ...) leaves). The first generated token comes
-    from the anchor; ensemble uncertainty starts at the second."""
+    from it (``prefill_with_cache``). ``anchor``: draw 0 when ``draws``
+    is only a block of the ensemble (a mesh rank's). Returns (anchor
+    last-token logits (B, V), caches with (K, ...) leaves). The first
+    generated token comes from the anchor; ensemble uncertainty starts at
+    the second."""
     k = tu.leaves(draws)[0].shape[0]
-    anchor = tu.tree_map(lambda t: t[0], draws)
+    if anchor is None:
+        anchor = tu.tree_map(lambda t: t[0], draws)
     logits, cache = prefill_with_cache(anchor, cfg, prompt, cache_len,
                                        enc_embeds=enc_embeds,
                                        enc_out=enc_out, attention=attention)

@@ -23,6 +23,14 @@ The vlm and audio families take a request's stubbed frontend output
 (image patches, audio frames; drawn from the request's generator unless
 given): for audio the anchor draw encodes the frames once per request,
 and prefill and every decode step read that output.
+
+On a mesh (``mesh=``, a ``launch.mesh`` DeviceMesh, every rank serving
+the same requests) the K draws ride the 'data' axis when K divides it
+(``sharding.rules.ensemble_spec``; replicated otherwise): each rank
+builds the K draws, keeps its block and the anchor (draw 0), prefills
+on the anchor, decodes its block, and gathers the (K, B, V) logits in
+draw order before ``predictive_stats``, so every rank serves the
+one-device tokens and statistics.
 """
 from __future__ import annotations
 
@@ -37,6 +45,7 @@ import torch
 from repro_torch import checkpoint
 from repro_torch import tree as tu
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.launch import mesh as lmesh
 from repro_torch.models import (encoder_stream, ensemble_decode_step,
                                 init_leaves, param_layout, serving_cast,
                                 serving_params)
@@ -101,15 +110,21 @@ class EnsembleServer:
       * neither: ``n_draws`` fresh inits from a generator seeded with
         ``seed`` (shape smoke, no posterior).
     Draws are cast one at a time, so two fp32 draws never coexist.
+    ``mesh``: see the module docstring; ``draws`` then holds this rank's
+    block and ``anchor`` draw 0.
     """
 
     def __init__(self, cfg, *, bank: Optional[str] = None,
                  draws: Optional[PyTree] = None,
                  n_draws: Optional[int] = None, seed: int = 0,
-                 device: Any = "cuda"):
+                 device: Any = "cuda", mesh: Any = None):
         self.cfg = cfg
         self.device = torch.device(device)
+        self.mesh = mesh
         self.bank = bank
+        self._draws = self.anchor = None
+        self._k = 0
+        self.sharded = False
         self.metas: List[Optional[checkpoint.DrawMeta]] = []
         self._seen_draws = 0
         if bank is not None:
@@ -169,8 +184,37 @@ class EnsembleServer:
         return stacked, metas
 
     @property
+    def draws(self) -> PyTree:
+        """The served draws this rank holds, stacked (K, ...), or its
+        block of them when they ride the mesh's 'data' axis."""
+        return self._draws
+
+    @draws.setter
+    def draws(self, stacked: Optional[PyTree]) -> None:
+        """Install all K stacked draws: on a mesh whose 'data' axis
+        divides K, keep this rank's block (and draw 0 as the anchor)."""
+        self._draws = self.anchor = None
+        if stacked is None:
+            self._k, self.sharded = 0, False
+            return
+        k = int(tu.leaves(stacked)[0].shape[0])
+        d = lmesh.axis_size(self.mesh, "data")
+        self._k, self.sharded = k, self.mesh is not None and k % d == 0
+        anchor = tu.tree_map(lambda t: t[0], stacked)
+        if self.sharded and d > 1:
+            per = k // d
+            lo = lmesh.axis_rank(self.mesh, "data") * per
+            if lo:
+                anchor = tu.tree_map(lambda t: t.clone(), anchor)
+            stacked = tu.tree_map(lambda t: t[lo:lo + per].clone(), stacked)
+            if not lo:
+                anchor = tu.tree_map(lambda t: t[0], stacked)
+        self._draws, self.anchor = stacked, anchor
+
+    @property
     def n_draws(self) -> int:
-        return int(tu.leaves(self.draws)[0].shape[0])
+        """K, the draws the ensemble averages (over every rank)."""
+        return self._k
 
     def refresh(self, *, retries: int = 2,
                 backoff_s: float = 0.05) -> bool:
@@ -244,9 +288,17 @@ class EnsembleServer:
             T = cfg.num_patches if cfg.family == "vlm" else cfg.encoder_seq
             enc_embeds = torch.randn((batch, T, cfg.d_model),
                                      generator=generator, device=dev)
-        anchor = tu.tree_map(lambda t: t[0], self.draws)
-        return encoder_stream(anchor, cfg, enc_embeds.to(dev),
+        return encoder_stream(self.anchor, cfg, enc_embeds.to(dev),
                               attention=flash_attention)
+
+    def _decode_logits(self, caches, tok, pos, enc_out):
+        """One decode step of the draws held here; on a sharded mesh the
+        (K, B, V) logits of every rank's block, in draw order."""
+        logits_k, caches = ensemble_decode_step(
+            self.draws, self.cfg, caches, tok, pos, enc_out=enc_out)
+        if self.sharded:
+            logits_k = lmesh.all_gather_rows(logits_k, self.mesh, "data")
+        return logits_k, caches
 
     def generate(self, prompt: Optional[torch.Tensor] = None, *,
                  generator: Optional[torch.Generator] = None, gen: int = 16,
@@ -278,7 +330,8 @@ class EnsembleServer:
             t0 = time.perf_counter()
             enc_out = self._encoder_inputs(generator, B, enc_embeds)
             logits0, caches = ensemble_prefill(self.draws, cfg, prompt,
-                                               total, enc_out=enc_out)
+                                               total, enc_out=enc_out,
+                                               anchor=self.anchor)
             # token 0: the anchor's logits as a one-draw ensemble
             stats = [predictive_stats(logits0[None])]
             _sync(dev)
@@ -290,8 +343,8 @@ class EnsembleServer:
             tok = stats[0].token[:, None]
             for t in range(S, total - 1):
                 pos = torch.full((B,), t, dtype=torch.int64, device=dev)
-                logits_k, caches = ensemble_decode_step(
-                    self.draws, cfg, caches, tok, pos, enc_out=enc_out)
+                logits_k, caches = self._decode_logits(caches, tok, pos,
+                                                       enc_out)
                 stats.append(predictive_stats(logits_k))
                 tok = stats[-1].token[:, None]
             _sync(dev)

@@ -1,0 +1,240 @@
+"""One rank of the CPU mesh tests (``tests/test_torch_mesh.py``).
+
+    RANK=r WORLD_SIZE=2 MASTER_ADDR=localhost MASTER_PORT=p \\
+        python tests/_mesh_worker.py CASE OUT_DIR
+
+Starts a gloo process group from the environment, builds the CASE's
+mesh, runs every check of the case on this rank and writes
+OUT_DIR/rank<r>.json: a list of [name, ok, detail]. Each check holds a
+mesh run against the same run on this one process with no mesh (the
+one-device engine, server or driver), bitwise unless its detail states
+a bound. Cases:
+
+  data   (data, model) = (2, 1): the engine on packed, per_leaf and vmap
+         with 4 and 3 chains; FA-LD; a streamed run; snapshots and a
+         resume; Serving(mesh=) at K = 4 (the draws on 'data')
+  model  (1, 2): the same six engine runs; refresh_bank_mesh over
+         model = 2; a run with refresh_every; Serving(mesh=) at K = 4
+         (replicated)
+  train  launch/train.py --multi-pod --smoke on a (2, 1, 1) mesh
+         against the driver's run without torchrun's environment
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import sys
+import tempfile
+import traceback
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+
+import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
+
+from repro_torch import api  # noqa: E402
+from repro_torch import tree as tu  # noqa: E402
+from repro_torch.configs.base import SamplerConfig  # noqa: E402
+from repro_torch.core import engine as teng  # noqa: E402
+from repro_torch.core import federated as tfed  # noqa: E402
+from repro_torch.core import surrogate as tsur  # noqa: E402
+from repro_torch.launch import mesh as lmesh  # noqa: E402
+from repro_torch.workloads import mlp_log_lik, mlp_problem  # noqa: E402
+
+RESULTS = []
+
+
+def check(name, fn):
+    try:
+        detail = fn()
+        RESULTS.append([name, True, detail or ""])
+    except Exception:  # a failed check is reported, the rest still run
+        RESULTS.append([name, False, traceback.format_exc()[-2000:]])
+
+
+def equal(a, b):
+    la, lb = tu.leaves(a), tu.leaves(b)
+    assert len(la) == len(lb)
+    for x, y in zip(la, lb):
+        assert x.shape == y.shape, (x.shape, y.shape)
+        assert torch.equal(x, y), float((x - y).abs().max())
+
+
+def mlp_engine(executor, mesh=None, **kw):
+    g = torch.Generator().manual_seed(3)
+    data, bank, theta0 = mlp_problem(g, S=3, n=40, din=5, hid=7, dout=2)
+    cfg = SamplerConfig(method="fsgld", step_size=1e-3, num_shards=3,
+                        local_updates=3, prior_precision=1.0,
+                        surrogate="scalar")
+    eng = teng.MeshChainEngine(
+        mlp_log_lik, cfg, data, 8, bank=bank, use_kernel=executor != "vmap",
+        packed={"packed": True, "per_leaf": False}.get(executor),
+        mesh=mesh, **kw)
+    return eng, theta0
+
+
+def engine_runs(mesh):
+    for executor in ("packed", "per_leaf", "vmap"):
+        for n in (4, 3):
+            def run(executor=executor, n=n):
+                outs = []
+                for m in (mesh, None):
+                    eng, theta0 = mlp_engine(executor, m)
+                    outs.append(eng.run(torch.Generator().manual_seed(5),
+                                        theta0, 3, n_chains=n))
+                equal(*outs)
+                assert tu.leaves(outs[0])[0].shape[:2] == (n, 9)
+            check(f"engine {executor} C={n}", run)
+
+
+def gauss_engine(mesh, **kw):
+    g = torch.Generator().manual_seed(7)
+    S, n, D = 4, 12, 6
+    x = torch.randn(S, 1, D, generator=g) * 2 + torch.randn(S, n, D,
+                                                            generator=g)
+    bank = tsur.make_bank(x.mean(1), torch.full((S, D), float(n)), "diag")
+    cfg = SamplerConfig(method="fsgld", step_size=1e-3, num_shards=S,
+                        local_updates=2, prior_precision=1.0)
+
+    def ll(theta, batch):
+        return -0.5 * torch.sum((batch["x"] - theta) ** 2)
+
+    eng = teng.MeshChainEngine(ll, cfg, {"x": x}, 4, bank=bank,
+                               use_kernel=True, mesh=mesh, **kw)
+    return eng, 0.1 * torch.randn(D, generator=g)
+
+
+def case_data(mesh):
+    engine_runs(mesh)
+
+    def fald():
+        outs = []
+        for m in (mesh, None):
+            eng, theta0 = mlp_engine("packed", m, aggregation="fald")
+            outs.append(eng.run(torch.Generator().manual_seed(6), theta0, 3,
+                                n_chains=3, federation="topk-1%"))
+        equal(*outs)
+    check("FA-LD packed C=3 with top-k compression", fald)
+
+    def stream():
+        outs = []
+        for m in (mesh, None):
+            eng, theta0 = mlp_engine("packed", m)
+            outs.append(eng.run(torch.Generator().manual_seed(8), theta0, 4,
+                                n_chains=2, reassign="permutation",
+                                stream=api.Stream(resident=2)))
+        eng, theta0 = mlp_engine("packed", None)
+        equal(outs[0], eng.run(torch.Generator().manual_seed(8), theta0, 4,
+                               n_chains=2, reassign="permutation"))
+        equal(*outs)
+    check("streamed packed C=2, 2 resident", stream)
+
+    def snapshots():
+        # rank 0 makes the directory; every rank reads and writes there
+        root = [tempfile.mkdtemp() if dist.get_rank() == 0 else None]
+        dist.broadcast_object_list(root, src=0)
+        snaps = os.path.join(root[0], "snaps")
+        eng, theta0 = gauss_engine(mesh)
+        kw = dict(n_chains=3, federation="delayed-5x",
+                  snapshot_every=2, snapshot_path=snaps)
+        whole = gauss_engine(None)[0].run(torch.Generator().manual_seed(9),
+                                          theta0, 6, n_chains=3,
+                                          federation="delayed-5x")
+        eng.run(torch.Generator().manual_seed(9), theta0, 4, **kw)
+        resumed = eng.run(torch.Generator().manual_seed(9), theta0, 6,
+                          resume=True, **kw)
+        dist.barrier()
+        if dist.get_rank() == 0:
+            shutil.rmtree(root[0])
+        equal(resumed, whole)
+    check("snapshots every 2 rounds, then a resume at round 4", snapshots)
+
+    check("Serving(mesh=) K=4 on 'data'", lambda: serving(mesh, 4, 2))
+    check("Serving(mesh=) K=3 replicated (3 % 2 != 0)",
+          lambda: serving(mesh, 3, 3))
+
+
+def serving(mesh, k, held):
+    """K draws served on the mesh against the one-device server: every
+    token and statistic bitwise; ``held`` draws on this rank."""
+    spec = dict(draws=k, arch="qwen3-1.7b", smoke=True, device="cpu")
+    a = api.FSGLD.serve(api.Serving(mesh=mesh, **spec), seed=3)
+    b = api.FSGLD.serve(api.Serving(**spec), seed=3)
+    assert tu.leaves(a.draws)[0].shape[0] == held and a.n_draws == k
+    ra = a.generate(batch=2, prompt_len=8, gen=4)
+    rb = b.generate(batch=2, prompt_len=8, gen=4)
+    for f in ("tokens", "mean_logprob", "entropy", "mutual_info",
+              "token_var"):
+        equal(getattr(ra, f), getattr(rb, f))
+    assert ra.n_draws == k
+
+
+def case_model(mesh):
+    engine_runs(mesh)
+
+    def refresh_bank():
+        eng, _ = gauss_engine(mesh)
+        theta = torch.linspace(-1, 1, 6)
+        a = teng.refresh_bank_mesh(eng.log_lik_fn, eng.shard_data, theta,
+                                   mesh)
+        b = tfed.refresh_bank(eng.log_lik_fn, eng.shard_data, theta)
+        equal((a.means, a.precs, a.global_.mean, a.global_.prec),
+              (b.means, b.precs, b.global_.mean, b.global_.prec))
+    check("refresh_bank_mesh over model=2", refresh_bank)
+
+    def refresh_run():
+        outs = []
+        for m in (mesh, None):
+            eng, theta0 = gauss_engine(m)
+            outs.append(eng.run(torch.Generator().manual_seed(2), theta0, 5,
+                                n_chains=3, refresh_every=2))
+        equal(*outs)
+    check("engine run with refresh_every=2", refresh_run)
+
+    check("Serving(mesh=) K=4 over a data axis of 1",
+          lambda: serving(mesh, 4, 4))
+
+
+def case_train(out_dir):
+    from repro_torch.launch import train
+    argv = ["--smoke", "--device", "cpu", "--multi-pod", "--rounds", "2",
+            "--local-updates", "2", "--fit-steps", "2", "--num-shards", "2",
+            "--shard-size", "8", "--seq", "16", "--batch", "4",
+            "--chains", "2", "--step-size", "1e-4"]
+
+    def run():
+        tr = train.run(train.parse_args(argv))
+        # the one-device run in this process: outside torchrun's
+        # environment and without --multi-pod, the driver builds no mesh
+        env = {k: os.environ.pop(k) for k in ("RANK", "WORLD_SIZE")}
+        try:
+            one = train.run(train.parse_args(
+                [a for a in argv if a != "--multi-pod"]))
+        finally:
+            os.environ.update(env)
+        equal(tr.finals, one.finals)
+        return f"lls {tr.lls}"
+    check("train --multi-pod --smoke", run)
+
+
+def main() -> int:
+    case, out_dir = sys.argv[1], sys.argv[2]
+    lmesh.init_world("cpu")
+    if case == "data":
+        case_data(lmesh.make_sim_mesh(2, 1, "cpu"))
+    elif case == "model":
+        case_model(lmesh.make_sim_mesh(1, 2, "cpu"))
+    else:
+        case_train(out_dir)
+    with open(os.path.join(out_dir, f"rank{dist.get_rank()}.json"),
+              "w") as f:
+        json.dump(RESULTS, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -359,8 +359,9 @@ def test_train_step_launches_the_update_once(dev):
     """qwen3's smoke config on the card, FSGLD with a bf16 'scalar' bank
     on the host: each local step (of 2 chains; of 1 chain, whose second
     step's seeds sit 56 bytes into the round's draw) makes one
-    ``fsgld_update_packed`` launch and one flash launch per layer (the
-    chains folded into one gradient pass); per_leaf gives the same state,
+    ``fsgld_update_packed`` launch and two flash launches per layer (the
+    chains folded into one gradient pass, whose backward re-runs each
+    period's forward: ``cfg.remat``); per_leaf gives the same state,
     bitwise."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.data import token_shards
@@ -393,7 +394,8 @@ def test_train_step_launches_the_update_once(dev):
             out[ex] = s.sample(torch.Generator(device=dev).manual_seed(3),
                                theta0)
             torch.cuda.synchronize()
-            assert fa.LAUNCHES["flash_attention"] == cfg.num_layers * T
+            assert cfg.remat and cfg.num_layers % len(cfg.layer_pattern) == 0
+            assert fa.LAUNCHES["flash_attention"] == 2 * cfg.num_layers * T
             if ex == "packed":
                 assert fk.LAUNCHES == {"fsgld_update_packed": T,
                                        "fsgld_update_2d": 0}

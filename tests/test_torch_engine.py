@@ -228,14 +228,17 @@ def test_execution_refuses_to_fall_back_to_cpu(monkeypatch):
 
 
 def test_refusals_name_the_roadmap_item():
-    """What is still unported names its item (telemetry= and stream=,
-    items 12 and 13, run: tests/test_torch_telemetry.py and
-    tests/test_torch_stream.py)."""
+    """Adaptive refresh and the mesh are ported (item 8; their runs:
+    tests/test_torch_refresh.py and tests/test_torch_mesh.py); what is
+    left are the reference's own refusals: a refresh of a bank other
+    than a flat-vector 'diag' one (this MLP's pytree bank, at the first
+    refresh boundary), and a mesh that is not a DeviceMesh with a 'data'
+    axis."""
     s, theta0 = _mlp_sampler("packed")
     g = torch.Generator()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        s.engine.run(g, theta0, 1, refresh_every=2)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="'diag' banks only"):
+        s.engine.run(g, theta0, 3, refresh_every=2)
+    with pytest.raises(ValueError, match="'data' axis"):
         api.Serving(mesh=object(), device="cpu")
 
 

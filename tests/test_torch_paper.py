@@ -360,8 +360,10 @@ def test_run_vmap_with_the_kernel_equals_per_leaf_bitwise(dynamics):
 def test_run_vmap_refusals():
     data, bank, cfg, theta0 = _oracle_problem()
     oracle = FederatedSampler(W.gaussian_log_lik, cfg, data, 4, bank=bank)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        oracle.run_vmap(torch.Generator(), theta0, 1, refresh_every=2)
+    with pytest.raises(NotImplementedError, match="sghmc"):
+        FederatedSampler(W.gaussian_log_lik, cfg, data, 4, bank=bank,
+                         dynamics="sghmc").run_vmap(
+            torch.Generator(), theta0, 1, refresh_every=2)
     lin = tsur.make_bank(torch.ones(3, 5), torch.zeros(3, 5), "linear")
     with pytest.raises(ValueError, match="linear"):
         FederatedSampler(W.gaussian_log_lik, cfg, data, 4, bank=lin,

@@ -324,9 +324,11 @@ def test_the_encoder_runs_once_per_request(monkeypatch):
 
 
 def test_unported_serving_options_are_refused():
-    """Multi-device serving waits for item 8 (``--log-jsonl``, item 12,
-    runs: tests/test_torch_obs.py)."""
-    with pytest.raises(NotImplementedError, match="item 8"):
+    """Every serving option is ported (``--log-jsonl``, item 12, runs:
+    tests/test_torch_obs.py; ``Serving(mesh=)``, item 8:
+    tests/test_torch_mesh.py); a mesh that is not a DeviceMesh with a
+    'data' axis is refused."""
+    with pytest.raises(ValueError, match="'data' axis"):
         api.Serving(device="cpu", mesh=object())
 
 

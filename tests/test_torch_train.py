@@ -644,10 +644,15 @@ def test_train_cli_samples_every_decoder_family(arch, capsys):
         assert np.isfinite(float(ln.split("ll/token=")[1]))
 
 
-@pytest.mark.parametrize("flag,item", [(["--multi-pod"], 8)])
-def test_train_cli_refuses_flags_naming_their_item(flag, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
+@pytest.mark.parametrize("flag,match", [(["--multi-pod"], "even world")])
+def test_train_cli_refuses_flags_naming_their_item(flag, match):
+    """Every flag of the reference's driver is ported; ``--multi-pod``
+    outside torchrun (one rank) is refused before any process group
+    starts: one rank is not two pods (its run on two ranks:
+    tests/test_torch_mesh.py)."""
+    with pytest.raises(ValueError, match=match):
         ttrain.main(SMALL + flag)
+    assert not torch.distributed.is_initialized()
 
 
 @pytest.mark.parametrize("flag,match", [
