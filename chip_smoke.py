@@ -88,6 +88,16 @@ nvcc per source, in parallel) and drives its two paths through the
   launch per step, flash launches per self-attention per pass, the
   divergence guard with telemetry's conducive and gradient norms, the
   MoE's aux loss finite, packed == per_leaf over one round, bitwise;
+* the production dry run (``launch.dryrun``): two combinations of the
+  pod's grid traced on a fake world of 256 ranks (qwen3-1.7b's train_4k,
+  h2o-danube-1.8b's long_500k), and the one-card prediction of
+  ``launch.steps.make_train_step`` at (4, 2,048), held against that
+  step on the card at full width and depth, fed by
+  ``data.pipeline.FederatedPipeline``: FLOPs to 0.1 %, the peak memory's
+  ratio in [0.8, 1.25], the step time against the roofline bound, 56
+  flash and 14 update launches per step; then the prefill step (28
+  launches) and serve steps (none); the traces run on the CPU, each a
+  process of its own, while the card runs the earlier phases;
 
 and times each kernel beside its bound, its plain version and, where one
 PyTorch call computes the same function, that call. Exits non-zero,
@@ -97,6 +107,8 @@ the kernels.
 """
 from __future__ import annotations
 
+import atexit
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -194,6 +206,12 @@ PREFILL_REL = 0.05
 # ended 0.99 nats below theta0, at 1e-7 0.10 (PERF.md, H100 80GB HBM3,
 # 700 W).
 TRAIN_H = 1e-7
+# [dryrun]: the production step at one card's shape, its prediction from
+# a fake one-rank world, and two combinations of the pod's grid
+DRY_B, DRY_S, DRY_STEPS, DRY_CLIENTS = 4, 2048, 4, 4
+DRY_GRID = (("qwen3-1.7b", "train_4k"), ("h2o-danube-1.8b", "long_500k"))
+DRY_FLOPS_REL = 1e-3
+DRY_PEAK = (0.8, 1.25)
 TRAIN_GUARD = 1.0
 TRAIN_S, TRAIN_FIT, TRAIN_R, TRAIN_T = 4, 20, 5, 4
 QWEN3_P = 2_031_739_904
@@ -704,6 +722,220 @@ def time_flash(gen):
             f"{b} {v:.4f} ms" if isinstance(v, float) else f"{b} refused "
             f"({v})" for b, v in backends.items()))
     return rows
+
+
+# ---------------------------------------------------------------------------
+# the production dry run (launch.dryrun) against the card
+# ---------------------------------------------------------------------------
+
+def start_dryruns(root: str) -> list:
+    """The [dryrun] phase's fake-world traces, started at the beginning:
+    each a process of its own (a fake world is process-global), on the
+    CPU only, one thread each: two combinations of the pod's grid and
+    the one-card prediction of the step [dryrun] runs. Returns [(what,
+    process, JSON path)]."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    runs = [(f"{a}|{s}|pod1", ["--arch", a, "--shape", s])
+            for a, s in DRY_GRID]
+    runs.append(("card prediction", [
+        "--arch", "qwen3-1.7b", "--shape", "train_4k", "--mesh-shape",
+        "1,1", "--batch", str(DRY_B), "--seq-len", str(DRY_S)]))
+    out = []
+    for i, (what, argv) in enumerate(runs):
+        path = os.path.join(root, f"dryrun{i}.json")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *argv,
+             "--json-out", path], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        out.append((what, proc, path))
+    atexit.register(_stop, [proc for _, proc, _ in out])
+    return out
+
+
+def _stop(procs) -> None:
+    """Kill what is still running (an earlier phase failed)."""
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def _dryrun_result(what, proc, path, timeout=900):
+    """A dry-run process's OK / RESHARD / SKIP / FAIL lines and its one
+    result."""
+    try:
+        text, _ = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    lines = [ln for ln in text.splitlines()
+             if ln.startswith(("OK ", "RESHARD ", "SKIP ", "FAIL ",
+                               "done:"))]
+    for ln in lines:
+        log(f"  {ln}")
+    if proc.returncode != 0:
+        raise AssertionError(f"[dryrun] {what}: exit {proc.returncode}: "
+                             f"{text[-2000:]}")
+    with open(path) as f:
+        (info,) = json.load(f).values()
+    return info
+
+
+def phase_dryrun(dev, runs):
+    """(a) the pod grid's two combinations and the one-card prediction,
+    traced meanwhile on the CPU; (b) on the card, qwen3-1.7b at full width
+    and depth: ``launch.steps.make_train_step`` for DRY_STEPS steps at
+    (DRY_B, DRY_S), fed by ``data.pipeline.FederatedPipeline`` over
+    DRY_CLIENTS token_shards clients on a categorical schedule, each step
+    56 flash and 14 update launches: the differentiable flash entry held
+    against plain autograd at the step's attention shape first; step 0's
+    14 leaf updates each held against the plain version on the same
+    operands; step 1 under the dry run's op counter, its FLOPs and peak
+    memory against the prediction; the rest timed against the roofline
+    bound; then ``make_prefill_step`` (28 flash launches) and DRY_STEPS + 1
+    ``make_serve_step`` tokens after ``prefill_with_cache`` (none). A
+    trace the dry run could place only by resharding (RESHARD) is
+    accepted here and named so: its peak is not the rules' layout's."""
+    from repro_torch import tree as tu
+    from repro_torch.configs import SamplerConfig, get_config
+    from repro_torch.data import token_shards
+    from repro_torch.data.pipeline import (ClientDataset, FederatedPipeline,
+                                           categorical_schedule)
+    from repro_torch.launch.steps import (init_surrogate_state,
+                                          make_prefill_step, make_serve_step,
+                                          make_train_step)
+    from repro_torch.models import (init_params, prefill_with_cache,
+                                    serving_cast, serving_params)
+    from repro_torch.roofline import report
+    from repro_torch.roofline.hlo_analysis import OpCounter
+    *grid, (_, pproc, ppath) = runs
+    for what, proc, path in grid:
+        info = _dryrun_result(what, proc, path)
+        assert info.get("status") in ("ok", "resharded"), (what, info)
+    pred = _dryrun_result("card prediction", pproc, ppath)
+    assert pred.get("status") in ("ok", "resharded"), pred
+
+    cfg = get_config("qwen3-1.7b")
+    check_flash_diff(dev, (DRY_B, DRY_S, cfg.num_heads, cfg.num_kv_heads,
+                           cfg.head_dim))
+    cuda_sync()
+    base = torch.cuda.memory_allocated()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    surr = init_surrogate_state(params)
+    shards = token_shards(torch.Generator().manual_seed(1),
+                          num_shards=DRY_CLIENTS, shard_size=2 * DRY_B,
+                          seq_len=DRY_S, vocab_size=cfg.vocab_size)
+    clients = [ClientDataset({k: v[c].numpy() for k, v in shards.items()},
+                             seed=c) for c in range(DRY_CLIENTS)]
+    pipe = FederatedPipeline(clients, DRY_B, categorical_schedule(
+        [1.0 / DRY_CLIENTS] * DRY_CLIENTS, seed=2), device=dev)
+    n = 2 * DRY_B     # N_s / (f_s m), f_s = 1 / clients
+    step = make_train_step(cfg, SamplerConfig(
+        method="fsgld", step_size=TRAIN_H, num_shards=DRY_CLIENTS),
+        scale=n / (DRY_B / DRY_CLIENTS), f_s=1.0 / DRY_CLIENTS)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    n_leaves = len(tu.leaves(params))
+    flash = grad_attn_launches(cfg)
+    times, lls = [], []
+    for i in range(DRY_STEPS):
+        s, batch = next(pipe)
+        mode = (LeafUpdateCheck() if i == 0 else OpCounter() if i == 1
+                else contextlib.nullcontext())
+        if i == 1:
+            cuda_sync()
+            torch.cuda.reset_peak_memory_stats()
+
+        def one(batch=batch, mode=mode):
+            with mode:
+                return step(params, surr, batch, gen)
+        (params, m), dt, _, _ = _counted(
+            f"[dryrun] train step {i}", one,
+            {"fsgld_update_2d": n_leaves, "fsgld_update_packed": 0}, flash)
+        lls.append(float(m["ll_per_token"]))
+        if i == 0:
+            if mode.n != n_leaves:
+                raise AssertionError(f"[dryrun] {mode.n} leaf updates "
+                                     f"checked, {n_leaves} leaves")
+            log(f"  step 0's {mode.n} leaf updates (fsgld_update_2d, "
+                f"'scalar') against the plain version on the same leaves, "
+                f"seeds and surrogate operand: max |kernel - plain| "
+                f"{mode.err:.3e} (tolerance {ATOL:g} + {RTOL:g}|x|)")
+        elif i == 1:
+            peak = torch.cuda.max_memory_allocated() - base
+            card = mode.result()
+        else:
+            times.append(dt * 1e3)
+        log(f"  train step {i}: client {s}, {dt * 1e3:.2f} ms, ll/token "
+            f"{lls[-1]:.4f}, launches: update {n_leaves}, flash {flash}")
+    assert all(math.isfinite(x) for x in lls), lls
+    rel = abs(card["flops"] - pred["flops"]) / pred["flops"]
+    ratio = pred["peak_bytes"] / peak
+    log(f"  FLOPs per step: card {card['flops']:.6e} (the op counter on the "
+        f"real step), predicted {pred['flops']:.6e} on a fake (1, 1) world: "
+        f"{100 * rel:.4f}% apart (limit {100 * DRY_FLOPS_REL:g}%)")
+    log(f"  HBM bytes per step: card {card['static_hbm_bytes']:.6e}, "
+        f"predicted {pred['static_hbm_bytes']:.6e}")
+    log(f"  peak memory of the step: card {peak / 1e9:.3f} GB "
+        f"(max_memory_allocated less the {base / 1e9:.3f} GB held before "
+        f"its arguments), predicted {pred['peak_bytes'] / 1e9:.3f} GB: "
+        f"ratio {ratio:.4f} (limit {DRY_PEAK}); arguments "
+        f"{pred['argument_size_bytes'] / 1e9:.3f} GB")
+    terms = report.row_terms(pred)
+    t_c, t_m = terms["t_compute"], terms["t_memory"]
+    bound = 1e3 * max(t_c, t_m)
+    ms = statistics.mean(times)
+    by = "compute" if t_c >= t_m else "memory"
+    least = pred["argument_size_bytes"] + pred["output_size_bytes"]
+    log(f"  step time {ms:.2f} ms (mean of steps 2-{DRY_STEPS - 1}) against "
+        f"the roofline bound {bound:.2f} ms ({by}; compute: the counted "
+        f"FLOPs, the recompute's included, {1e3 * t_c:.2f} ms at "
+        f"{report.PEAK_FLOPS:g} FLOP/s; memory: the arguments read once "
+        f"and the outputs written once, {least / 1e9:.3f} GB, "
+        f"{1e3 * t_m:.2f} ms at {report.HBM_BW:g} B/s): "
+        f"{100 * bound / ms:.2f}% of the bound; the eager op stream's "
+        f"traffic ({pred['static_hbm_bytes'] / 1e12:.3f} TB of operand + "
+        f"result bytes) at the HBM rate takes "
+        f"{1e3 * terms['t_opstream']:.2f} ms, not a bound")
+    if rel > DRY_FLOPS_REL:
+        raise AssertionError(f"[dryrun] FLOPs {card['flops']} vs predicted "
+                             f"{pred['flops']}")
+    if not DRY_PEAK[0] <= ratio <= DRY_PEAK[1]:
+        raise AssertionError(f"[dryrun] predicted/card peak {ratio:.4f}")
+
+    _, batch = next(pipe)
+    toks, dt, _, _ = _counted(
+        "[dryrun] prefill step",
+        lambda: make_prefill_step(cfg)(params, {"tokens": batch["tokens"]}),
+        {"fsgld_update_2d": 0, "fsgld_update_packed": 0}, attn_layers(cfg))
+    assert toks.dtype == torch.int32 and toks.shape == (DRY_B,)
+    log(f"  prefill step ({DRY_B}, {DRY_S}): {dt * 1e3:.2f} ms, "
+        f"{attn_layers(cfg)} flash launches")
+    draw = serving_cast(params)
+    del params, surr
+    logits, cache = prefill_with_cache(serving_params(draw), cfg,
+                                       batch["tokens"], DRY_S + DRY_STEPS + 1)
+    serve = make_serve_step(cfg)
+    tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+    for t in range(DRY_STEPS + 1):
+        pos = torch.full((DRY_B,), DRY_S + t, dtype=torch.int64, device=dev)
+        (tok, cache), dt, _, _ = _counted(
+            f"[dryrun] serve step {t}",
+            lambda tok=tok, pos=pos: serve(draw, cache, tok, pos),
+            {"fsgld_update_2d": 0, "fsgld_update_packed": 0}, 0)
+        tok = tok[:, None]
+    log(f"  {DRY_STEPS + 1} serve steps after prefill_with_cache: last "
+        f"{dt * 1e3:.2f} ms, no flash launch; tokens {tok[:, 0].tolist()}")
+    del draw, cache
+
+
+def launch_floor_ms() -> float:
+    """Device time of an empty kernel (``torch.cuda._sleep(0)``: one launch
+    that returns at once) per launch, 200 of them in a CUDA graph: the
+    least any kernel launch takes on this card."""
+    return device_ms(lambda: torch.cuda._sleep(0), calls=200)
 
 
 # ---------------------------------------------------------------------------
@@ -1989,6 +2221,42 @@ class FirstUpdateCheck:
     def __exit__(self, *exc):
         from repro_torch.kernels import ops as kops
         kops.packed_step = self._real
+
+
+class LeafUpdateCheck:
+    """While in a ``with`` block: every per-leaf update that
+    ``kernels.ops`` makes (``fsgld_update_2d``) is also computed by the
+    plain version on the same operands; ``err`` the largest |kernel -
+    plain|, ``n`` the updates checked. The plain version makes no
+    launch, so the launch counts are those of the path alone."""
+
+    def __enter__(self):
+        from repro_torch.kernels import fsgld_update as fk
+        from repro_torch.kernels import ops as kops
+        self._real = real = kops.fsgld_update_2d
+        self.err, self.n = 0.0, 0
+
+        def checked(theta2d, g2d, seed, scalars, *, variant="plain",
+                    dynamics="langevin", block_rows=fk.BLOCK_ROWS,
+                    chains=1, **kw):
+            out = real(theta2d, g2d, seed, scalars, variant=variant,
+                       dynamics=dynamics, block_rows=block_rows,
+                       chains=chains, **kw)
+            ref = fk.fsgld_update_2d_plain(
+                theta2d, g2d, seed, scalars, variant=variant,
+                dynamics=dynamics, block_rows=block_rows, chains=chains,
+                **kw)
+            cuda_sync()
+            self.err = max(self.err, _err(out, ref))
+            self.n += 1
+            return out
+
+        kops.fsgld_update_2d = checked
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops as kops
+        kops.fsgld_update_2d = self._real
 
 
 def check_flash_diff(dev, shape=TRAIN_ATTN, window=None, causal=True):
@@ -3331,6 +3599,10 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s")
     for name, seconds in build_seconds.items():
         log(f"  {name}: {seconds:.2f} s ({_build.SOURCES[name].name})")
+    dry_root = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    dry_runs = start_dryruns(dry_root)
+    log(f"[dryrun] {len(dry_runs)} fake-world traces started on the CPU "
+        "(one process each), collected in the [dryrun] phase")
 
     gen = torch.Generator(device=dev).manual_seed(1234)
     t1_layout = kops.make_packed_layout(torch.zeros(TABLE1_P))
@@ -3527,8 +3799,27 @@ def main() -> int:
             remat_check(dev, arch, fam["train"])
             torch.cuda.empty_cache()
 
+    phase(f"[dryrun] qwen3-1.7b at full width and depth through "
+          f"launch.steps: {DRY_STEPS} train steps at ({DRY_B}, {DRY_S}) fed "
+          f"by FederatedPipeline over {DRY_CLIENTS} clients, held against "
+          "the dry run's prediction; prefill and serve steps; the pod "
+          f"grid's {', '.join('|'.join(c) for c in DRY_GRID)}")
+    try:
+        phase_dryrun(dev, dry_runs)
+    finally:
+        for _, proc, _ in dry_runs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(dry_root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
     phase("[times] device time per launch: CUDA graphs of back-to-back "
         "launches replayed 20 times between CUDA events (median)")
+    floor = launch_floor_ms()
+    log(f"  launch floor: an empty kernel takes {floor:.7f} ms per launch "
+        "in a CUDA graph (torch.cuda._sleep(0), 200 launches) on "
+        f"{card_line()}")
     big = kops.make_packed_layout(torch.zeros(2**24))
     times = time_kernels(gen, [
         ("table1/packed", "fsgld_update_packed", t1_layout, T1_CHAINS, 20),
@@ -3548,6 +3839,11 @@ def main() -> int:
             ("fsgld_update_2d", 189, "table1/per_leaf",
              leaf_counts["fsgld_update_2d"])):
         ms, plain_ms, b_ms, b_by, _ = times[shape]
+        least = max(b_ms, floor)
+        log(f"  {shape}: bytes bound {b_ms:.7f} ms, launch floor "
+            f"{floor:.7f} ms: the least time at this shape {least:.7f} ms "
+            f"({'the launch floor' if floor > b_ms else b_by}); the kernel "
+            f"{ms:.7f} ms is {100 * least / ms:.1f}% of it")
         rows.append({"name": entry, "route": "cuda", "source": src,
                      "replaces": f"src/repro/kernels/fsgld_update.py:{line}",
                      "launches": launches, "max_abs_err": worst[entry],

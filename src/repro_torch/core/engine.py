@@ -294,6 +294,17 @@ class ChainBlock:
     def gather_tree(self, tree):
         return tu.tree_map(self.gather, tree)
 
+    def row(self, t: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+        """Chain ``i``'s row (a device scalar index into the run's
+        chains) of the blocks' (per, ...) rows, as (1, ...) on every rank:
+        each rank sends one row and the owner's is kept."""
+        if self.mesh is None:
+            return t[i][None]
+        mine = (i - self.lo).clamp(0, self.per - 1).reshape(1)
+        rows = lmesh.all_gather_rows(t.index_select(0, mine), self.mesh,
+                                     "data")
+        return rows.index_select(0, (i // self.per).reshape(1))
+
     def draws(self, d: "RoundDraws") -> "RoundDraws":
         """This block's rows of a round's global draws."""
         if self.mesh is None:
@@ -709,12 +720,16 @@ def _finite_rows(tensors, c: int) -> torch.Tensor:
 
 
 def _respawn(mask: torch.Tensor, donor: torch.Tensor, any_h: torch.Tensor,
-             new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
-    """Per chain where ``mask``: the donor chain's row of ``new`` (or its
-    own ``old`` row when no chain is healthy), else its ``new`` row."""
+             new: torch.Tensor, old: torch.Tensor,
+             block: Optional[ChainBlock] = None) -> torch.Tensor:
+    """Per chain where ``mask`` (this block's rows): the donor chain's
+    row of ``new`` (or its own ``old`` row when no chain is healthy), else
+    its ``new`` row. ``donor`` indexes the run's chains; on a mesh its
+    row comes from the rank that holds it."""
     c = mask.shape[0]
     n2, o2 = new.reshape(c, -1), old.reshape(c, -1)
-    cand = torch.where(any_h, n2[donor][None], o2)
+    row = n2[donor][None] if block is None else block.row(n2, donor)
+    cand = torch.where(any_h, row, o2)
     return torch.where(mask[:, None], cand, n2).reshape(new.shape)
 
 
@@ -1263,7 +1278,12 @@ class MeshChainEngine:
         compression carry's real rows, the trace), written by global rank
         0 while the others wait; a resume reads it on every rank and each
         takes its block's rows again, the pad chains repeating chain 0.
-        Recovery and telemetry run on a mesh with one data rank only."""
+        Recovery and telemetry gather what each rank computes for its
+        block (the finite checks, the probes, the metric rows) across
+        'data': every rank keeps the whole run's health words and makes
+        the same quarantine, respawn and donor choice, and a respawned
+        chain takes its donor's row from the rank that holds it, so both
+        are bitwise the one-device run's."""
         hmc = self.sghmc if self.dynamics == "sghmc" else None
         chaos = chaos if chaos is not None and chaos.active else None
         if stream is not None:
@@ -1290,12 +1310,6 @@ class MeshChainEngine:
         if hmc is not None and refresh_every:
             raise NotImplementedError(
                 "adaptive refresh is not wired for sghmc dynamics")
-        if lmesh.axis_size(self.mesh, "data") > 1 and (
-                recovery is not None or telemetry is not None):
-            raise NotImplementedError(
-                "recovery= and telemetry= run on a mesh with one data "
-                "rank only: the health words, the respawn donor and the "
-                "metric rows are not gathered across ranks")
         if reassign not in ("categorical", "permutation"):
             raise ValueError(reassign)
         if generator.device.type != self.device.type:
@@ -1398,7 +1412,7 @@ class MeshChainEngine:
                 return bufs + (layout.unpack(bufs[0]),)
 
             def finite(st, momentum):
-                return _finite_rows(st[:2] if momentum else st[:1], C)
+                return _finite_rows(st[:2] if momentum else st[:1], Cl)
 
             def final(st):
                 return (st[-1], layout.unpack(st[1])) if hmc else st[-1]
@@ -1452,7 +1466,7 @@ class MeshChainEngine:
 
             def finite(st, momentum):
                 return _finite_rows(tu.leaves(st if momentum
-                                              else thetas_of(st)), C)
+                                              else thetas_of(st)), Cl)
 
             def final(st):
                 return st
@@ -1487,7 +1501,9 @@ class MeshChainEngine:
 
         def probe_batch(pgen, run_sids):
             """One probe minibatch's rows per chain from ``pgen`` (uniform
-            over each held client's live prefix; pooled for SGLD)."""
+            over each held client's live prefix; pooled for SGLD), drawn
+            for the run's chains (``run_sids`` global) and this block's
+            rows taken."""
             u = torch.rand((C, self.minibatch), generator=pgen, device=dev,
                            dtype=torch.float64)
             bound = (torch.tensor(self.scheme.total, device=dev)
@@ -1495,7 +1511,7 @@ class MeshChainEngine:
                      self.scheme.sizes_array(dev)[run_sids][:, None])
             idx = torch.minimum((u * bound).floor().to(torch.int64),
                                 bound - 1)
-            return idx
+            return block.take(idx)
 
         health = None
         if recovery is not None:
@@ -1503,14 +1519,14 @@ class MeshChainEngine:
 
             def probe(pgen, th, run_sids, rows, data):
                 """log p(x | th) on one probe minibatch per chain minus
-                the prior's 1/2 prec |th|^2, fp32."""
+                the prior's 1/2 prec |th|^2, fp32, for the run's chains."""
                 idx = probe_batch(pgen, run_sids)
                 with torch.no_grad():
                     lp = lp_v(th, sample(idx, rows, data))
-                    sq = sum(l.to(torch.float32).square().reshape(C, -1)
+                    sq = sum(l.to(torch.float32).square().reshape(Cl, -1)
                              .sum(1) for l in tu.leaves(th))
-                return lp.to(torch.float32) \
-                    - 0.5 * self.cfg.prior_precision * sq
+                return block.gather(lp.to(torch.float32)
+                                    - 0.5 * self.cfg.prior_precision * sq)
 
             health = _Health(recovery, C, dev, probe)
         check_mom = hmc is not None and recovery is not None \
@@ -1534,13 +1550,11 @@ class MeshChainEngine:
             def tel_rows(st, pre_th, run_sids, rows, exch, opnds):
                 """One round's closed-form metric rows, each (C,) fp32,
                 after the round's masking: frozen chains show zero drift
-                and quarantined ones their word."""
+                and quarantined ones their word. Each is computed for
+                this block's chains and gathered."""
                 th = thetas_of(st)
-                m = {"theta_norm": _sq(th, C).sqrt(),
-                     "drift_norm": _drift_sq(th, pre_th, C).sqrt(),
-                     "noise_scale": torch.full((C,), noise,
-                                               dtype=torch.float32,
-                                               device=dev)}
+                m = {"theta_norm": _sq(th, Cl).sqrt(),
+                     "drift_norm": _drift_sq(th, pre_th, Cl).sqrt()}
                 if fsgld_bank is not None:
                     _, f_s = chain_scales(self.cfg, self.scheme, run_sids,
                                           self.minibatch)
@@ -1558,11 +1572,15 @@ class MeshChainEngine:
                     m["conducive_norm"] = sq.sqrt()
                 else:
                     m["conducive_norm"] = torch.zeros(
-                        C, dtype=torch.float32, device=dev)
+                        Cl, dtype=torch.float32, device=dev)
                 part = (exch.to(torch.float32) if exch is not None else
-                        torch.ones(C, dtype=torch.float32, device=dev))
+                        torch.ones(Cl, dtype=torch.float32, device=dev))
                 m["participation"] = part
                 m["bytes_per_round"] = part * wire
+                m = {k: block.gather(v) for k, v in m.items()}
+                m["noise_scale"] = torch.full((C,), noise,
+                                              dtype=torch.float32,
+                                              device=dev)
                 m["health_word"] = (
                     health.word.to(torch.float32) if health is not None
                     else torch.zeros(C, dtype=torch.float32, device=dev))
@@ -1574,11 +1592,12 @@ class MeshChainEngine:
                 th = thetas_of(st)
                 idx = probe_batch(tgen, run_sids)
                 g, lp = vg(th, sample(idx, rows, data))
-                gn = _sq(g, C).sqrt()
+                gn = _sq(g, Cl).sqrt()
                 del g
-                return {"grad_norm": gn,
-                        "log_post": lp.to(torch.float32)
-                        - 0.5 * self.cfg.prior_precision * _sq(th, C)}
+                return {"grad_norm": block.gather(gn),
+                        "log_post": block.gather(
+                            lp.to(torch.float32)
+                            - 0.5 * self.cfg.prior_precision * _sq(th, Cl))}
 
         def payload(st, rounds_done):
             """The whole carry after ``rounds_done`` rounds, gathered from
@@ -1658,6 +1677,7 @@ class MeshChainEngine:
                     exch = exch & live
                 sids = torch.where(exch, draws.sids, sids)
                 draws.sids = sids
+                run_sids = sids
                 draws, exch = block.draws(draws), block.take(exch)
                 if exchanges and fsched.comm_mask(sched, r):
                     poison = None
@@ -1673,6 +1693,7 @@ class MeshChainEngine:
                     # pre-round value and the trace repeats it
                     strag = fsched.straggler_mask(sched, draws.strag_u)
             else:
+                run_sids = draws.sids
                 draws = block.draws(draws)
             if window_ids is not None:
                 # the replayed plan put every held client in this window
@@ -1704,21 +1725,26 @@ class MeshChainEngine:
                     lambda l: _keep(m, l, torch.full_like(l, float("nan")))
                     if l.dtype.is_floating_point else l, thetas_of(state)))
             if health is not None:
+                # the whole run's checks on every rank, this block's rows
+                # of what they replace
                 repl, donor, any_h = health.check(
-                    r, ~finite(state, check_mom),
-                    (pgen, thetas_of(state), draws.sids, held_rows, data))
+                    r, ~block.gather(finite(state, check_mom)),
+                    (pgen, thetas_of(state), run_sids, held_rows, data))
+                repl = block.take(repl)
                 if donor is None:
                     state = restore(state, pre, repl)
                 else:
+                    on_mesh = None if self.mesh is None else block
                     state = mapstate(
-                        lambda a, b: _respawn(repl, donor, any_h, a, b),
+                        lambda a, b: _respawn(repl, donor, any_h, a, b,
+                                              on_mesh),
                         state, pre)
                 if collect:
                     k0 = r * per_round
                     tu.tree_map(
                         lambda dst, f: dst[:, k0:k0 + per_round].copy_(
                             torch.where(
-                                repl.view((C, 1) + (1,) * (f.ndim - 1)),
+                                repl.view((Cl, 1) + (1,) * (f.ndim - 1)),
                                 f[:, None], dst[:, k0:k0 + per_round])),
                         trace, thetas_of(state))
             m = None
@@ -1729,7 +1755,7 @@ class MeshChainEngine:
             # probe's gradient pass
             del pre, opnds, extra, on_step
             if tgen is not None:
-                m.update(probe_rows(state, draws.sids, held_rows, tgen,
+                m.update(probe_rows(state, run_sids, held_rows, tgen,
                                     data))
             if m is not None:
                 metrics.add(m)

@@ -28,13 +28,27 @@ probabilities from those statistics, and runs without recording a graph
 takes: it would keep each key block's probabilities to the end of the
 pass). Its ``vmap`` rule folds a vmapped (chain) axis into the batch,
 because a ctypes launch cannot read functorch's wrapped tensors.
+
+Both CUDA entries are ``torch.library`` custom ops,
+``repro_torch::flash_attention`` and ``repro_torch::flash_attention_lse``,
+with a shape function for fake tensors, a FLOP formula for
+``torch.utils.flop_counter`` and the op counter of
+``roofline.hlo_analysis`` (the work the kernel does: causal tiles and
+keys out of the window skipped), and a DTensor sharding rule
+(``register_dtensor_rules``: batch or heads sharded, or replicated). A
+wrapper calls the op on CUDA tensors and on fake ones (a dry run's, any
+device), the plain version on real CPU tensors. ``_Attention`` stays the
+outer layer, so ``torch.func`` transforms never see the op batched.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
+from torch.utils.flop_counter import register_flop_formula
 
 NEG_INF = -1e30
 DTYPES = (torch.float32, torch.bfloat16)  # the kernel's dtype codes 0, 1
@@ -268,17 +282,116 @@ def _launch(q, k, v, causal, window, lse):
     return out
 
 
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cuda")
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool, window: int) -> torch.Tensor:
+    return _launch(q, k, v, causal, window or None, None)
+
+
+@_flash_op.register_fake
+def _(q, k, v, causal, window):
+    return torch.empty_like(q)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_lse", mutates_args=(),
+                         device_types="cuda")
+def _flash_lse_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool, window: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    B, S, H, _ = q.shape
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    return _launch(q, k, v, causal, window or None, lse), lse
+
+
+@_flash_lse_op.register_fake
+def _(q, k, v, causal, window):
+    B, S, H, _ = q.shape
+    return torch.empty_like(q), q.new_empty((B, H, S), dtype=torch.float32)
+
+
+@functools.lru_cache(maxsize=256)
+def _tiles(S: int, bq: int, bk: int, causal: bool, window: int) -> int:
+    """(query block, key tile) pairs the kernel computes for one (batch,
+    head), as its ``key_range`` walks them: query rows [q0, q0 + bq),
+    keys from the tile of max(0, q0 - window + 1) to the tile holding
+    min(S, q0 + bq) - 1 (causal) or S - 1."""
+    n = 0
+    for q0 in range(0, S, bq):
+        kend = min(S, q0 + bq) if causal else S
+        kbeg = max(0, q0 - window + 1) if window > 0 else 0
+        n += -(-kend // bk) - kbeg // bk
+    return n
+
+
+def flops(q_shape, dtype, causal: bool, window: Optional[int]) -> int:
+    """FLOPs of one launch, the work the kernel does: the QK^T and PV
+    products (2 x 2 hd per score) of every (query block, key tile) it
+    visits, full tiles where they meet the diagonal or the window's edge,
+    tiles wholly masked skipped. bf16: 128 query rows by 128 keys (64
+    above hd 128); fp32: 8 rows by 32 keys."""
+    B, S, H, hd = (int(d) for d in q_shape)
+    if dtype == torch.bfloat16:
+        bq, bk = 128, (128 if hd <= 128 else 64)
+    else:
+        bq, bk = 8, 32
+    return 4 * B * H * hd * bq * bk * _tiles(S, bq, bk, bool(causal),
+                                             int(window or 0))
+
+
+@register_flop_formula([torch.ops.repro_torch.flash_attention,
+                        torch.ops.repro_torch.flash_attention_lse],
+                       get_raw=True)
+def _flash_flops(q, k, v, causal, window, *args, **kwargs) -> int:
+    return flops(q.shape, q.dtype, causal, window)
+
+
+def register_dtensor_rules() -> None:
+    """DTensor sharding rules of the two ops (once per process): q, k, v
+    and the output sharded alike over the batch or the heads (a head
+    shard keeps its KV-head groups whole when both head counts divide),
+    or everything replicated; the log-sum-exp (B, H, S) follows."""
+    if _RULES_DONE:
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    def rules(with_lse):
+        def fn(q, k, v, causal, window):
+            out = []
+            for qd, ld in ((None, None), (0, 0), (2, 1)):
+                pq = Replicate() if qd is None else Shard(qd)
+                outs = [pq] + ([Replicate() if ld is None else Shard(ld)]
+                               if with_lse else [])
+                out.append((outs, [pq, pq, pq, None, None]))
+            return out
+        return fn
+
+    register_sharding(torch.ops.repro_torch.flash_attention.default)(
+        rules(False))
+    register_sharding(torch.ops.repro_torch.flash_attention_lse.default)(
+        rules(True))
+    _RULES_DONE.append(True)
+
+
+_RULES_DONE: list = []
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     window: Optional[int] = None) -> torch.Tensor:
     """q (B, S, H, hd), k/v (B, S, Hkv, hd), fp32 or bf16, H % Hkv == 0,
     hd a multiple of 16 up to 256, any S. Returns (B, S, H, hd) in q's
-    dtype. CPU tensors take the plain version; CUDA tensors launch the
-    kernel on PyTorch's current stream."""
+    dtype. Real CPU tensors take the plain version; CUDA tensors launch
+    the kernel on PyTorch's current stream (through the custom op, which
+    also answers fake tensors)."""
     _check(q, k, v, window)
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" and not is_fake(q):
         return flash_attention_plain(q, k, v, causal=causal, window=window)
-    return _launch(q, k, v, causal, window, None)
+    if q.device.type != "cuda" and not is_fake(q):
+        raise RuntimeError(f"flash_attention runs on cuda or cpu tensors, "
+                           f"not {q.device.type}")
+    return _flash_op(q, k, v, causal, window or 0)
 
 
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -288,13 +401,14 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scores, fp32 (B, H, S): one launch of the kernel's statistics entry on
     CUDA tensors; on CPU tensors the plain scan, with m + log(l)."""
     _check(q, k, v, window)
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" and not is_fake(q):
         out, m, l = _plain_stats(q, k, v, None, None, causal, window,
                                  BLOCK_K)
         return out, m + torch.log(torch.clamp_min(l, 1e-30))
-    B, S, H, _ = q.shape
-    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    return _launch(q, k, v, causal, window, lse), lse
+    if q.device.type != "cuda" and not is_fake(q):
+        raise RuntimeError(f"flash_attention runs on cuda or cpu tensors, "
+                           f"not {q.device.type}")
+    return _flash_lse_op(q, k, v, causal, window or 0)
 
 
 # ---------------------------------------------------------------------------
@@ -320,7 +434,8 @@ class _Attention(torch.autograd.Function):
     @staticmethod
     def forward(q, k, v, q_positions, kv_positions, causal, window,
                 block_k):
-        if q_positions is None and q.device.type == "cuda":
+        if q_positions is None and (q.device.type == "cuda"
+                                    or is_fake(q)):
             out, lse = flash_attention_lse(q.contiguous(), k.contiguous(),
                                            v.contiguous(), causal=causal,
                                            window=window)

@@ -23,12 +23,26 @@ returns new buffers. Dispatch is by device: a CPU tensor takes the plain version
 built at first use by ``_build``) and any other device raises. The plain
 version is the oracle the kernel is held against on the card, not a
 fallback.
+
+Both entries are ``torch.library`` custom ops on CUDA tensors,
+``repro_torch::fsgld_update_2d`` (new buffers) and
+``repro_torch::fsgld_update_packed`` (in place), with shape functions for
+fake tensors (a dry run's, on any device: the wrappers pass a fake
+tensor to the op) and a FLOP formula of 0 (the update's cost is its
+bytes). The noise index of an element is its index within its leaf,
+from the segment table: ``fsgld_update_2d(seg_base=)`` takes the table
+of a leaf's shard, so a shard draws the noise the whole leaf draws
+there. Sharded updates go through ``launch.steps.update_shard``, which
+calls this entry on each rank's local shard with that table.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import ref
 
@@ -145,16 +159,23 @@ def fsgld_update_packed_plain(theta2d, g2d, seeds, scalars, *, variant,
 
 def fsgld_update_2d_plain(theta2d, g2d, seed, scalars, *, variant, dynamics,
                           chains, r2d=None, mu_g=None, mu_s=None, lam_g=None,
-                          lam_s=None):
+                          lam_s=None, seg_base=None, block_rows=BLOCK_ROWS):
     """Plain version of the per-leaf entry (same contract; the noise index
-    is the element's index within its chain, whatever the block)."""
+    is the element's index within its chain, whatever the block, or with
+    ``seg_base`` its block's base plus its place in the block)."""
     rows = theta2d.shape[0]
     rows_c = rows // chains
     dev = theta2d.device
     row = torch.arange(rows, device=dev)
     c = row // rows_c
-    idx = ((row % rows_c) * LANE)[:, None] \
-        + torch.arange(LANE, device=dev)[None]
+    if seg_base is None:
+        first = (row % rows_c) * LANE
+    else:
+        br = min(block_rows, rows_c)
+        rr = row % rows_c
+        first = (torch.as_tensor(seg_base, device=dev).to(torch.int64)
+                 & ref.MASK32)[rr // br] + (rr % br) * LANE
+    idx = first[:, None] + torch.arange(LANE, device=dev)[None]
     s = seed.to(torch.int64).reshape(chains)[c][:, None]
     sc = scalars.to(torch.float32).reshape(chains, SCALAR_COLS)[c]
     sur = _sur_plain(variant, chains, mu_g, mu_s, lam_g, lam_s)
@@ -276,6 +297,69 @@ def _sur_list(variant, mu_g, mu_s, lam_g, lam_s):
 
 
 # ---------------------------------------------------------------------------
+# the custom ops (CUDA tensors launch; fake tensors take the shape function)
+# ---------------------------------------------------------------------------
+
+@torch.library.custom_op("repro_torch::fsgld_update_2d", mutates_args=(),
+                         device_types="cuda")
+def _update_2d_op(theta2d: torch.Tensor, g2d: torch.Tensor,
+                  seeds: torch.Tensor, scalars: torch.Tensor,
+                  seg_base: torch.Tensor, variant: str, dynamics: str,
+                  r2d: Optional[torch.Tensor], mu_g: Optional[torch.Tensor],
+                  mu_s: Optional[torch.Tensor], lam_g: Optional[torch.Tensor],
+                  lam_s: Optional[torch.Tensor], block_rows: int,
+                  chains: int) -> list[torch.Tensor]:
+    seg_leaf = _one_leaf_tables(theta2d.device, seg_base.shape[0],
+                                block_rows)[0]
+    out = _launch("fsgld_update_2d", variant, dynamics, theta2d, g2d, r2d,
+                  _sur_list(variant, mu_g, mu_s, lam_g, lam_s), seg_leaf,
+                  seg_base, seeds, scalars, theta2d.shape[0] // chains,
+                  block_rows, 1)
+    return list(out) if dynamics == "sghmc" else [out]
+
+
+@_update_2d_op.register_fake
+def _(theta2d, g2d, seeds, scalars, seg_base, variant, dynamics, r2d, mu_g,
+      mu_s, lam_g, lam_s, block_rows, chains):
+    out = [torch.empty_like(theta2d)]
+    return out + [torch.empty_like(r2d)] if dynamics == "sghmc" else out
+
+
+@torch.library.custom_op("repro_torch::fsgld_update_packed",
+                         mutates_args=("theta2d", "r2d"),
+                         device_types="cuda")
+def _update_packed_op(theta2d: torch.Tensor, g2d: torch.Tensor,
+                      seeds: torch.Tensor, scalars: torch.Tensor,
+                      seg_leaf: torch.Tensor, seg_base: torch.Tensor,
+                      variant: str, dynamics: str,
+                      r2d: Optional[torch.Tensor],
+                      mu_g: Optional[torch.Tensor],
+                      mu_s: Optional[torch.Tensor],
+                      lam_g: Optional[torch.Tensor],
+                      lam_s: Optional[torch.Tensor], block_rows: int,
+                      chains: int) -> None:
+    _launch("fsgld_update_packed", variant, dynamics, theta2d, g2d, r2d,
+            _sur_list(variant, mu_g, mu_s, lam_g, lam_s), seg_leaf, seg_base,
+            seeds, scalars, theta2d.shape[0] // chains, block_rows,
+            int(seeds.shape[1]))
+
+
+@_update_packed_op.register_fake
+def _(theta2d, g2d, seeds, scalars, seg_leaf, seg_base, variant, dynamics,
+      r2d, mu_g, mu_s, lam_g, lam_s, block_rows, chains):
+    return None
+
+
+@register_flop_formula([torch.ops.repro_torch.fsgld_update_2d,
+                        torch.ops.repro_torch.fsgld_update_packed],
+                       get_raw=True)
+def _update_flops(*args, **kwargs) -> int:
+    """The update is elementwise: its cost is the bytes it moves (the
+    analyzer counts those), its matmul-family FLOPs 0."""
+    return 0
+
+
+# ---------------------------------------------------------------------------
 # the two entries
 # ---------------------------------------------------------------------------
 
@@ -307,7 +391,7 @@ def fsgld_update_packed(theta2d: torch.Tensor, g2d: torch.Tensor,
            rows_total)
     num_leaves = int(seeds.shape[1])
     dev = theta2d.device
-    if dev.type == "cpu":
+    if dev.type == "cpu" and not is_fake(theta2d):
         res = fsgld_update_packed_plain(
             theta2d, g2d, seeds, scalars, variant=variant, dynamics=dynamics,
             r2d=r2d, mu_g=mu_g, mu_s=mu_s, lam_g=lam_g, lam_s=lam_s,
@@ -316,7 +400,7 @@ def fsgld_update_packed(theta2d: torch.Tensor, g2d: torch.Tensor,
         if dynamics == "langevin":
             return theta2d.copy_(res)
         return theta2d.copy_(res[0]), r2d.copy_(res[1])
-    if dev.type != "cuda":
+    if dev.type != "cuda" and not is_fake(theta2d):
         raise RuntimeError(f"fsgld_update_packed runs on cuda or cpu "
                            f"tensors, not {dev.type}")
     _need("seeds", seeds, (chains, num_leaves), None, dev)
@@ -324,23 +408,27 @@ def fsgld_update_packed(theta2d: torch.Tensor, g2d: torch.Tensor,
           torch.float32, dev)
     _need("seg_leaf", seg_leaf, (bpc,), torch.int32, dev)
     _need("seg_base", seg_base, (bpc,), torch.int32, dev)
-    return _launch("fsgld_update_packed", variant, dynamics, theta2d, g2d,
-                   r2d, _sur_list(variant, mu_g, mu_s, lam_g, lam_s),
-                   seg_leaf, seg_base, _seeds_i32(seeds),
-                   scalars.contiguous(), rows_total, block_rows, num_leaves)
+    _update_packed_op(theta2d, g2d, _seeds_i32(seeds), scalars.contiguous(),
+                      seg_leaf, seg_base, variant, dynamics, r2d, mu_g, mu_s,
+                      lam_g, lam_s, block_rows, chains)
+    return (theta2d, r2d) if dynamics == "sghmc" else theta2d
 
 
 def fsgld_update_2d(theta2d: torch.Tensor, g2d: torch.Tensor,
                     seed: torch.Tensor, scalars: torch.Tensor, *,
                     variant: str = "plain", dynamics: str = "langevin",
                     r2d=None, mu_g=None, mu_s=None, lam_g=None, lam_s=None,
-                    block_rows: int = BLOCK_ROWS, chains: int = 1):
+                    block_rows: int = BLOCK_ROWS, chains: int = 1,
+                    seg_base: Optional[torch.Tensor] = None):
     """The update on one leaf, chain-batched: rows [c*rows_c, (c+1)*rows_c)
     hold chain c. seed: (chains,) integer; scalars: (chains, SCALAR_COLS).
     Shared mu_g/lam_g are (rows_c, 128). The noise index of an element is
     its index within its chain, as in the Pallas kernel's ``_global_idx``.
     On the card this launches the packed kernel with a one-leaf segment
-    table (seg_leaf = 0, seg_base[j] = j * br * 128)."""
+    table (seg_leaf = 0, seg_base[j] = j * br * 128). ``seg_base``
+    (int32, one per block of ``block_rows`` rows of a chain, uint32
+    values) gives each block's first index instead: a shard of a leaf
+    passes its blocks' indices in the whole leaf."""
     rows = theta2d.shape[0]
     if rows % chains:
         raise ValueError(f"{rows} rows do not split into {chains} chains")
@@ -352,19 +440,22 @@ def fsgld_update_2d(theta2d: torch.Tensor, g2d: torch.Tensor,
     _check(variant, dynamics, theta2d, g2d, r2d, mu_g, mu_s, lam_g, lam_s,
            rows_c)
     dev = theta2d.device
-    if dev.type == "cpu":
+    if dev.type == "cpu" and not is_fake(theta2d):
         return fsgld_update_2d_plain(
             theta2d, g2d, seed, scalars, variant=variant, dynamics=dynamics,
             r2d=r2d, mu_g=mu_g, mu_s=mu_s, lam_g=lam_g, lam_s=lam_s,
-            chains=chains)
-    if dev.type != "cuda":
+            chains=chains, seg_base=seg_base, block_rows=br)
+    if dev.type != "cuda" and not is_fake(theta2d):
         raise RuntimeError(f"fsgld_update_2d runs on cuda or cpu tensors, "
                            f"not {dev.type}")
     _need("seed", seed, (chains,), None, dev)
     _need("scalars", scalars, (chains, SCALAR_COLS), torch.float32, dev)
-    seg_leaf, seg_base = _one_leaf_tables(dev, rows_c // br, br)
-    return _launch("fsgld_update_2d", variant, dynamics, theta2d, g2d, r2d,
-                   _sur_list(variant, mu_g, mu_s, lam_g, lam_s), seg_leaf,
-                   seg_base, _seeds_i32(seed.reshape(chains, 1)),
-                   scalars.reshape(chains, 1, SCALAR_COLS).contiguous(),
-                   rows_c, br, 1)
+    if seg_base is None:
+        seg_base = _one_leaf_tables(dev, rows_c // br, br)[1]
+    else:
+        _need("seg_base", seg_base, (rows_c // br,), torch.int32, dev)
+    out = _update_2d_op(theta2d, g2d, _seeds_i32(seed.reshape(chains, 1)),
+                        scalars.reshape(chains, 1, SCALAR_COLS).contiguous(),
+                        seg_base, variant, dynamics, r2d, mu_g, mu_s, lam_g,
+                        lam_s, br, chains)
+    return tuple(out) if dynamics == "sghmc" else out[0]

@@ -326,7 +326,8 @@ def run(args: argparse.Namespace) -> TrainRun:
     Under ``--metrics-dir`` / ``--log-every`` the process-wide tracer
     writes ``trace.jsonl`` / echoes for the run and is reset after it."""
     obs = args.metrics_dir is not None or args.log_every is not None
-    if args.metrics_dir is not None:
+    # under torchrun only global rank 0 writes files, as with snapshots
+    if args.metrics_dir is not None and int(os.environ.get("RANK", 0)) == 0:
         os.makedirs(args.metrics_dir, exist_ok=True)
         obs_trace.configure(os.path.join(args.metrics_dir, "trace.jsonl"),
                             echo=args.log_every is not None)

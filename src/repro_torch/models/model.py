@@ -527,8 +527,11 @@ def _chunk_log_lik(h, head, lab):
     """One chunk's summed log-likelihood (a one-tuple), the logits fp32
     products and sums of ``h`` and ``head`` widened to fp32."""
     logits = h.to(torch.float32) @ head.to(torch.float32)
-    ll = torch.gather(logits, -1, lab.clamp_min(0)[..., None])[..., 0] \
-        - torch.logsumexp(logits, -1)
+    # subtract before dropping the last dim: on a vocab-sharded DTensor the
+    # gather's partial result is reduced at the subtraction, with its mask
+    # of the gather's own shape
+    ll = (torch.gather(logits, -1, lab.clamp_min(0)[..., None])
+          - torch.logsumexp(logits, -1, keepdim=True))[..., 0]
     return (torch.where(lab >= 0, ll, 0.0).sum(),)
 
 

@@ -18,6 +18,11 @@ a bound. Cases:
          (replicated)
   train  launch/train.py --multi-pod --smoke on a (2, 1, 1) mesh
          against the driver's run without torchrun's environment
+  health (2, 1): recovery and telemetry across the data ranks: a NaN'd
+         chain respawned from a donor on the other rank, and a
+         quarantine under a federation schedule, with telemetry's probe
+         rows (the trace, the health words, the probe reference and
+         every metric row)
 """
 from __future__ import annotations
 
@@ -197,6 +202,53 @@ def case_model(mesh):
           lambda: serving(mesh, 4, 4))
 
 
+def case_health(mesh):
+    from repro_torch.core.health import Recovery
+    from repro_torch.obs.telemetry import Telemetry
+    from repro_torch.testing import ChaosSpec
+
+    def same_out(a, b):
+        (ta, ha, fa), (tb, hb, fb) = a, b
+        equal(ta, tb)
+        assert (ha.word == hb.word).all(), (ha.word, hb.word)
+        assert ha.lp_ref is None or (ha.lp_ref.tobytes()
+                                     == hb.lp_ref.tobytes())
+        assert fa.names == fb.names
+        for n in fa.names:
+            assert fa.metrics[n].tobytes() == fb.metrics[n].tobytes(), n
+        return f"words {ha.word.tolist()}"
+
+    for executor in ("packed", "per_leaf", "vmap"):
+        def respawn(executor=executor):
+            # chain 2 (rank 1's block) takes chain 0's row (rank 0's)
+            outs = []
+            for m in (mesh, None):
+                eng, theta0 = mlp_engine(executor, m)
+                outs.append(eng.run(
+                    torch.Generator().manual_seed(4), theta0, 4, n_chains=3,
+                    reassign="permutation",
+                    recovery=Recovery("respawn", divergence_threshold=50.0),
+                    chaos=ChaosSpec(nan_chains=(2,), nan_rounds=(1,)),
+                    telemetry=Telemetry(probe=True)))
+            assert outs[1][1].word.tolist() == [0, 0, 1]
+            return same_out(*outs)
+        check(f"respawn across ranks {executor} C=3", respawn)
+
+    def quarantine():
+        outs = []
+        for m in (mesh, None):
+            eng, theta0 = gauss_engine(m)
+            outs.append(eng.run(
+                torch.Generator().manual_seed(6), theta0, 4, n_chains=4,
+                federation="delayed-5x",
+                recovery=Recovery("quarantine"),
+                chaos=ChaosSpec(nan_chains=(3,), nan_rounds=(2,)),
+                telemetry=Telemetry(probe=False)))
+        assert outs[1][1].word.tolist() == [0, 0, 0, 3]
+        return same_out(*outs)
+    check("quarantine with a federation packed C=4", quarantine)
+
+
 def case_train(out_dir):
     from repro_torch.launch import train
     argv = ["--smoke", "--device", "cpu", "--multi-pod", "--rounds", "2",
@@ -226,6 +278,8 @@ def main() -> int:
         case_data(lmesh.make_sim_mesh(2, 1, "cpu"))
     elif case == "model":
         case_model(lmesh.make_sim_mesh(1, 2, "cpu"))
+    elif case == "health":
+        case_health(lmesh.make_sim_mesh(2, 1, "cpu"))
     else:
         case_train(out_dir)
     with open(os.path.join(out_dir, f"rank{dist.get_rank()}.json"),

@@ -559,3 +559,93 @@ def test_streamed_windows_on_a_side_stream_are_bitwise(dev, prefetch):
         torch.cuda.synchronize()
         assert fk.LAUNCHES["fsgld_update_packed"] == 18
         assert torch.equal(ref, got)
+
+
+# ---------------------------------------------------------------------------
+# the custom ops (torch.library) and the pipeline's side-stream copy
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("window", [None, 64])
+def test_flash_custom_ops_equal_the_plain_version_and_their_fakes(dev,
+                                                                  window):
+    """``repro_torch::flash_attention`` and ``::flash_attention_lse`` on
+    the card against the plain version (the kernel's tolerance), and the
+    shape functions' outputs against the real ones."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn((2, 300, 4, 64), generator=g, device=dev,
+                           dtype=torch.bfloat16)[:, :, :h]
+               .contiguous() for h in (4, 2, 2))
+    want, m, l = fa._plain_stats(q, k, v, None, None, True, window,
+                                 fa.BLOCK_K)
+    out = torch.ops.repro_torch.flash_attention(q, k, v, True, window or 0)
+    out2, lse = torch.ops.repro_torch.flash_attention_lse(q, k, v, True,
+                                                          window or 0)
+    for o in (out, out2):
+        assert bool(((o.float() - want.float()).abs()
+                     <= fa.tolerance(want)).all())
+    torch.testing.assert_close(lse, m + torch.log(l), atol=1e-3, rtol=0)
+    with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+        fq, fk_, fv = (mode.from_tensor(t) for t in (q, k, v))
+        fo, fl = torch.ops.repro_torch.flash_attention_lse(fq, fk_, fv,
+                                                           True, 0)
+    assert (fo.shape, fo.dtype) == (out2.shape, out2.dtype)
+    assert (fl.shape, fl.dtype) == (lse.shape, lse.dtype)
+
+
+@pytest.mark.parametrize("variant", ["plain", "scalar", "diag"])
+def test_update_custom_ops_equal_the_plain_version_and_their_fakes(dev,
+                                                                   variant):
+    """``repro_torch::fsgld_update_2d`` (with and without a shard's segment
+    table) and ``::fsgld_update_packed`` on the card against the plain
+    version, and the shape function against the real output."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    rows, C = 64, 2
+    th, g, seeds, sc, kw = _operands(dev, C * rows, rows, variant,
+                                     "langevin", 1, C)
+    seeds, sc = seeds[:, 0], sc[:, 0]
+    want = fk.fsgld_update_2d_plain(th, g, seeds, sc, variant=variant,
+                                    dynamics="langevin", chains=C, **kw)
+    got = fk.fsgld_update_2d(th, g, seeds, sc, variant=variant, chains=C,
+                             block_rows=8, **kw)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    base = (torch.arange(rows // 8, device=dev, dtype=torch.int32) * 1024
+            + 4096)
+    want = fk.fsgld_update_2d_plain(th, g, seeds, sc, variant=variant,
+                                    dynamics="langevin", chains=C,
+                                    seg_base=base, block_rows=8, **kw)
+    got = fk.fsgld_update_2d(th, g, seeds, sc, variant=variant, chains=C,
+                             block_rows=8, seg_base=base, **kw)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+        fo = fk.fsgld_update_2d(mode.from_tensor(th), mode.from_tensor(g),
+                                seeds, sc, variant=variant, chains=C,
+                                block_rows=8, **{k: mode.from_tensor(v)
+                                                 for k, v in kw.items()})
+    assert (fo.shape, fo.dtype) == (got.shape, got.dtype)
+
+
+def test_pipeline_side_stream_copy_equals_a_blocking_copy(dev):
+    """``FederatedPipeline`` on the card (pinned host rows copied on a
+    side stream, the consumer waiting on the copy's event) gives the
+    batches of a blocking copy of the same rows, in order."""
+    import numpy as np
+
+    from repro_torch.data.pipeline import (ClientDataset, FederatedPipeline,
+                                           categorical_schedule)
+
+    def clients():
+        return [ClientDataset({"tokens": np.arange(64 * 256).reshape(64, 256)
+                               + 10**6 * c}, seed=c) for c in range(3)]
+    pipe = FederatedPipeline(clients(), 16, categorical_schedule(
+        [0.5, 0.25, 0.25], seed=4), prefetch=3, device=dev)
+    ref = clients()
+    sched = categorical_schedule([0.5, 0.25, 0.25], seed=4)
+    for _ in range(12):
+        s, batch = next(pipe)
+        t = batch["tokens"] * 1          # used on the consumer's stream
+        want_s = next(sched)
+        want = torch.from_numpy(ref[want_s].next_batch(16)["tokens"]).to(dev)
+        assert s == want_s and torch.equal(t, want)

@@ -44,4 +44,6 @@ def test_scan_sees_the_whole_port():
             "paper_runs.py", "np_checkpoint.py", "snapshot.py",
             "draw_bank.py", "health.py", "chaos.py", "trace.py",
             "telemetry.py", "exporters.py", "hierarchy.py",
-            "divergence_depth.py"} <= names
+            "divergence_depth.py", "dryrun.py", "steps.py", "specs.py",
+            "pipeline.py", "hlo_analysis.py", "report.py",
+            "compare.py"} <= names

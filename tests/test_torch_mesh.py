@@ -12,7 +12,9 @@ holds its mesh run against the same run without a mesh, bitwise:
   over 'model', a run with ``refresh_every``, ``Serving(mesh=)``
   replicated;
 * ``launch/train.py --multi-pod --smoke`` on a (2, 1, 1) mesh against
-  the driver's one-device run.
+  the driver's one-device run;
+* (2, 1) again: recovery (a respawn whose donor is on the other rank, a
+  quarantine) and telemetry with its probe rows.
 
 The reference's own multi-device tests fail on this toolchain (ROADMAP
 queue 3), so the port is held against its one-device runs. In one
@@ -108,6 +110,17 @@ def test_the_refresh_over_the_model_axis_equals_one_device(tmp_path):
         "refresh_bank_mesh over model=2",
         "engine run with refresh_every=2",
         "Serving(mesh=) K=4 over a data axis of 1"])
+
+
+def test_recovery_and_telemetry_across_data_ranks_equal_one_device(
+        tmp_path):
+    """(2, 1): the health words, the respawn donor (on the other rank),
+    the quarantine masks and every telemetry row are gathered over
+    'data', so the mesh run is the one-device run, bitwise."""
+    _assert_all_ok(_ranks("health", tmp_path), [
+        f"respawn across ranks {ex} C=3" for ex in ("packed", "per_leaf",
+                                                    "vmap")] + [
+        "quarantine with a federation packed C=4"])
 
 
 def test_train_driver_multi_pod_equals_one_device(tmp_path):
