@@ -83,8 +83,9 @@ nvcc per source, in parallel) and drives its two paths through the
   decode, the prefill against the plain attention's, for the vlm once
   more with its gates opened, K = 1 bitwise, the blocks' device time in
   one prefill), then each but the vlm sampled at the depth one card
-  holds or less (1, 6, 3 and 32 layers; whisper through the facade with its
-  frames in the shards, which the train driver refuses): one update
+  holds or less (1, 4 and 3 layers; whisper at 8 of its 32 encoder and 8
+  of its 32 decoder layers, through the facade with its frames in the
+  shards, which the train driver refuses): one update
   launch per step, flash launches per self-attention per pass, the
   divergence guard with telemetry's conducive and gradient norms, the
   MoE's aux loss finite, packed == per_leaf over one round, bitwise;
@@ -175,10 +176,11 @@ FRONTIER_ROUNDS, FRONTIER_CHAINS, FRONTIER_CEILING = 500, 4, 0.1
 # below DSGLD's (the reference's own margin is +0.5 of them: see the
 # phase). [kinds]: the linear-surrogate run, KINDS_ROUNDS of its
 # benchmark's 100 rounds (cut for the script's time: its MSE was 1.77e-4
-# at 100 against a ceiling of 5e-3), and the 'full' bank on concrete.
+# at 100 and 7.9e-5 at 50 against a ceiling of 5e-3), and the 'full' bank
+# on concrete.
 # [oracle]: ORACLE_ROUNDS Table-1 rounds.
 PAPER_CHAINS, LINREG_REL, PREFIX_ROUNDS = 3, 1.05, 2
-METRIC_SE, ORACLE_ROUNDS, KINDS_ROUNDS = 3.0, 2, 50
+METRIC_SE, ORACLE_ROUNDS, KINDS_ROUNDS = 3.0, 2, 25
 
 # Flash attention vs its plain version within
 # repro_torch.kernels.flash_attention.tolerance (tools/flash_planted_faults.py
@@ -257,8 +259,9 @@ STREAM_CLIENTS, STREAM_H = 1_000_000, 4e-13
 # depth (rwkv6's 32 layers make ~30,000 profiled operations).
 # The depths are at most the deepest that one card's machine holds in
 # this script (80 GB on the card, 96 GiB on the host): recurrentgemma and
-# rwkv6 sample at 6 and 3 of the 9 and 5 layers that fit (PERF.md section
-# 4), for the script's time.
+# rwkv6 sample at 4 and 3 of the 9 and 5 layers that fit (PERF.md section
+# 4), for the script's time; whisper samples 8 of its 32 encoder and 8 of
+# its 32 decoder layers (all 32 + 32 fit; it serves at full depth).
 # whisper's request is 30 s of audio (1,500 frames) per row and a prompt
 # that stays inside its 448-token decoder context with the new tokens;
 # it samples with the driver's minibatches of 8 rows since the recompute
@@ -273,12 +276,13 @@ FAMILIES = {
                                  serve=(8, 2, 4, 2048), train=1),
     "recurrentgemma-2b": dict(tag="rg", width=(2560, 10, 1, 256, 7680,
                                                256_000),
-                              serve=(None, 4, 2, 3072), train=6),
+                              serve=(None, 4, 2, 3072), train=4),
     "rwkv6-7b": dict(tag="rwkv", width=(4096, 64, 64, 64, 14_336, 65_536),
                      serve=(None, 2, 4, 2048), train=3, profile=4),
     "whisper-large-v3": dict(tag="whisper", width=(1280, 20, 20, 64, 5120,
                                                    51_866),
-                             serve=(None, 4, 4, 256), train=32, batch=8),
+                             serve=(None, 4, 4, 256), train=8,
+                             train_encoder=8, batch=8),
     "llama-3.2-vision-90b": dict(tag="vlm", width=(8192, 64, 8, 128, 28_672,
                                                    128_256),
                                  serve=(5, 2, 2, 2048), train=None),
@@ -610,12 +614,15 @@ def bound_ms(variant, dynamics, C, n, L):
 
 
 def time_kernels(gen, shapes):
-    """(kernel ms, plain ms, bound ms, bound_by, bytes) per named shape."""
+    """(kernel ms, plain ms, bound ms, bound_by, bytes) per named shape.
+    The seeds are int32, as the engine's draws hand them to the kernel (a
+    wider integer would add its conversion's launches to the time)."""
     from repro_torch.kernels import fsgld_update as fk
     rows = {}
     for name, entry, layout, C, calls in shapes:
         th, g, seeds, sc, ops = _packed_operands(gen, layout, C, "diag",
                                                  "langevin")
+        seeds = fk._seeds_i32(seeds)
         if entry == "fsgld_update_packed":
             sl, sb = layout.tables(th.device)
             kw = dict(variant="diag", seg_leaf=sl, seg_base=sb,
@@ -2767,60 +2774,65 @@ def phase_bank(dev, root):
         f" flash launches prefill {req.prefill[0]}, decode "
         f"{req.decode[0]}; the command {dt:.2f} s")
     del res, req
-    shutil.rmtree(D)
     gc.collect()
     torch.cuda.empty_cache()
 
-    _need_disk(root, 4 * draw_b, f"4 fp32 draws of {BANK_LAYERS} layers")
-    D2 = os.path.join(root, "bank2")
+    # the refresh checks on the training run's bank (rounds r1 < r2): two
+    # draws appended, one of them then truncated
+    _need_disk(root, 2 * draw_b, f"2 more fp32 draws of {BANK_LAYERS} "
+               "layers")
+    r1, r2 = [m.round for m in metas]
+    r3, r4 = BANK_ROUNDS + 1, BANK_ROUNDS + 2
 
     def append(r):
         p = init_params(cfg, _gen(dev, 60 + r), device=dev)
         with Timed(checkpoint, "save_draw") as t:
-            checkpoint.save_draw(D2, p, checkpoint.DrawMeta(
+            checkpoint.save_draw(D, p, checkpoint.DrawMeta(
                 round=r, arch=cfg.name, dtype="float32"), step=r)
         return t.seconds[0]
 
-    writes = [append(r) for r in (1, 2)]
     gen = _gen(dev, 17)
 
     def request(server, what):
-        res, _, _, n = _counted(f"bank2/{what}", lambda: server.generate(
+        res, _, _, n = _counted(f"bank/{what}", lambda: server.generate(
             generator=gen, gen=8, batch=2, prompt_len=512), {},
             BANK_LAYERS)
-        _check_signals(f"bank2/{what}", res, server.n_draws)
+        _check_signals(f"bank/{what}", res, server.n_draws)
         return n
 
     with Timed(EnsembleServer, "_load") as loads:
-        server = EnsembleServer(cfg, bank=D2, n_draws=2, device=dev)
+        server = EnsembleServer(cfg, bank=D, n_draws=2, device=dev)
+    if [m.round for m in server.metas] != [r1, r2]:
+        raise AssertionError(f"bank server: {server.metas}")
     request(server, "initial")
-    writes.append(append(3))
+    writes = [append(r3)]
     with Timed(EnsembleServer, "refresh") as refresh:
         swapped = server.refresh()
-    if not swapped or [m.round for m in server.metas] != [2, 3]:
+    if not swapped or [m.round for m in server.metas] != [r2, r3]:
         raise AssertionError(f"refresh: {swapped}, {server.metas}")
     request(server, "hot-swapped")
-    writes.append(append(4))
-    corrupt_draw(checkpoint.list_draws(D2)[-2], mode="truncate")
+    writes.append(append(r4))
+    corrupt_draw(checkpoint.list_draws(D)[-2], mode="truncate")
     import warnings
     with Timed(EnsembleServer, "refresh") as refresh2, \
             warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         swapped = server.refresh(backoff_s=0.0)
-    if not swapped or [m.round for m in server.metas] != [2, 4] or \
+    if not swapped or [m.round for m in server.metas] != [r2, r4] or \
             not any("corrupt" in str(w.message) for w in caught):
         raise AssertionError(f"refresh past a corrupt draw: {swapped}, "
                              f"{server.metas}")
     n = request(server, "degraded")
     del server
-    shutil.rmtree(D2)
+    shutil.rmtree(D)
     log(f"  {BANK_LAYERS} layers ({draw_b / 4:.0f} parameters, "
         f"{draw_b / 1e9:.2f} GB per fp32 draw): save_draw "
         f"{[round(s, 2) for s in writes]} s = "
-        f"{[round(draw_b / s / 1e9, 3) for s in writes]} GB/s; initial "
-        f"load of 2 draws {loads.seconds[0]:.2f} s; refresh() hot-swap to "
-        f"rounds [2, 3] {refresh.seconds[0]:.2f} s; round 3's draw "
-        f"truncated, refresh() serves rounds [2, 4] with a warning in "
+        f"{[round(draw_b / s / 1e9, 3) for s in writes]} GB/s; a server on "
+        f"the training run's rounds [{r1}, {r2}] loaded in "
+        f"{loads.seconds[0]:.2f} s; refresh() hot-swap to rounds [{r2}, "
+        f"{r3}] {refresh.seconds[0]:.2f} s; round {r3}'s draw truncated, "
+        f"refresh() serves rounds [{r2}, {r4}] with a warning in "
         f"{refresh2.seconds[0]:.2f} s; {n} flash launches per request "
         f"({card_line()})")
 
@@ -3489,6 +3501,8 @@ def train_family(dev, arch, failures):
     from repro_torch.models.model import ENCODER_FAMILIES
     fam = FAMILIES[arch]
     cfg = family_config(arch, fam["train"])
+    if "train_encoder" in fam:
+        cfg = dataclasses.replace(cfg, encoder_layers=fam["train_encoder"])
     n_attn = attn_layers(cfg)
     encoded = cfg.family in ENCODER_FAMILIES
     # the driver's flags; the encoder families' run reads all but --arch
@@ -3788,7 +3802,9 @@ def main() -> int:
             continue
         encoded = family_config(arch, None).family in ENCODER_FAMILIES
         phase(f"[train-{fam['tag']}] {arch} at full width, {fam['train']} "
-              f"layers, through "
+              f"layers"
+              + (f" and {fam['train_encoder']} encoder layers"
+                 if "train_encoder" in fam else "") + ", through "
               + ("api.FSGLD with enc_embeds in the shards (the driver's "
                  "run)" if encoded else "repro_torch.launch.train")
               + f": S={TRAIN_S} clients, {FAM_FIT} fit steps, {FAM_R} "

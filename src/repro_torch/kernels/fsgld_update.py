@@ -16,8 +16,9 @@ of (seed[chain, leaf], element index within the leaf). Drift variants:
 'diag' (+ mu_g, mu_s, lam_g, lam_s).
 
 Operands are chain-major ``(C * rows_per_chain, 128)`` float32 buffers;
-the shared operands mu_g / lam_g are ``(rows_per_chain, 128)`` and are
-read again for every chain. The packed entry updates theta (and r) in
+the shared operands mu_g / lam_g are ``(rows_per_chain, 128)``: the
+kernel loads a tile of them once and walks the chains with it. The packed
+entry updates theta (and r) in
 place, which saves a buffer of the parameters' size; the per-leaf entry
 returns new buffers. Dispatch is by device: a CPU tensor takes the plain version, a CUDA tensor launches the kernel (``csrc/fsgld_update.cu``,
 built at first use by ``_build``) and any other device raises. The plain

@@ -80,6 +80,134 @@ def test_kernel_matches_plain_version(dev, variant, dynamics):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
 
 
+def _entry_out_of_place(th, g, seeds, sc, ops, *, variant, dynamics,
+                        seg_leaf, seg_base, block_rows, num_leaves):
+    """The kernel through its C entry into new buffers (the wrappers fix
+    the packed entry in place and the per-leaf one out of place)."""
+    import ctypes
+    from repro_torch.kernels import _build
+    hmc = dynamics == "sghmc"
+    out = torch.empty_like(th)
+    r_out = torch.empty_like(ops["r2d"]) if hmc else None
+    p = fk._ptr
+    err = _build.load("fsgld_update").fsgld_update_launch(
+        fk.VARIANTS.index(variant), int(hmc), p(th), p(ops.get("r2d")), p(g),
+        p(ops.get("mu_g")), p(ops.get("mu_s")), p(ops.get("lam_g")),
+        p(ops.get("lam_s")), p(seg_leaf, 4), p(seg_base, 4),
+        p(fk._seeds_i32(seeds), 4), p(sc.contiguous(), 4), p(out), p(r_out),
+        th.shape[0], len(seg_leaf) * block_rows, block_rows, num_leaves,
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    assert err == 0
+    return (out, r_out) if hmc else (out,)
+
+
+def _smoke_qwen3_layout():
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import param_layout
+    return kops.make_packed_layout(tu.tree_map(
+        lambda leaf: torch.empty(leaf.shape, device="meta"),
+        param_layout(get_smoke_config("qwen3-1.7b"))))
+
+
+# The walk's edges: (layout, chains). 'ragged3' has 3-row blocks, so its
+# leaves end inside a tile of 8 rows and its 18 rows per chain are no
+# multiple of one; qwen3's smoke layout at C = 48 has 672 (chain, leaf)
+# pairs, more than a CTA stages in shared memory (256).
+WALK_CASES = [("ragged3", C) for C in (1, 3, 8)] + \
+    [("table1", C) for C in (1, 3, 8)] + [("qwen3-smoke", 48)]
+
+
+@pytest.mark.parametrize("variant", fk.VARIANTS)
+@pytest.mark.parametrize("dynamics", fk.DYNAMICS)
+@pytest.mark.parametrize("case,C", WALK_CASES)
+def test_chain_walk_matches_plain_in_and_out_of_place(dev, variant,
+                                                      dynamics, case, C):
+    """The packed entry at the walk's edges: out of place through the C
+    entry against the plain version, in place through the wrapper
+    bitwise the out-of-place result."""
+    layout = {"ragged3": lambda: kops.make_packed_layout(
+                  {"a": torch.zeros(1500), "b": torch.zeros(7, 11),
+                   "c": torch.zeros(3)}, block_rows=3),
+              "table1": lambda: kops.make_packed_layout(torch.zeros(854)),
+              "qwen3-smoke": _smoke_qwen3_layout}[case]()
+    th, g, seeds, sc, ops = _operands(dev, C * layout.rows_total,
+                                      layout.rows_total, variant, dynamics,
+                                      layout.num_leaves, C)
+    sl, sb = layout.tables(dev)
+    kw = dict(variant=variant, dynamics=dynamics, seg_leaf=sl, seg_base=sb,
+              block_rows=layout.block_rows)
+    ref = _pair(fk.fsgld_update_packed_plain(th, g, seeds, sc, chains=C,
+                                             **kw, **ops))
+    out = _entry_out_of_place(th, g, seeds, sc, ops, **kw,
+                              num_leaves=layout.num_leaves)
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+    got = _pair(fk.fsgld_update_packed(th, g, seeds, sc, chains=C, **kw,
+                                       **ops))
+    for a, b in zip(got, out):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("variant", fk.VARIANTS)
+@pytest.mark.parametrize("dynamics", fk.DYNAMICS)
+@pytest.mark.parametrize("C", [1, 3, 8])
+def test_per_leaf_entry_on_a_ragged_chain_in_and_out_of_place(
+        dev, variant, dynamics, C):
+    """A chain of 13 rows (no multiple of a tile's 8): the per-leaf entry
+    against its plain version, and in place through the C entry bitwise
+    its out-of-place result."""
+    rows_c = 13
+    th, g, seeds, sc, ops = _operands(dev, C * rows_c, rows_c, variant,
+                                      dynamics, 1, C)
+    kw = dict(variant=variant, dynamics=dynamics, chains=C, **ops)
+    out = _pair(fk.fsgld_update_2d(th, g, seeds[:, 0], sc[:, 0], **kw))
+    ref = _pair(fk.fsgld_update_2d_plain(th, g, seeds[:, 0], sc[:, 0], **kw))
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+    sl, sb = fk._one_leaf_tables(dev, 1, rows_c)
+    got = _entry_out_of_place(th, g, seeds, sc, ops, variant=variant,
+                              dynamics=dynamics, seg_leaf=sl, seg_base=sb,
+                              block_rows=rows_c, num_leaves=1)
+    for a, b in zip(got, out):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("variant", fk.VARIANTS)
+@pytest.mark.parametrize("dynamics", fk.DYNAMICS)
+def test_packed_equals_per_leaf_bitwise_at_three_chains(dev, variant,
+                                                        dynamics):
+    """At C = 3 on 'ragged3', each leaf's rows of the packed launch equal
+    bitwise that leaf's own per-leaf launch (its seeds, scalars and block
+    table)."""
+    C = 3
+    layout = kops.make_packed_layout({"a": torch.zeros(1500),
+                                      "b": torch.zeros(7, 11),
+                                      "c": torch.zeros(3)}, block_rows=3)
+    th, g, seeds, sc, ops = _operands(dev, C * layout.rows_total,
+                                      layout.rows_total, variant, dynamics,
+                                      layout.num_leaves, C)
+    sl, sb = layout.tables(dev)
+    by_chain = lambda t: t.reshape(C, layout.rows_total, 128)  # noqa: E731
+    leaf_rows = []
+    for li, (off, rows) in enumerate(zip(layout.row_offsets, layout.rows)):
+        cut = lambda t: by_chain(t)[:, off:off + rows].reshape(  # noqa: E731
+            C * rows, 128).contiguous()
+        lops = {k: (v[off:off + rows].contiguous() if k in ("mu_g", "lam_g")
+                    else cut(v)) for k, v in ops.items()}
+        leaf_rows.append(_pair(fk.fsgld_update_2d(
+            cut(th), cut(g), seeds[:, li], sc[:, li], variant=variant,
+            dynamics=dynamics, chains=C, block_rows=layout.block_rows,
+            **lops)))
+    packed = _pair(fk.fsgld_update_packed(
+        th, g, seeds, sc, variant=variant, dynamics=dynamics, seg_leaf=sl,
+        seg_base=sb, block_rows=layout.block_rows, chains=C, **ops))
+    for k, whole in enumerate(packed):
+        for (off, rows), got in zip(zip(layout.row_offsets, layout.rows),
+                                    leaf_rows):
+            assert torch.equal(by_chain(whole)[:, off:off + rows],
+                               got[k].reshape(C, rows, 128))
+
+
 def test_kernel_refuses_misaligned_and_cpu_operands(dev):
     x = torch.zeros(16 * 128 + 1, device=dev)[1:].reshape(16, 128)
     seeds = torch.zeros(2, dtype=torch.int64, device=dev)

@@ -36,7 +36,7 @@ import numpy as np
 import pytest
 import torch
 from torch.func import grad
-from test_torch_train import fp32_activations  # noqa: F401 (fixture)
+from _torch_train_common import fp32_activations  # noqa: F401 (fixture)
 
 import repro.models.model as JM
 import repro_torch.models.model as TM
@@ -517,7 +517,8 @@ def test_only_the_encoder_families_are_refused_by_the_train_driver(arch):
 
 def test_an_encoder_outside_the_audio_family_is_refused():
     """Only the audio family's decoder reads an encoder's output (an
-    'xattn' layer outside vlm and audio: ``test_torch_train.py``)."""
+    'xattn' layer outside vlm and audio:
+    ``test_torch_train_loglik_fp32.py``)."""
     cfg = dataclasses.replace(torch_smoke("qwen3-1.7b"), encoder_layers=1)
     with pytest.raises(ValueError, match="audio family"):
         TM.param_layout(cfg)

@@ -12,8 +12,8 @@ the same boundaries. For every family's smoke config:
   leaves agree to 1e-6 of their largest in fp32 (an order of additions,
   measured 5.5e-7);
 * with ``remat=True`` it is held against ``jax.grad`` of the reference's
-  ``log_lik_fn`` within ``test_torch_train``'s bound (1e-5 relative norm,
-  fp32 activations);
+  ``log_lik_fn`` within ``test_torch_train_loglik_fp32``'s bound (1e-5
+  relative norm, fp32 activations);
 * a call count shows each period's layers (and each encoder layer) run
   twice per gradient pass with remat on and once with it off, the
   remainder layers once either way;
@@ -28,7 +28,7 @@ import pytest
 import torch
 from torch.func import grad, vmap
 from test_torch_models import _enc_embeds, _model_params
-from test_torch_train import fp32_activations  # noqa: F401 (fixture)
+from _torch_train_common import fp32_activations  # noqa: F401 (fixture)
 
 import repro.models.model as JM
 import repro_torch.models.model as TM

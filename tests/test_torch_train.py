@@ -1,32 +1,23 @@
-"""The port's transformer sampling path against the JAX package.
-
-Same numpy-made inputs on both sides, at small size (the smoke configs of
-qwen3-1.7b, h2o-danube-1.8b, phi3.5-moe, grok-1, recurrentgemma-2b and
-rwkv6-7b: 2 or 3 layers, d 256; some narrower still):
+"""The port's transformer sampling path against the JAX package, at small
+size (the smoke configs, 2 or 3 layers, d 256; some narrower still), on
+the same numpy-made inputs:
 
 * (a) the flash backward ``attention_scan_bwd`` (through the port's
   differentiable ``chunked_attention``) against ``jax.vjp`` of the
   reference's ``chunked_attention`` (its ``jax.custom_vjp``), fp32;
 * (b) the differentiable flash entry under ``torch.func.vmap(grad(...))``
   equal to a loop over the chains;
-* (c) ``forward`` / ``chunked_log_lik`` / ``log_lik_fn`` and their
-  gradients against ``jax.grad`` of the reference's, on converted params,
-  in fp32 activations (both packages' ``ACT_DTYPE`` patched) and in the
-  bf16 they run in;
 * (d) the streaming surrogate fit: ``RunningMoments`` against
   ``fit_scalar_tree`` / ``fit_gaussian('diag')`` on one explicit trace,
   and ``fit_bank_local_sgld`` against a plain loop in its documented draw
   order whose trace goes through the reference's estimator and bank;
-* (e) one packed round with injected draws against a JAX loop of
-  ``jax.grad(log_lik_fn)`` and the reference's packed kernel
-  (``interpret=True``), a bf16 'scalar' bank, for qwen3 and for the MoE
-  (whose router's aux loss enters the gradient);
-* (f) packed == per_leaf bitwise at C = 3 on one generator;
-* (g) ``token_shards`` shapes and client skew;
-* (h) the train CLI on the CPU, and its refused flags.
-"""
-import dataclasses
+* (g) ``token_shards`` shapes and client skew.
 
+The rest of the path: (c) the model's log-likelihood and gradient in
+``test_torch_train_loglik_fp32.py`` and ``_bf16.py``, (e) and (f) the
+packed rounds in ``test_torch_train_rounds.py``, (h) the train CLI in
+``test_torch_train_cli.py``; their helpers in ``_torch_train_common.py``.
+"""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,73 +25,18 @@ import pytest
 import torch
 from torch.func import grad, vmap
 
-import repro.models.model as JM
 import repro_torch.models.model as TM
-from repro.configs import get_smoke_config as jax_smoke
-from repro.configs.base import SamplerConfig as JCfg
-from repro.core import engine as jeng
-from repro.core import sampler as jsam
+from _torch_train_common import _params, _tiny
 from repro.core import surrogate as jsur
-from repro.kernels import ops as jops
 from repro.models import layers as JL
 from repro_torch import api
 from repro_torch import tree as tu
-from repro_torch.configs import get_smoke_config as torch_smoke
-from repro_torch.configs.base import SamplerConfig as TCfg
-from repro_torch.convert import bank_from_numpy, params_from_jax
 from repro_torch.core import engine as teng
-from repro_torch.core.sampler import ShardScheme
 from repro_torch.core.surrogate import RunningMoments
 from repro_torch.data import token_shards
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
-from repro_torch.launch import train as ttrain
 from repro_torch.models import layers as TL
-
-ARCHS = ("qwen3-1.7b", "h2o-danube-1.8b", "phi3.5-moe-42b-a6.6b",
-         "grok-1-314b", "recurrentgemma-2b", "rwkv6-7b")
-
-
-def _tiny(arch):
-    """Both packages' smoke config of ``arch``, narrower still (d 64, vocab
-    128), for the tests that run the reference's interpret-mode kernel."""
-    kw = dict(d_model=64, num_heads=2, num_kv_heads=1, head_dim=32,
-              d_ff=128, vocab_size=128)
-    return (dataclasses.replace(jax_smoke(arch), **kw),
-            dataclasses.replace(torch_smoke(arch), **kw))
-
-
-@pytest.fixture
-def fp32_activations(monkeypatch):
-    """Both packages' models in fp32 activations: the point is then the
-    algorithm, not where each rounds to bf16. Besides the module dtype,
-    the casts and the decode caches take the activation dtype as a
-    default argument (bound when defined), so those are patched too."""
-    monkeypatch.setattr(JM, "ACT_DTYPE", jnp.float32)
-    monkeypatch.setattr(JM._cast_floating, "__defaults__", (jnp.float32,))
-    monkeypatch.setattr(JM.init_cache, "__defaults__", (jnp.float32,))
-    monkeypatch.setattr(TM, "ACT_DTYPE", torch.float32)
-    monkeypatch.setattr(TM._cast_floating, "__defaults__", (torch.float32,))
-    monkeypatch.setattr(TM.init_cache, "__defaults__", (torch.float32, None))
-
-
-def _params(jcfg, tcfg, seed=0):
-    pj = JM.init_params(jcfg, jax.random.PRNGKey(seed))
-    return pj, params_from_jax(jax.tree.map(np.asarray, pj), tcfg)
-
-
-def _batch(vocab, B, S, seed=0):
-    toks = np.random.default_rng(seed).integers(0, vocab, (B, S + 1))
-    toks = toks.astype(np.int32)
-    return ({"tokens": jnp.asarray(toks[:, :-1]),
-             "labels": jnp.asarray(toks[:, 1:])},
-            {"tokens": torch.from_numpy(toks[:, :-1]).long(),
-             "labels": torch.from_numpy(toks[:, 1:]).long()})
-
-
-def _rel(a, b):
-    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
-    return np.linalg.norm(a - b) / max(np.linalg.norm(a), 1e-30)
 
 
 # ---------------------------------------------------------------------------
@@ -227,93 +163,6 @@ def test_chunked_attention_positions_under_vmap():
     for c in range(C):
         torch.testing.assert_close(got[c], grad(loss)(q[c], k[c], v[c]),
                                    rtol=0, atol=1e-6)
-
-
-# ---------------------------------------------------------------------------
-# (c) the model's log-likelihood and its gradient
-# ---------------------------------------------------------------------------
-
-def _jax_value_and_grad(jcfg, pj, bj):
-    return jax.jit(jax.value_and_grad(lambda p: JM.log_lik_fn(p, jcfg, bj)))(
-        pj)
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_log_lik_and_grad_match_jax_fp32(arch, fp32_activations):
-    """fp32 activations: the hidden states and the MoE aux loss within 1e-5
-    of the largest, the log-likelihood within 1e-6 relative, every
-    gradient leaf within 1e-5 relative norm (measured: 2e-6 dense, up to
-    3.4e-6 for the MoE, RG-LRU and RWKV-6 configs; no MoE route differs
-    in fp32 at these inputs, capacity drops included)."""
-    jcfg, tcfg = jax_smoke(arch), torch_smoke(arch)
-    pj, pt = _params(jcfg, tcfg)
-    bj, bt = _batch(jcfg.vocab_size, 2, 100)
-    hj, auxj = jax.jit(lambda p, t: JM.forward(p, jcfg, t))(pj, bj["tokens"])
-    ht, auxt = TM.forward(pt, tcfg, bt["tokens"])
-    np.testing.assert_allclose(ht.numpy(), np.asarray(hj), rtol=0,
-                               atol=1e-5 * float(np.abs(hj).max()))
-    assert abs(float(auxt) - float(auxj)) <= 1e-5 * abs(float(auxj))
-    llj = JM.chunked_log_lik(hj, pj["head"], bj["labels"], chunk=32)
-    llt = TM.chunked_log_lik(ht, pt["head"], bt["labels"], chunk=32)
-    assert abs(float(llt) / float(llj) - 1) < 1e-6
-    lj, gj = _jax_value_and_grad(jcfg, pj, bj)
-    gt = grad(lambda p: TM.log_lik_fn(p, tcfg, bt))(pt)
-    assert abs(float(TM.log_lik_fn(pt, tcfg, bt)) / float(lj) - 1) < 1e-6
-    for a, b in zip(jax.tree.leaves(gj), tu.leaves(gt)):
-        assert _rel(a, b.numpy()) < 1e-5
-
-
-def _no_flip(cfg):
-    """The MoE with as many experts as it routes to: every token goes to
-    every expert, so no route can flip between the packages."""
-    return dataclasses.replace(cfg, moe=dataclasses.replace(
-        cfg.moe, num_experts=cfg.moe.top_k))
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_log_lik_and_grad_match_jax_bf16(arch):
-    """The bf16 activations both run in: the two packages round to bf16 at
-    other points, so the log-likelihood is held within 1e-3 relative
-    (measured: 7e-5 qwen3, 1.0e-4 danube, up to 2.1e-4 for the new
-    families) and each gradient leaf within 5e-2 relative norm
-    (measured: 0.7e-2 to 3.1e-2 over the leaves).
-
-    MoE: a bf16 rounding can flip a token's route near a tie, which
-    moves the gradient by more than rounding does (up to 6.7e-2 on a
-    leaf). As the reference's ``test_moe_parity_majority`` does, the
-    hidden states are held per position: at least 90% of them within
-    5e-2 of max|h| (measured 99% phi3.5, 99.5% grok); the gradient is
-    held on the same model with E = top_k experts, where no route can
-    flip (measured: up to 1.6e-2)."""
-    jcfg, tcfg = jax_smoke(arch), torch_smoke(arch)
-    pj, pt = _params(jcfg, tcfg)
-    bj, bt = _batch(jcfg.vocab_size, 2, 100)
-    lj, gj = _jax_value_and_grad(jcfg, pj, bj)
-    lt = TM.log_lik_fn(pt, tcfg, bt)
-    assert abs(float(lt) / float(lj) - 1) < 1e-3
-    if jcfg.moe is not None:
-        hj, _ = jax.jit(lambda p, t: JM.forward(p, jcfg, t))(pj,
-                                                            bj["tokens"])
-        hj = np.asarray(hj.astype(jnp.float32))
-        ht, _ = TM.forward(pt, tcfg, bt["tokens"])
-        err = np.abs(ht.float().numpy() - hj).max(-1) / np.abs(hj).max()
-        assert (err < 5e-2).mean() >= 0.9
-        jcfg, tcfg = _no_flip(jcfg), _no_flip(tcfg)
-        pj, pt = _params(jcfg, tcfg)
-        _, gj = _jax_value_and_grad(jcfg, pj, bj)
-    gt = grad(lambda p: TM.log_lik_fn(p, tcfg, bt))(pt)
-    for a, b in zip(jax.tree.leaves(gj), tu.leaves(gt)):
-        assert b.dtype == torch.float32
-        assert _rel(a, b.numpy()) < 5e-2
-
-
-def test_other_layer_kinds_name_their_item():
-    """Every layer kind runs (ROADMAP item 15 is done); an 'xattn' layer in
-    a family without an encoder stream is refused, naming the family."""
-    cfg = dataclasses.replace(torch_smoke("qwen3-1.7b"),
-                              layer_pattern=("xattn",))
-    with pytest.raises(ValueError, match="vlm or audio family"):
-        TM.forward({}, cfg, torch.zeros(1, 4, dtype=torch.long))
 
 
 # ---------------------------------------------------------------------------
@@ -458,133 +307,6 @@ def test_fit_stack_is_the_packed_bank_buffer(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# (e) one packed round against the reference
-# ---------------------------------------------------------------------------
-
-def test_packed_round_matches_jax_loop(fp32_activations):
-    """qwen3's smoke layout at d 64 (14 leaves), C = 2, T = 3, FSGLD with
-    a 'scalar' bank stored in bf16 (the reference's own, carried across
-    with its fp32-computed global mean), injected client ids, rows and
-    seeds. fp32 activations (the gradients then agree to ~2e-6 relative);
-    tolerance 1e-6 on the parameters: three steps of h = 1e-3 move them
-    by ~1e-2, and the gradients' and normals' differences enter at
-    h-scaled 1e-6 levels."""
-    _packed_round_against_jax("qwen3-1.7b")
-
-
-def test_moe_packed_round_matches_jax_loop(fp32_activations):
-    """As ``test_packed_round_matches_jax_loop`` for phi3.5-moe's smoke
-    layout at d 64 (4 experts, top-2; 2 groups of 8 tokens per chain and
-    step, capacity 5): the router's aux loss enters every gradient."""
-    _packed_round_against_jax("phi3.5-moe-42b-a6.6b")
-
-
-def _packed_round_against_jax(arch):
-    jcfg, tcfg = _tiny(arch)
-    pj, pt = _params(jcfg, tcfg)
-    rng = np.random.default_rng(6)
-    S, n, m, C, T, h = 3, 6, 2, 2, 3, 1e-3
-    toks = rng.integers(0, 128, (S, n, 9)).astype(np.int32)
-    data = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
-    theta0 = jax.tree.map(np.asarray, pj)
-    means = jax.tree.map(
-        lambda t: (t + 0.01 * rng.standard_normal((S,) + t.shape)
-                   ).astype(np.float32), theta0)
-    precs = jax.tree.map(
-        lambda t: rng.uniform(1.0, 50.0, (S,)).astype(np.float32), theta0)
-    jbank = jsur.make_bank(jax.tree.map(jnp.asarray, means),
-                           jax.tree.map(jnp.asarray, precs), "scalar",
-                           store_dtype=jnp.bfloat16)
-    sids = np.array([2, 0])
-    idx = rng.integers(0, n, (T, C, m))
-    L = len(jax.tree.leaves(theta0))
-    seeds = rng.integers(0, 2**31 - 1, (T, C, L)).astype(np.uint32)
-    kw = dict(method="fsgld", step_size=h, num_shards=S, local_updates=T,
-              prior_precision=1.0, alpha=1.0, surrogate="scalar")
-
-    jl = jops.make_packed_layout(pj)
-    pb = jeng.pack_bank(jl, jbank)
-    jscheme = jsam.ShardScheme((n,) * S, None)
-    scale, f_s = jsam.chain_scales(JCfg(**kw), jscheme, jnp.asarray(sids), m)
-    scalars = jops.packed_scalar_rows(
-        jl, h=h, scale=scale, f_s=f_s, prior_prec=1.0, alpha=1.0,
-        temperature=1.0, lam_g_leaf=pb["lam_g_leaf"],
-        lam_s_leaf=pb["lam_s_leaf"][sids])
-    gv = jax.jit(jax.vmap(jax.grad(lambda p, b: JM.log_lik_fn(p, jcfg, b))))
-    mu_s = pb["means"][sids].reshape(-1, 128)
-    thetas = jax.tree.map(lambda t: jnp.broadcast_to(t, (C,) + t.shape), pj)
-    th_p = jl.pack(thetas)
-    for t in range(T):
-        batch = jax.tree.map(lambda d: jnp.asarray(d[sids[:, None], idx[t]]),
-                             data)
-        th_p = jops.packed_step(jl, th_p, jl.pack(gv(thetas, batch)),
-                                jnp.asarray(seeds[t]), scalars,
-                                variant="scalar", mu_g=pb["mu_g"],
-                                mu_s=mu_s, interpret=True)
-        thetas = jl.unpack(th_p)
-
-    tl = tops.make_packed_layout(pt)
-    round_fn = teng.make_packed_round_fn(
-        lambda p, b: TM.log_lik_fn(p, tcfg, b), TCfg(**kw),
-        ShardScheme((n,) * S, None), m, "scalar", tl)
-    tbank = bank_from_numpy(
-        jax.tree.map(np.asarray, jbank.means), precs, "scalar",
-        global_mean=jax.tree.map(np.asarray, jbank.global_.mean),
-        global_prec=jax.tree.map(np.asarray, jbank.global_.prec))
-    draws = teng.RoundDraws(sids=torch.from_numpy(sids),
-                            idx=torch.from_numpy(idx),
-                            seeds=torch.from_numpy(seeds.astype(np.int64)))
-    th = tl.pack(tu.tree_map(lambda x: x.expand((C,) + x.shape), pt))
-    _, out = round_fn((th, tl.unpack(th)),  draws,
-                      tu.tree_map(lambda a: torch.from_numpy(a).long(), data),
-                      teng.pack_bank(tl, tbank))
-    moved = 0.0
-    for a, b, t0 in zip(tu.leaves(out), jax.tree.leaves(thetas),
-                        jax.tree.leaves(theta0)):
-        b = np.asarray(b)
-        moved = max(moved, float(np.abs(b - t0).max()))
-        np.testing.assert_allclose(a.numpy(), b, atol=1e-6, rtol=0)
-    assert moved > 1e-3  # the chains moved
-
-
-# ---------------------------------------------------------------------------
-# (f) packed == per_leaf
-# ---------------------------------------------------------------------------
-
-def test_packed_equals_per_leaf_bitwise_at_three_chains():
-    """qwen3's smoke layout at d 64 (bf16 activations), C = 3, 2 rounds x
-    2 steps, a prebuilt bf16 'scalar' bank, one generator: the final
-    states of the packed and per-leaf executors are equal, bitwise."""
-    cfg = _tiny("qwen3-1.7b")[1]
-    theta0 = TM.init_params(cfg, torch.Generator().manual_seed(0))
-    data = token_shards(torch.Generator().manual_seed(1), num_shards=3,
-                        shard_size=4, seq_len=16, vocab_size=cfg.vocab_size)
-    bank = api.fit_bank_local_sgld(
-        lambda p, b: TM.log_lik_fn(p, cfg, b), data, theta0,
-        torch.Generator().manual_seed(2), fit_steps=2, minibatch=2,
-        step_size=1e-5, store_dtype=torch.bfloat16)
-    out = {}
-    for ex in ("packed", "per_leaf"):
-        s = api.FSGLD(
-            api.Posterior(lambda p, b: TM.log_lik_fn(p, cfg, b),
-                          prior_precision=1.0), data, minibatch=2,
-            step_size=1e-5,
-            surrogate=api.SurrogateSpec(kind="scalar", bank=bank),
-            schedule=api.Schedule(rounds=2, local_steps=2, n_chains=3,
-                                  reassign="permutation"),
-            execution=api.Execution(device="cpu", executor=ex,
-                                    collect=False, dtype=torch.bfloat16))
-        out[ex] = s.sample(torch.Generator().manual_seed(3), theta0)
-    moved = False
-    for a, b, t0 in zip(tu.leaves(out["packed"]), tu.leaves(out["per_leaf"]),
-                        tu.leaves(theta0)):
-        assert a.shape == (3,) + t0.shape
-        assert torch.equal(a, b)
-        moved = moved or not torch.equal(a[0], t0)
-    assert moved
-
-
-# ---------------------------------------------------------------------------
 # (g) token shards
 # ---------------------------------------------------------------------------
 
@@ -605,104 +327,3 @@ def test_token_shards_shapes_and_client_skew():
     cos = np.dot(hists[0], hists[1]) / (np.linalg.norm(hists[0])
                                         * np.linalg.norm(hists[1]))
     assert cos < 0.9, cos
-
-
-# ---------------------------------------------------------------------------
-# (h) the train CLI
-# ---------------------------------------------------------------------------
-
-SMALL = ["--device", "cpu", "--smoke", "--rounds", "1", "--local-updates",
-         "2", "--fit-steps", "2", "--num-shards", "2", "--shard-size", "4",
-         "--batch", "2", "--seq", "16"]
-
-
-@pytest.mark.parametrize("extra", [[], ["--chains", "2", "--no-packed",
-                                         "--use-kernel"]])
-def test_train_cli_on_the_cpu_prints_finite_ll_per_chain(extra, capsys):
-    assert ttrain.main(SMALL + extra) == 0
-    out = capsys.readouterr().out
-    lines = [ln for ln in out.splitlines() if ln.startswith("chain ")]
-    chains = 2 if extra else 1
-    assert len(lines) == chains
-    for ln in lines:
-        assert np.isfinite(float(ln.split("ll/token=")[1]))
-    assert "params: 1.44M" in out and "surrogates fitted" in out
-    assert f"executor={'per_leaf' if extra else 'auto'}" in out
-
-
-@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "grok-1-314b",
-                                  "recurrentgemma-2b", "rwkv6-7b"])
-def test_train_cli_samples_every_decoder_family(arch, capsys):
-    """The MoE, hybrid and ssm smoke configs through the driver's fit and
-    the packed executor: finite ll per chain."""
-    assert ttrain.main(SMALL + ["--arch", arch, "--chains", "2",
-                                "--use-kernel"]) == 0
-    out = capsys.readouterr().out
-    lines = [ln for ln in out.splitlines() if ln.startswith("chain ")]
-    assert len(lines) == 2 and f"arch={arch}" in out
-    for ln in lines:
-        assert np.isfinite(float(ln.split("ll/token=")[1]))
-
-
-@pytest.mark.parametrize("flag,match", [(["--multi-pod"], "even world")])
-def test_train_cli_refuses_flags_naming_their_item(flag, match):
-    """Every flag of the reference's driver is ported; ``--multi-pod``
-    outside torchrun (one rank) is refused before any process group
-    starts: one rank is not two pods (its run on two ranks:
-    tests/test_torch_mesh.py)."""
-    with pytest.raises(ValueError, match=match):
-        ttrain.main(SMALL + flag)
-    assert not torch.distributed.is_initialized()
-
-
-@pytest.mark.parametrize("flag,match", [
-    (["--snapshot-every", "2"], "need --snapshot-dir"),
-    (["--resume"], "need --snapshot-dir"),
-    (["--draw-bank", "d", "--snapshot-every", "2", "--snapshot-dir", "s"],
-     "pick one"),
-    (["--draw-bank", "d", "--resume", "--snapshot-dir", "s"], "pick one")])
-def test_train_cli_refuses_the_reference_combinations(flag, match):
-    """The reference driver's combination refusals of the fault-tolerance
-    flags (which themselves run: ``tests/test_torch_resume.py``)."""
-    with pytest.raises(SystemExit, match=match):
-        ttrain.parse_args(SMALL + flag)
-
-
-def test_train_cli_runs_with_bank_every_one_the_reference_default():
-    assert ttrain.parse_args(SMALL).bank_every == 1
-    assert ttrain.main(SMALL + ["--bank-every", "1"]) == 0
-
-
-def test_train_cli_needs_cuda_unless_asked_for_the_cpu(monkeypatch):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        ttrain.main(SMALL[2:])
-
-
-def test_host_bank_runs_every_executor_like_a_device_bank():
-    """``Execution(bank_device='cpu')`` keeps the means on the host and
-    gathers the chains' clients' rows per round: the same final states,
-    bitwise, as the bank on the run's device, on packed and per_leaf (and
-    the plain vmap executor, which moves the bank to the device)."""
-    cfg = _tiny("qwen3-1.7b")[1]
-    theta0 = TM.init_params(cfg, torch.Generator().manual_seed(0))
-    data = token_shards(torch.Generator().manual_seed(1), num_shards=2,
-                        shard_size=4, seq_len=8, vocab_size=cfg.vocab_size)
-    ll = lambda p, b: TM.log_lik_fn(p, cfg, b)  # noqa: E731
-    bank = api.fit_bank_local_sgld(ll, data, theta0,
-                                   torch.Generator().manual_seed(2),
-                                   fit_steps=2, minibatch=2, step_size=1e-5)
-    for ex in ("packed", "per_leaf", "vmap"):
-        out = []
-        for where in (None, "cpu"):
-            s = api.FSGLD(
-                api.Posterior(ll, prior_precision=1.0), data, minibatch=2,
-                step_size=1e-5,
-                surrogate=api.SurrogateSpec(kind="scalar", bank=bank),
-                schedule=api.Schedule(rounds=2, local_steps=1, n_chains=2,
-                                      reassign="permutation"),
-                execution=api.Execution(device="cpu", executor=ex,
-                                        collect=False, bank_device=where))
-            out.append(s.sample(torch.Generator().manual_seed(3), theta0))
-        for a, b in zip(tu.leaves(out[0]), tu.leaves(out[1])):
-            assert torch.equal(a, b)
