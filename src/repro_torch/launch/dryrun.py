@@ -24,12 +24,12 @@ on DTensors whose local shards are fake tensors of rank 0's shapes:
 HBM bytes, the collectives DTensor issues) and
 ``torch.distributed._tools.mem_tracker.MemTracker`` their memory.
 Plain tensors the model code makes (positions, masks) are replicated
-(``implicit_replication``). An op DTensor cannot place in the rules'
+(``implicit_replication``). A view DTensor cannot place in the rules'
 layout is placed the way XLA's SPMD partitioner places it (``_Fallbacks``:
-an operand resharded or replicated, or a masked write), and the
-combination is then reported ``RESHARD`` with those ops named and
-counted, not ``OK``: its memory and collectives are those of a layout
-that ``sharding.rules`` does not give, so it does not count as fitting.
+its operand resharded), and the combination is then reported
+``RESHARD`` with those ops named and counted, not ``OK``: its memory
+and collectives are those of a layout that ``sharding.rules`` does not
+give, so it does not count as fitting.
 An op that not even this places fails the combination with the op's
 name. A fake world is process-global: a process that already holds a
 process group runs this in a subprocess.
@@ -43,7 +43,8 @@ Output keys per combination: the analyzer's (``flops``,
 of every argument), ``output_size_bytes``, ``peak_bytes`` (the tracked
 high-water mark, arguments included), ``temp_size_bytes`` (peak less
 arguments), ``trace_s`` (the reference's ``compile_s``), ``fallback_ops``
-(op name -> times ``_Fallbacks`` placed it) and ``status`` ('ok',
+(op name -> times ``_Fallbacks`` placed it), with ``--breakdown N``
+``breakdown`` (``OpCounter.breakdown(N)``), and ``status`` ('ok',
 'resharded', 'skip' or 'fail'). Exit code 1 if any combination fails.
 """
 from __future__ import annotations
@@ -198,14 +199,44 @@ def _apply_mask(self, tensor):
 _COSTS: dict = {}
 
 
+# the estimate of a redistribution into or out of a strided shard (us):
+# above any real one, so the strategy search takes such a layout only
+# where nothing else places the op
+STRIDED_COST = 1e9
+
+
+def _unstrided(spec):
+    """``spec`` with each strided shard as the plain shard of its dim, or
+    None where it has none."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor._dtensor_spec import DTensorSpec
+    from torch.distributed.tensor.placement_types import _StridedShard
+    pl = tuple(Shard(p.dim) if isinstance(p, _StridedShard) else p
+               for p in spec.placements)
+    if pl == tuple(spec.placements):
+        return None
+    return DTensorSpec(spec.mesh, pl, tensor_meta=spec.tensor_meta)
+
+
 def _memo_cost(cost):
+    """The redistribution cost memoized, and a redistribution into or out
+    of a strided shard estimated as ``STRIDED_COST`` plus its plain
+    counterpart's cost: DTensor costs it exactly by a graph search over
+    placements (~0.2-0.5 s per pair on a 3-D mesh, and one strategy
+    search asks for hundreds), and its view of a strided shard may take
+    the wrong local shape. The redistribution itself, where one is made,
+    is planned exactly."""
     def run(current, target):
         try:
             key = (hash(current), hash(target), current, target)
         except TypeError:                 # an unhashable spec: no memo
             return cost(current, target)
         if key not in _COSTS:
-            _COSTS[key] = cost(current, target)
+            a, b = _unstrided(current), _unstrided(target)
+            if (a is None and b is None) or current == target:
+                _COSTS[key] = cost(current, target)
+            else:
+                _COSTS[key] = STRIDED_COST + cost(a or current, b or target)
         return _COSTS[key]
     return run
 
@@ -223,37 +254,24 @@ def _fake_tolerant(materialize):
 
 _VIEWS = (torch.ops.aten.view.default, torch.ops.aten._unsafe_view.default,
           torch.ops.aten.reshape.default)
-_ARGS = (torch.ops.aten.argmax.default, torch.ops.aten.argmin.default)
 
 
 class _Fallbacks(TorchDispatchMode):
     """What DTensor will not place by itself, done the way XLA's SPMD
     partitioner does it in the reference, and counted (the JSON's
-    ``resharded_ops``, ``masked_writes`` and ``fallback_ops``; the
-    combination's status 'resharded'). A dispatch mode on top of
-    the op counter and the memory tracker, so it also acts inside the
-    backward, and the work it adds is counted:
-
-    * a view DTensor refuses (a sharded dim it cannot unflatten: a
-      projection's columns split 16 ways across fewer heads),
-      or an argmax over a sharded vocabulary that DTensor's reduction
-      handler fails on (a batch of one): the mesh dims that shard its
-      input are replicated one at a time, from the last, and the op runs
-      again; an embedding gradient's scatter-add that a DTensor version
-      cannot place runs on replicated operands;
-    * an indexed write into a cache sharded along an indexed dim (the
-      decode step's k / v / pos write at (row, slot) when the sequence
-      dim is on 'model'), or one DTensor has no strategy for: each rank
-      writes the updates that land in its own shard, found by a one-hot
-      match over its shard of the two indexed dims (a masked
-      dynamic-update-slice), the indices and the values replicated
-      first.
-    """
+    ``resharded_ops`` and ``fallback_ops``; the combination's status
+    'resharded'). A dispatch mode on top of the op counter and the memory
+    tracker, so it also acts inside the backward, and the work it adds is
+    counted: a view DTensor refuses (a sharded dim it cannot unflatten)
+    runs again with the mesh dims that shard its input replicated one at
+    a time, from the last. The model places its operands itself on a pod
+    mesh (``models.model``), so on torch 2.13 no combination of the grids
+    needs this; torch 2.11's DTensor still refuses some views (gemma-7b's
+    decode on the (2, 16, 16) mesh)."""
 
     def __init__(self):
         super().__init__()
         self.resharded = 0
-        self.writes = 0
         self.ops = collections.Counter()    # op name -> times placed here
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -261,19 +279,11 @@ class _Fallbacks(TorchDispatchMode):
         kwargs = kwargs or {}
         if not any(issubclass(t, DTensor) for t in types):
             return func(*args, **kwargs)
-        write = func is torch.ops.aten.index_put_.default and \
-            self.two_indices(*args)
-        if write and self.sharded_index(*args):
-            return self.masked_write(*args)
         try:
             return func(*args, **kwargs)
         except RuntimeError as e:     # NotImplementedError too
-            if write:
-                return self.masked_write(*args)
-            if func in _VIEWS and "shard" in str(e) or func in _ARGS:
+            if func in _VIEWS and "shard" in str(e):
                 return self.reshard(func, args, kwargs, e)
-            if func is torch.ops.aten.index_put.default:
-                return self.replicated(func, args, kwargs)
             raise
 
     def reshard(self, func, args, kwargs, err):
@@ -295,70 +305,6 @@ class _Fallbacks(TorchDispatchMode):
                 return out
         raise err
 
-    def replicated(self, func, args, kwargs):
-        """``func`` on every DTensor operand replicated (the result
-        replicated too): the embedding gradient's scatter-add, which some
-        DTensor versions cannot place on a sharded batch."""
-        from torch.distributed.tensor import DTensor, Replicate
-        from torch.utils._pytree import tree_map
-
-        def rep(t):
-            if not isinstance(t, DTensor):
-                return t
-            return t.redistribute(t.device_mesh,
-                                  [Replicate()] * t.device_mesh.ndim)
-        out = func(*tree_map(rep, args), **tree_map(rep, kwargs))
-        self.resharded += 1
-        self.ops[str(func)] += 1
-        return out
-
-    @staticmethod
-    def two_indices(x, indices, values, accumulate=False) -> bool:
-        """x[i0, i1] = values: a DTensor x, two index tensors."""
-        from torch.distributed.tensor import DTensor
-        return (not accumulate and isinstance(x, DTensor)
-                and len(indices) == 2
-                and all(isinstance(k, torch.Tensor) for k in indices))
-
-    @staticmethod
-    def sharded_index(x, indices, values, accumulate=False) -> bool:
-        """... with x sharded on dim 0 or 1."""
-        return any(p.is_shard() and p.dim in (0, 1) for p in x.placements)
-
-    def masked_write(self, x, indices, values, accumulate=False):
-        """x[i0, i1] = values on every rank's shard, each row of x written
-        at most once (a decode step's one token per row): the row's
-        update found by a one-hot match over the indices, then written
-        where its slot falls in the shard."""
-        from torch.distributed.tensor import DTensor, Replicate
-        mesh = x.device_mesh
-        rep = [Replicate()] * mesh.ndim
-
-        def full(t):
-            return t.redistribute(mesh, rep).to_local() \
-                if isinstance(t, DTensor) else t
-
-        i0, i1 = (full(k) for k in indices)
-        # the values broadcast to one row per index (indexing drops their
-        # leading ones)
-        val = full(values).expand((i0.shape[0],) + tuple(x.shape[2:]))
-        xl = x.to_local()
-        shape, off = local_shape_and_offset(x.shape, mesh, x.placements)
-        # the values' trailing dims cut to this shard's
-        val = val[(slice(None),) + tuple(slice(o, o + n) for o, n in
-                                         zip(off[2:], shape[2:]))]
-        rows = torch.arange(shape[0], device=xl.device) + off[0]
-        match = i0[None, :] == rows[:, None]                 # (l0, N)
-        src = torch.argmax(match.to(torch.int32), 1)         # (l0,)
-        cols = torch.arange(shape[1], device=xl.device) + off[1]
-        hit = match.any(1)[:, None] & (i1[src][:, None] == cols[None, :])
-        tail = (1,) * (xl.ndim - 2)
-        xl.copy_(torch.where(hit.reshape(hit.shape + tail),
-                             val[src][:, None], xl))
-        self.writes += 1
-        self.ops[str(torch.ops.aten.index_put_.default)] += 1
-        return x
-
 
 # ---------------------------------------------------------------------------
 # one combination
@@ -377,17 +323,21 @@ def _contig(shape) -> tuple:
 
 def _placed(tree, specs, mesh, dtype=None):
     """Each meta leaf of ``tree`` as a DTensor over a fake local shard,
-    placed by its spec in ``specs`` (a tree of ``P``s, or one ``P``)."""
+    placed by its spec in ``specs`` (a tree of ``P``s, or one ``P``); with
+    ``mesh`` a mapping (one device), as a plain fake tensor."""
     from torch.distributed.tensor import DTensor
     leaves, treedef = tu.flatten(tree)
     names = [n for n, _ in tu.leaves_with_names(tree)]
     out = []
     for name, t in zip(names, leaves):
+        dt = dtype if dtype is not None and t.is_floating_point() \
+            else t.dtype
+        if isinstance(mesh, dict):
+            out.append(torch.empty(tuple(t.shape), dtype=dt))
+            continue
         spec = specs if isinstance(specs, rules.P) else _spec_of(specs, name)
         pl = rules.placements(spec, mesh)
         local, _ = local_shape_and_offset(t.shape, mesh, pl)
-        dt = dtype if dtype is not None and t.is_floating_point() \
-            else t.dtype
         out.append(DTensor.from_local(
             torch.empty(tuple(local), dtype=dt), mesh, pl, run_check=False,
             shape=t.shape, stride=_contig(tuple(t.shape))))
@@ -446,12 +396,18 @@ def _step_and_args(cfg, shape: InputShape, mesh, sampler: SamplerConfig):
                   torch.Generator().manual_seed(0)]
 
 
+ONE_DEVICE = {"data": 1, "model": 1}
+
+
 def lower_one(arch: str, shape, mesh, sampler: SamplerConfig, *,
-              cfg=None):
+              cfg=None, breakdown: int = 0):
     """Trace one (arch, shape, mesh) combination on fake shards: its info
     dict, or the string 'skip' for an ineligible pair. ``shape`` is a
     name of ``SHAPES`` or an ``InputShape``; ``cfg`` overrides the
-    architecture's config (a cut depth, say)."""
+    architecture's config (a cut depth, say). ``mesh`` None traces the
+    one-device step on plain fake tensors (no process group needed).
+    ``breakdown`` > 0 adds the op counter's top ops (``breakdown``)."""
+    mesh = ONE_DEVICE if mesh is None else mesh
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed._tools.mem_tracker import MemTracker
     from torch.distributed.tensor.experimental import implicit_replication
@@ -488,9 +444,10 @@ def lower_one(arch: str, shape, mesh, sampler: SamplerConfig, *,
     info.update(argument_size_bytes=arg_bytes, output_size_bytes=out_bytes,
                 peak_bytes=peak, temp_size_bytes=max(0, peak - arg_bytes),
                 resharded_ops=fallbacks.resharded,
-                masked_writes=fallbacks.writes,
                 fallback_ops=dict(fallbacks.ops),
                 trace_s=round(time.time() - t0, 1))
+    if breakdown:
+        info["breakdown"] = counter.breakdown(breakdown)
     return info
 
 
@@ -523,6 +480,9 @@ def main(argv=None):
                     help="the global batch instead of the shape's")
     ap.add_argument("--seq-len", type=int, default=None,
                     help="the sequence length instead of the shape's")
+    ap.add_argument("--breakdown", type=int, default=0, metavar="N",
+                    help="print and keep each trace's top N ops by "
+                         "FLOPs, collective and HBM bytes")
     args = ap.parse_args(argv)
 
     pod = "pod2" if args.multi_pod else "pod1"
@@ -548,7 +508,8 @@ def main(argv=None):
                     shape, global_batch=args.batch or shape.global_batch,
                     seq_len=args.seq_len or shape.seq_len)
             try:
-                info = lower_one(arch, shape, mesh, sampler)
+                info = lower_one(arch, shape, mesh, sampler,
+                                 breakdown=args.breakdown)
                 if info == "skip":
                     print(f"SKIP  {tag} (full attention at 524k)",
                           flush=True)
@@ -566,6 +527,10 @@ def main(argv=None):
                       f"args/dev={info['argument_size_bytes']/2**30:.2f}GiB "
                       f"peak/dev={info['peak_bytes']/2**30:.2f}GiB"
                       + (f" ops={moved}" if moved else ""), flush=True)
+                for kind, rows in info.get("breakdown", {}).items():
+                    for amount, calls, op in rows:
+                        print(f"  {kind:11s} {amount:.3e} {calls:6d} {op}",
+                              flush=True)
             except Exception as e:  # noqa: BLE001 -- reported per combination
                 fail += 1
                 op = _failed_op(e)

@@ -38,6 +38,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fsgld_update import LANE, fsgld_update_2d
 from repro_torch.models import (decode_step, forward, log_lik_fn,
                                 serving_params)
+from repro_torch.models.layers import unsharded
 from repro_torch.models.model import ACT_DTYPE
 
 PyTree = Any
@@ -255,6 +256,12 @@ def _last_logits(hidden: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
         head.to(ACT_DTYPE).to(torch.float32)
 
 
+def _argmax(logits: torch.Tensor) -> torch.Tensor:
+    """The greedy token of each row, int32; on a pod mesh the vocab is
+    gathered first (DTensor cannot reduce an argmax across shards)."""
+    return torch.argmax(unsharded(logits, -1), -1).to(torch.int32)
+
+
 def make_prefill_step(cfg: ArchConfig):
     """``prefill_step(params, batch)``: the forward over the prompt (the
     serving flash entry, one launch per attention layer) and the argmax
@@ -265,7 +272,7 @@ def make_prefill_step(cfg: ArchConfig):
                                 enc_embeds=batch.get("enc_embeds"),
                                 attention=flash_attention)
             logits = _last_logits(hidden, params["head"])
-        return torch.argmax(logits, -1).to(torch.int32)
+        return _argmax(logits)
     return prefill_step
 
 
@@ -286,5 +293,5 @@ def make_serve_step(cfg: ArchConfig, *, with_enc: Optional[bool] = None):
                                         token, pos,
                                         enc_out=enc_out if with_enc
                                         else None)
-        return torch.argmax(logits, -1).to(torch.int32), cache
+        return _argmax(logits), cache
     return serve_step

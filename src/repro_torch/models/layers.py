@@ -37,6 +37,166 @@ def cdiv(a: int, b: int) -> int:
 
 
 # ---------------------------------------------------------------------------
+# placements on a pod mesh (DTensors: the dry run's layouts). A plain
+# tensor passes through every one of these unchanged.
+# ---------------------------------------------------------------------------
+
+def _dtensor(x):
+    """x as a DTensor, or None for any other tensor."""
+    if type(x) is torch.Tensor or not torch.distributed.is_available():
+        return None
+    from torch.distributed.tensor import DTensor
+    return x if isinstance(x, DTensor) else None
+
+
+def shard_batch(x, batch: Optional[int] = None):
+    """Anchor an activation's placement (the reference's ``_shard_batch``):
+    a DTensor's dim 0 sharded over ('pod'?, 'data'), every other mesh dim
+    replicated. Without it DTensor's propagation chooses placements op by
+    op, and on the pod meshes replicates whole layers of compute across
+    ranks and moves activations in their place. ``batch`` is the size
+    those axes must divide (default dim 0's): a dim 0 that folds the
+    batch with another dim is anchored only where the batch splits
+    evenly. A plain tensor, a mesh without 'data' or a batch the axes do
+    not divide: x unchanged. The mesh is the DTensor's own."""
+    if _dtensor(x) is None:
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names or ()
+    baxes = [a for a in ("pod", "data") if a in names]
+    size = math.prod(mesh.size(names.index(a)) for a in baxes)
+    if not baxes or (x.shape[0] if batch is None else batch) % size:
+        return x
+    # redistributed even where it is placed so already: the backward then
+    # places the cotangent alike, as the reference's constraint does
+    return x.redistribute(mesh, [Shard(0) if n in baxes else Replicate()
+                                 for n in names])
+
+
+def attention_layout(x, H: int, K: int):
+    """How one attention's operands are placed on a pod mesh, so that the
+    attention and its backward run on each rank's shard with no
+    collective: (the placements of q (B, Sq, H, hd), those of k and v
+    (B, Sk, K, hd), whether k and v are widened to H heads for the
+    attention), or None for a plain activation x (B, ...). Each mesh dim
+    in turn shards the batch while it divides evenly, else the query
+    heads, else nothing; k and v shard the heads too where K divides, and
+    are otherwise replicated there and widened (each KV head repeated
+    over its group) just before the attention."""
+    if _dtensor(x) is None:
+        return None
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = x.device_mesh
+    B = x.shape[0]
+    pl_q, pl_kv, heads = [], [], 1
+    for i in range(mesh.ndim):
+        n = mesh.size(i)
+        if B % n == 0:
+            pl_q.append(Shard(0))
+            pl_kv.append(Shard(0))
+            B //= n
+        elif H % (heads * n) == 0:
+            heads *= n
+            pl_q.append(Shard(2))
+            pl_kv.append(Shard(2) if K % heads == 0 else Replicate())
+        else:
+            pl_q.append(Replicate())
+            pl_kv.append(Replicate())
+    return pl_q, pl_kv, pl_kv != pl_q
+
+
+def attend(attention, q, k, v, layout, **kw):
+    """``attention(q, k, v, **kw)`` with q, k, v placed by ``layout``
+    (``attention_layout``; None: plain tensors, called as they are); the
+    output's cotangent is placed as q is."""
+    if layout is None:
+        return attention(q, k, v, **kw)
+    pl_q, _, widen = layout
+    if widen:
+        k, v = (t.repeat_interleave(q.shape[2] // t.shape[2], dim=2)
+                for t in (k, v))
+    q, k, v = (placed(t, pl_q) for t in (q, k, v))
+    return placed(attention(q, k, v, **kw), pl_q)
+
+
+def placed(x, pl):
+    """x redistributed to placements ``pl`` (None: x as it is). Where x is
+    placed so already, the backward still places x's cotangent as ``pl``
+    says."""
+    return x if pl is None else x.redistribute(x.device_mesh, pl)
+
+
+def unsharded(t, dim: int):
+    """DTensor t with dim ``dim`` whole on every rank (its shards
+    gathered); anything else as it is."""
+    if _dtensor(t) is None:
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+    dim %= t.ndim
+    return t.redistribute(t.device_mesh, [
+        Replicate() if p == Shard(dim) else p for p in t.placements])
+
+
+def iota_like(t, dim: int):
+    """arange(t.shape[dim]) as a DTensor placed as DTensor t's dim ``dim``
+    is: a rank holds the indices of its own shard of that dim."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    dim %= t.ndim
+    mesh = t.device_mesh
+    iota = DTensor.from_local(
+        torch.arange(t.shape[dim], device=t.to_local().device), mesh,
+        [Replicate()] * mesh.ndim, run_check=False)
+    return iota.redistribute(mesh, [Shard(0) if p == Shard(dim)
+                                    else Replicate() for p in t.placements])
+
+
+def decode_layout(k_cache):
+    """The placements of a decode step's projections (B, 1, N) and of its
+    attention's output (B, 1, H, hd) on a pod mesh, from its cache's (B,
+    S, K, hd): the batch where the cache shards it, the heads where the
+    cache shards its KV heads, replicated elsewhere (a cache sharded
+    along its sequence is read by each rank's whole query). None for a
+    plain cache."""
+    if _dtensor(k_cache) is None:
+        return None
+    from torch.distributed.tensor import Replicate, Shard
+    return [p if p in (Shard(0), Shard(2)) else Replicate()
+            for p in k_cache.placements]
+
+
+def fsdp_gathered(w):
+    """A DTensor weight gathered over the batch axes ('pod', 'data'), its
+    other placements kept: the FSDP all-gather the reference's XLA makes
+    at a weight's point of use (the backward reduce-scatters its
+    gradient)."""
+    if _dtensor(w) is None:
+        return w
+    from torch.distributed.tensor import Replicate
+    names = w.device_mesh.mesh_dim_names or ()
+    return w.redistribute(w.device_mesh, [
+        Replicate() if n in ("pod", "data") else p
+        for n, p in zip(names, w.placements)])
+
+
+def _off_sequence(t):
+    """A DTensor (B, S, H, hd) whose sequence dim is whole on every rank:
+    a shard of it moves to the heads where they divide that mesh dim (an
+    all-to-all), else is gathered. The RWKV chunk loop walks the
+    sequence, as the reference's scan over chunks does."""
+    if _dtensor(t) is None:
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = t.device_mesh
+    pl = list(t.placements)
+    for i, p in enumerate(pl):
+        if p == Shard(1):
+            heads = t.shape[2] % mesh.size(i) == 0 and Shard(2) not in pl
+            pl[i] = Shard(2) if heads else Replicate()
+    return t if pl == list(t.placements) else t.redistribute(mesh, pl)
+
+
+# ---------------------------------------------------------------------------
 # norms / rope
 # ---------------------------------------------------------------------------
 
@@ -258,7 +418,9 @@ def moe_ffn(x: torch.Tensor, p: dict, *, top_k: int, ffn_type: str,
     y, aux = _moe_dense_dispatch(x.reshape(B * (S // g), g, D), p,
                                  top_k=top_k, ffn_type=ffn_type,
                                  capacity_factor=capacity_factor)
-    return y.reshape(B, S, D), aux
+    # the groups placed by batch row first: a view cannot unflatten the
+    # group dim where DTensor has sharded it another way
+    return shard_batch(y, B).reshape(B, S, D), aux
 
 
 # ---------------------------------------------------------------------------
@@ -420,6 +582,50 @@ class _RwkvScores(torch.autograd.Function):
             return dr, dk, r * dr, -(k * dk)
 
 
+class _ChunkShards:
+    """The RWKV chunk loop on each rank's own (batch, head) shard, for
+    DTensor operands (a pod mesh): every product of the loop is
+    independent per (row, head), so the loop runs on local tensors, as
+    XLA runs the reference's scan body, and its outputs are wrapped back.
+    (DTensor would flatten the sharded (batch, head) dims of each product
+    into strided shards and plan every one of them anew.)"""
+
+    def __init__(self, mesh, pl):
+        from torch.distributed.tensor import Replicate, Shard
+        self.mesh = mesh
+        # the chunks (nb, B, H, C, hd): sharded on the batch or the heads
+        self.chunks = [p if p in (Shard(1), Shard(2)) else Replicate()
+                       for p in pl]
+        # u (H, hd) and the state (B, H, hd, hd) on the same shards
+        self.u = [Shard(0) if p == Shard(2) else Replicate()
+                  for p in self.chunks]
+        self.state = [Shard(p.dim - 1) if p.is_shard() else Replicate()
+                      for p in self.chunks]
+
+    def local(self, *ts):
+        """The chunk tensors, u and the state as local tensors."""
+        *chunks, u, state = ts
+        return ([t.redistribute(self.mesh, self.chunks).to_local()
+                 for t in chunks]
+                + [u.redistribute(self.mesh, self.u).to_local(),
+                   state.redistribute(self.mesh, self.state).to_local()])
+
+    def placed(self, o, state):
+        """The stacked outputs (nb, B, H, C, hd) and the state, wrapped."""
+        from torch.distributed.tensor import DTensor
+        out = []
+        for t, pl in ((o, self.chunks), (state, self.state)):
+            shape = list(t.shape)
+            for i, p in enumerate(pl):
+                if p.is_shard():
+                    shape[p.dim] *= self.mesh.size(i)
+            stride = [math.prod(shape[d + 1:]) for d in range(len(shape))]
+            out.append(DTensor.from_local(t, self.mesh, pl, run_check=False,
+                                          shape=torch.Size(shape),
+                                          stride=tuple(stride)))
+        return out
+
+
 def rwkv_forward(x: torch.Tensor, p: dict, state: Optional[dict] = None,
                  chunk: int = 64):
     """RWKV-6 time mix over a full sequence, chunked linear-attention form.
@@ -445,13 +651,17 @@ def rwkv_forward(x: torch.Tensor, p: dict, state: Optional[dict] = None,
     pad = nb * chunk - S
 
     def to_chunks(t):  # (B, S, H, hd) -> (nb, B, H, chunk, hd) fp32
-        t = F.pad(t.float(), (0, 0, 0, 0, 0, pad))
+        t = F.pad(_off_sequence(t).float(), (0, 0, 0, 0, 0, pad))
         return t.reshape(B, nb, chunk, H, hd).permute(1, 0, 3, 2, 4)
 
     rc, kc, vc, lwc = map(to_chunks, (r, k, v, log_w))
     Lc = torch.cumsum(lwc, dim=3)
     S0 = x.new_zeros((B, H, hd, hd), dtype=torch.float32) \
         if state is None else state["S"].float()
+    shards = None if _dtensor(rc) is None else \
+        _ChunkShards(rc.device_mesh, rc.placements)
+    if shards is not None:
+        rc, kc, vc, Lc, lwc, u, S0 = shards.local(rc, kc, vc, Lc, lwc, u, S0)
     outs = []
     for rb, kb, vb, Lb, lwb in zip(rc, kc, vc, Lc, lwc):     # (B, H, C, hd)
         Lq = Lb - lwb
@@ -463,8 +673,10 @@ def rwkv_forward(x: torch.Tensor, p: dict, state: Optional[dict] = None,
         kdec = kb * torch.exp(last - Lb)
         S0 = torch.exp(last).transpose(2, 3) * S0 + kdec.transpose(2, 3) @ vb
         outs.append(o_intra + o_diag + o_inter)
-    o = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(B, nb * chunk, H,
-                                                          hd)[:, :S]
+    o = torch.stack(outs)
+    if shards is not None:
+        o, S0 = shards.placed(o, S0)
+    o = o.permute(1, 0, 3, 2, 4).reshape(B, nb * chunk, H, hd)[:, :S]
     y = o.reshape(B, S, H * hd).to(x.dtype) @ p["w_o"]
     return y, {"S": S0, "x_prev": x[:, -1]}
 

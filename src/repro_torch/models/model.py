@@ -45,6 +45,20 @@ no saved-tensor hooks, so ``torch.utils.checkpoint`` cannot serve. RWKV's
 pairwise decays are recomputed inside the period's backward by their own
 ``layers._RwkvScores``, as the reference's checkpointed chunk body
 recomputes them.
+
+On a pod mesh (DTensor parameters laid out by ``sharding.rules``: the
+dry run) the activations are anchored as the reference anchors them
+(``_shard_batch`` at its eight sites: the residual stream batch-sharded
+over ('pod', 'data') at each period boundary, replicated on 'model'),
+and the ops DTensor would otherwise replicate or gather are placed as
+XLA partitions the reference: each attention's operands
+(``layers.attention_layout``), each layer's weights gathered over the
+batch axes at their point of use (FSDP), the FFN's input, the head's
+logits reduced shard-wise over the vocabulary (``_VocabSum``), the
+embedding as a vocab-parallel lookup, the decode cache written slot-wise
+on its own shards. A recomputed body then re-runs under autograd
+(``_recorded_vjp``), where the anchors see the DTensors. A plain tensor
+passes through all of this unchanged.
 """
 from __future__ import annotations
 
@@ -80,11 +94,37 @@ def _check_runs(cfg: ArchConfig) -> None:
                          f"not {cfg.family!r}")
 
 
+# the reference's activation anchor (``repro.models.model._shard_batch``)
+_shard_batch = L.shard_batch
+
+
 def _cast_floating(tree, dtype=ACT_DTYPE):
     """Float leaves to the compute dtype at the point of use (a leaf
     already in it is returned as is, not copied)."""
     return tu.tree_map(
         lambda t: t.to(dtype) if t.is_floating_point() else t, tree)
+
+
+def _embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """table[tokens]. A DTensor table (its vocab sharded over 'model', the
+    dry run's) looked up by batch-sharded tokens goes through
+    ``aten.embedding``, whose DTensor rule looks up each rank's vocab
+    shard and reduces the masked rows (the vocab-parallel lookup XLA
+    partitions the reference's gather into); DTensor's indexing gathers
+    the whole table first. Replicated tokens (a batch of one) keep the
+    indexing: torch 2.11's rule fails on them."""
+    tok = L._dtensor(tokens)
+    if L._dtensor(table) is None or tok is None or not any(
+            p.is_shard(0) for p in tok.placements):
+        return table[tokens]
+    return F.embedding(tokens, table)
+
+
+def _layer_params(tree):
+    """One layer's parameters at their point of use: cast to the compute
+    dtype, then (DTensors on a pod mesh) gathered over the batch axes, the
+    FSDP all-gather the reference's XLA makes after the cast, in bf16."""
+    return tu.tree_map(L.fsdp_gathered, _cast_floating(tree))
 
 
 # ---------------------------------------------------------------------------
@@ -273,15 +313,19 @@ def _self_attn(x, p, cfg: ArchConfig, positions, *, window=None,
     B, S, _ = x.shape
     a = p["attn"]
     h = L.rms_norm(x, p["norm"])
-    q = (h @ a["wq"]).reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = (h @ a["wk"]).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = (h @ a["wv"]).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    lay = L.attention_layout(x, cfg.num_heads, cfg.num_kv_heads)
+    pq, pkv = lay[:2] if lay else (None, None)
+    q = L.placed(h @ a["wq"], pq).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    k = L.placed(h @ a["wk"], pkv).reshape(B, S, cfg.num_kv_heads,
+                                           cfg.head_dim)
+    v = L.placed(h @ a["wv"], pkv).reshape(B, S, cfg.num_kv_heads,
+                                           cfg.head_dim)
     if cfg.qk_norm:
         q = L.rms_norm(q, a["q_norm"])
         k = L.rms_norm(k, a["k_norm"])
     q = L.rope(q, positions, cfg.rope_theta)
     k = L.rope(k, positions, cfg.rope_theta)
-    o = attention(q, k, v, causal=causal, window=window)
+    o = L.attend(attention, q, k, v, lay, causal=causal, window=window)
     return x + o.reshape(B, S, -1) @ a["wo"], k, v
 
 
@@ -297,13 +341,17 @@ def _cross_attn(x, p, cfg: ArchConfig, enc_out, gated: bool):
     Te = enc_out.shape[1]
     a = p["xattn"]
     h = L.rms_norm(x, p["xnorm"])
-    q = (h @ a["wq"]).reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = (enc_out @ a["wk"]).reshape(B, Te, cfg.num_kv_heads, cfg.head_dim)
-    v = (enc_out @ a["wv"]).reshape(B, Te, cfg.num_kv_heads, cfg.head_dim)
+    lay = L.attention_layout(x, cfg.num_heads, cfg.num_kv_heads)
+    pq, pkv = lay[:2] if lay else (None, None)
+    q = L.placed(h @ a["wq"], pq).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    k = L.placed(enc_out @ a["wk"], pkv).reshape(B, Te, cfg.num_kv_heads,
+                                                 cfg.head_dim)
+    v = L.placed(enc_out @ a["wv"], pkv).reshape(B, Te, cfg.num_kv_heads,
+                                                 cfg.head_dim)
     qpos = torch.zeros((B, S), dtype=torch.int32, device=x.device)
     kpos = torch.zeros((B, Te), dtype=torch.int32, device=x.device)
-    o = L.chunked_attention(q, k, v, q_positions=qpos, kv_positions=kpos,
-                            causal=False)
+    o = L.attend(L.chunked_attention, q, k, v, lay, q_positions=qpos,
+                 kv_positions=kpos, causal=False)
     o = o.reshape(B, S, -1) @ a["wo"]
     if gated:
         o = torch.tanh(a["gate"]).to(o.dtype) * o
@@ -326,8 +374,10 @@ def _attending(kind: str, x, p, cfg: ArchConfig, positions, enc_out,
 
 
 def _ffn_residual(x, p, cfg: ArchConfig):
-    """The FFN's residual and its aux loss (fp32; 0 for a dense FFN)."""
-    h = L.rms_norm(x, p["ffn_norm"])
+    """The FFN's residual and its aux loss (fp32; 0 for a dense FFN). On a
+    pod mesh its input is placed as the tensor-parallel FFN takes it:
+    batch-sharded, replicated on 'model'."""
+    h = L.shard_batch(L.rms_norm(x, p["ffn_norm"]))
     if cfg.moe is not None:
         y, aux = L.moe_ffn(h, p["ffn"], top_k=cfg.moe.top_k,
                            ffn_type=cfg.ffn_type,
@@ -402,6 +452,8 @@ class _Recompute(torch.autograd.Function):
         inputs = ctx.saved_tensors
         wrt = [i for i, t in enumerate(inputs)
                if t is not None and t.is_floating_point()]
+        if any(L._dtensor(inputs[i]) is not None for i in wrt):
+            return (None, *_recorded_vjp(ctx.body, inputs, wrt, grads))
 
         def f(*diff):
             args = list(inputs)
@@ -416,6 +468,27 @@ class _Recompute(torch.autograd.Function):
         for i, g in zip(wrt, got):
             out[i] = g
         return (None, *out)
+
+
+def _recorded_vjp(body: Callable, inputs, wrt, grads) -> list:
+    """``_Recompute``'s backward for DTensor inputs (the dry run's): the
+    body re-run under autograd, so that it sees the DTensors themselves
+    (``torch.func``'s wrappers hide their placements from the anchors),
+    and its vjp taken by ``torch.autograd.grad``."""
+    args = list(inputs)
+    for i in wrt:
+        args[i] = inputs[i].detach().requires_grad_()
+    with torch.enable_grad():
+        outs = body(*args)
+    pairs = [(o, g) for o, g in zip(outs, grads)
+             if g is not None and o.requires_grad]
+    got = torch.autograd.grad([o for o, _ in pairs], [args[i] for i in wrt],
+                              [g for _, g in pairs], allow_unused=True)
+    out = [None] * len(inputs)
+    for i, g in zip(wrt, got):
+        # an input the body does not reach gets zeros, as from a vjp
+        out[i] = torch.zeros_like(inputs[i]) if g is None else g
+    return out
 
 
 def _checkpointed(body: Callable, x, tree, *extra, remat: bool = True):
@@ -444,7 +517,7 @@ def _positions(x: torch.Tensor) -> torch.Tensor:
 def _encoder_layer(x, p, cfg: ArchConfig, attention):
     """One encoder layer: bidirectional self-attention over the frames,
     then the FFN, its parameters cast to bf16 here."""
-    p = _cast_floating(p)
+    p = _layer_params(p)
     x, _, _ = _self_attn(x, p, cfg, _positions(x), causal=False,
                          attention=attention)
     return _ffn_residual(x, p, cfg)[:1]
@@ -461,7 +534,8 @@ def encoder_forward(params: dict, cfg: ArchConfig, enc_embeds: torch.Tensor,
     x = enc_embeds.to(ACT_DTYPE)
 
     def body(x, p):
-        return _encoder_layer(x, p, cfg, attention)
+        x, = _encoder_layer(_shard_batch(x), p, cfg, attention)
+        return _shard_batch(x),
 
     for p in _unbound(params["encoder"]["blocks"]):
         x, = _checkpointed(body, x, p, remat=cfg.remat)
@@ -495,7 +569,7 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
     positions: every self-attention, the encoder's included."""
     _check_runs(cfg)
     enc_out = encoder_stream(params, cfg, enc_embeds, attention=attention)
-    x = params["embed"][tokens].to(ACT_DTYPE)
+    x = _shard_batch(_embed(params["embed"], tokens).to(ACT_DTYPE))
     pat, n_full, rem = _period_kinds(cfg)
 
     def period(x, layers, enc_out, kinds=pat):
@@ -503,18 +577,25 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
         aux = x.new_zeros((), dtype=torch.float32)
         positions = _positions(x)
         for p, kind in zip(layers, kinds):
-            x, a = _apply_layer(kind, x, _cast_floating(p), cfg, positions,
+            x, a = _apply_layer(kind, x, _layer_params(p), cfg, positions,
                                 enc_out, attention)
             aux = aux + a
         return x, aux
+
+    def anchored(x, layers, enc_out):
+        """A stacked period with its two ends anchored (inside the
+        recomputed body, so that the backward's re-run sees the same
+        placements); the remainder layers are not, as in the reference."""
+        x, aux = period(_shard_batch(x), layers, enc_out)
+        return _shard_batch(x), aux
 
     aux = x.new_zeros((), dtype=torch.float32)
     if n_full:
         stacks = [_unbound(params["blocks"][f"l{j}"])
                   for j in range(len(pat))]
         for i in range(n_full):
-            x, a = _checkpointed(period, x, [s[i] for s in stacks], enc_out,
-                                 remat=cfg.remat)
+            x, a = _checkpointed(anchored, x, [s[i] for s in stacks],
+                                 enc_out, remat=cfg.remat)
             aux = aux + a
     if rem:
         x, a = period(x, [params["rem_blocks"][f"l{j}"]
@@ -523,15 +604,61 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
     return L.rms_norm(x, params["final_norm"]), aux
 
 
+def _rows(logits) -> list:
+    """The placements of DTensor ``logits``' rows: the vocab's shard
+    replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    vocab = Shard(logits.ndim - 1)
+    return [Replicate() if p == vocab else p for p in logits.placements]
+
+
+class _VocabSum(torch.autograd.Function):
+    """x.sum(-1, keepdim=True) of a DTensor x whose vocab is sharded,
+    placed as x's rows are (the partial sums all-reduced). The backward
+    hands each rank its shard of the broadcast cotangent; DTensor's own
+    would reduce-scatter the partial sum onto the batch, then gather the
+    whole vocabulary back at the next product."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.shape, ctx.placements = x.shape, x.placements
+        return x.sum(-1, keepdim=True).redistribute(x.device_mesh, _rows(x))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.expand(ctx.shape).redistribute(g.device_mesh,
+                                                ctx.placements)
+
+
+def _logsumexp(logits):
+    """logsumexp over the last dim, kept. On a DTensor (the dry run's,
+    its vocab sharded over 'model') it is taken as the max, then the sum
+    of exponentials, each reduced across the vocab's shards (two small
+    all-reduces), as XLA partitions it; DTensor's own logsumexp gathers
+    the whole logits first."""
+    if L._dtensor(logits) is None:
+        return torch.logsumexp(logits, -1, keepdim=True)
+    m = L.placed(logits.detach().amax(-1, keepdim=True), _rows(logits))
+    return torch.log(_VocabSum.apply(torch.exp(logits - m))) + m
+
+
+def _label_logits(logits, lab):
+    """logits[..., lab.clamp_min(0)], kept. On a DTensor whose vocab is
+    sharded it is a one-hot product over each rank's vocab shard, summed
+    across the shards, as XLA partitions it; DTensor's own gather gathers
+    the whole logits, and its backward scatters into zeros of the whole
+    vocabulary."""
+    idx = lab.clamp_min(0)[..., None]
+    if L._dtensor(logits) is None:
+        return torch.gather(logits, -1, idx)
+    return _VocabSum.apply(logits * (idx == L.iota_like(logits, -1)))
+
+
 def _chunk_log_lik(h, head, lab):
     """One chunk's summed log-likelihood (a one-tuple), the logits fp32
     products and sums of ``h`` and ``head`` widened to fp32."""
     logits = h.to(torch.float32) @ head.to(torch.float32)
-    # subtract before dropping the last dim: on a vocab-sharded DTensor the
-    # gather's partial result is reduced at the subtraction, with its mask
-    # of the gather's own shape
-    ll = (torch.gather(logits, -1, lab.clamp_min(0)[..., None])
-          - torch.logsumexp(logits, -1, keepdim=True))[..., 0]
+    ll = (_label_logits(logits, lab) - _logsumexp(logits))[..., 0]
     return (torch.where(lab >= 0, ll, 0.0).sum(),)
 
 
@@ -563,8 +690,8 @@ def log_lik_fn(params: dict, cfg: ArchConfig, batch: dict, *,
     hidden, aux = forward(params, cfg, batch["tokens"],
                           enc_embeds=batch.get("enc_embeds"),
                           attention=attention)
-    ll = chunked_log_lik(hidden, params["head"].to(ACT_DTYPE),
-                         batch["labels"])
+    head = L.fsdp_gathered(params["head"].to(ACT_DTYPE))
+    ll = chunked_log_lik(hidden, head, batch["labels"])
     return ll - AUX_WEIGHT * aux * batch["tokens"].numel()
 
 
@@ -620,11 +747,12 @@ def prefill_with_cache(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     dev = tokens.device
     if enc_out is None:
         enc_out = encoder_stream(params, cfg, enc_embeds, attention=attention)
-    x = params["embed"][tokens].to(ACT_DTYPE)
+    x = _shard_batch(_embed(params["embed"], tokens).to(ACT_DTYPE))
     positions = torch.arange(S, device=dev).expand(B, S)
+    last = f"l{len(cfg.layer_pattern) - 1}"
     cache = init_cache(cfg, B, cache_len, device=dev)
     for group, i, key, kind in _layers(cfg):
-        p = _cast_floating(_take(params, group, i, key))
+        p = _layer_params(_take(params, group, i, key))
         c = _take(cache, group, i, key)
         if kind in ("attn", "swa", "xattn"):
             x, k, v = _attending(kind, x, p, cfg, positions, enc_out,
@@ -642,6 +770,8 @@ def prefill_with_cache(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
             c["S"].copy_(state["S"])
             c["x_prev"].copy_(state["x_prev"])
         x, _ = _ffn_residual(x, p, cfg)
+        if group == "blocks" and key == last:     # a period's output
+            x = _shard_batch(x)
     x = L.rms_norm(x, params["final_norm"])
     return _logits(x[:, -1], params), cache
 
@@ -694,6 +824,16 @@ def _update_kv(cache: dict, k_new, v_new, pos, ring: bool) -> None:
     reference returns an updated copy)."""
     B, S = cache["pos"].shape
     slot = pos % S if ring else torch.clamp_max(pos, S - 1)
+    if L._dtensor(cache["k"]) is not None:
+        # a pod mesh's cache may be sharded along the slots: each rank
+        # writes the slots of its own shard (XLA's masked update)
+        hit = slot[:, None] == L.iota_like(cache["pos"], 1)      # (B, S)
+        for name, new in (("k", k_new), ("v", v_new)):
+            cache[name].copy_(torch.where(hit[..., None, None], new,
+                                          cache[name]))
+        cache["pos"].copy_(torch.where(hit, pos[:, None].to(
+            cache["pos"].dtype), cache["pos"]))
+        return
     b = torch.arange(B, device=pos.device)
     cache["k"][b, slot] = k_new[:, 0]
     cache["v"][b, slot] = v_new[:, 0]
@@ -704,9 +844,12 @@ def _decode_self_attn(x, p, cfg: ArchConfig, cache, pos, *, ring):
     B = x.shape[0]
     a = p["attn"]
     h = L.rms_norm(x, p["norm"])
-    q = (h @ a["wq"]).reshape(B, 1, cfg.num_heads, cfg.head_dim)
-    k = (h @ a["wk"]).reshape(B, 1, cfg.num_kv_heads, cfg.head_dim)
-    v = (h @ a["wv"]).reshape(B, 1, cfg.num_kv_heads, cfg.head_dim)
+    pl = L.decode_layout(cache["k"])
+    q = L.placed(h @ a["wq"], pl).reshape(B, 1, cfg.num_heads, cfg.head_dim)
+    k = L.placed(h @ a["wk"], pl).reshape(B, 1, cfg.num_kv_heads,
+                                          cfg.head_dim)
+    v = L.placed(h @ a["wv"], pl).reshape(B, 1, cfg.num_kv_heads,
+                                          cfg.head_dim)
     if cfg.qk_norm:
         q = L.rms_norm(q, a["q_norm"])
         k = L.rms_norm(k, a["k_norm"])
@@ -714,7 +857,8 @@ def _decode_self_attn(x, p, cfg: ArchConfig, cache, pos, *, ring):
     k = L.rope(k, pos[:, None], cfg.rope_theta)
     _update_kv(cache, k.to(cache["k"].dtype), v.to(cache["v"].dtype), pos,
                ring)
-    o = L.decode_attention(q, cache["k"], cache["v"], cache["pos"], pos)
+    o = L.placed(L.decode_attention(q, cache["k"], cache["v"], cache["pos"],
+                                    pos), pl)
     return x + o.reshape(B, 1, -1) @ a["wo"]
 
 
@@ -728,11 +872,13 @@ def decode_step(params: dict, cfg: ArchConfig, cache: dict,
     updated in place: a stacked period's entries are views into the
     stack, so recurrent states are written with ``copy_``."""
     _check_runs(cfg)
-    x = params["embed"][token[:, 0]].to(ACT_DTYPE)[:, None, :]
+    x = _embed(params["embed"], token[:, 0]).to(ACT_DTYPE)[:, None, :]
     if enc_out is not None:
         enc_out = enc_out.to(ACT_DTYPE)
     for group, i, key, kind in _layers(cfg):
-        p = _cast_floating(_take(params, group, i, key))
+        if group == "blocks" and key == "l0":     # a period's input
+            x = _shard_batch(x)
+        p = _layer_params(_take(params, group, i, key))
         c = _take(cache, group, i, key)
         if kind in ("attn", "swa"):
             x = _decode_self_attn(x, p, cfg, c, pos, ring=kind == "swa")

@@ -1,11 +1,11 @@
 """The dry run and its roofline (``repro_torch.launch.dryrun``,
 ``repro_torch.roofline``) on the CPU.
 
-* One subprocess (a fake world is process-global): qwen3's smoke config
-  (d 64) traced on a fake (2, 2) world at small train, prefill and
-  decode shapes. Each rank's ``argument_size_bytes`` is the sum of the
-  local shards the reference's ``param_specs`` / ``batch_specs`` /
-  ``cache_specs`` give (the ``_JaxMesh`` stand-in of
+* One subprocess per fake world (a fake world is process-global,
+  ``tests/_dryrun_worker.py``): qwen3's smoke config (d 64) traced on a
+  fake (2, 2) world at small train, prefill and decode shapes. Each
+  rank's ``argument_size_bytes`` is the sum of the local shards the
+  reference's ``param_specs`` / ``batch_specs`` / ``cache_specs`` give (the ``_JaxMesh`` stand-in of
   ``test_torch_mesh.py``), the train step's exactly 8 bytes less (the
   reference's PRNG key; the port's seeds come from a generator); the
   long-context shape is a SKIP for full attention.
@@ -17,6 +17,17 @@
   shape.
 * The global-index noise rule: a local shard's update equals that
   shard's slice of the unsharded update, bitwise.
+* The reference's batch anchor and what it buys, on a (2, 4) mesh at a
+  width where matrix products dominate (d 256; 2 KV heads, which do not
+  split 4 ways, as qwen3's 8 do not split 16 ways on the pod): the
+  residual stream at every period boundary of the train and prefill
+  steps is batch-sharded on 'data' and replicated on 'model'; the train
+  step's per-device FLOPs are an eighth of the one-device step's (no
+  replicated layer), and within 10 % of the reference's compiled step
+  (``tools/ref_dryrun.py`` on a (2, 4) mesh, in a process of its own).
+  The MoE prefill on the (2, 2) world and, on a (2, 2, 2) pod-like mesh,
+  the RWKV train step trace with status 'ok'.
+* ``roofline.compare`` lists the combinations whose status differs.
 
 ``repro.launch.dryrun`` is not imported here: it rewrites XLA_FLAGS when
 imported, which later subprocesses of the worker would inherit.
@@ -73,16 +84,26 @@ def _local_bytes(tree, specs, mesh, dtype=None):
     return total
 
 
-@pytest.fixture(scope="module")
-def fake_world_run(tmp_path_factory):
+def _worker(tmp_path_factory, world):
     out = tmp_path_factory.mktemp("dryrun") / "out.json"
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     p = subprocess.run([sys.executable, str(ROOT / "tests" /
-                                            "_dryrun_worker.py"), str(out)],
+                                            "_dryrun_worker.py"), str(out),
+                        world],
                        env=env, capture_output=True, text=True, timeout=300)
     assert p.returncode == 0, p.stdout[-2000:] + p.stderr[-3000:]
     with open(out) as f:
         return json.load(f)
+
+
+@pytest.fixture(scope="module")
+def fake_world_run(tmp_path_factory):
+    return _worker(tmp_path_factory, "4")
+
+
+@pytest.fixture(scope="module")
+def world_of_8_run(tmp_path_factory):
+    return _worker(tmp_path_factory, "8")
 
 
 def test_argument_bytes_are_the_references_local_shards(fake_world_run):
@@ -218,3 +239,76 @@ def test_report_bounds_memory_by_arguments_and_outputs_and_marks_reshards():
     assert rows[0]["step_time_bound_ms"] == 2000.0
     table = treport.render(rows).splitlines()
     assert "(resharded)" in table[3] and "(resharded)" not in table[2]
+
+
+def test_the_anchor_places_the_residual_stream_by_batch(world_of_8_run):
+    anchored = {"data": "S(0)", "model": "R"}
+    for kind in ("train", "prefill"):
+        assert world_of_8_run[f"wide_{kind}"]["status"] == "ok"
+        seen = world_of_8_run["anchors"][kind]
+        # two periods, each entered once (train: again in the recompute)
+        assert len(seen) == (4 if kind == "train" else 2)
+        assert all(s == anchored for s in seen), (kind, seen)
+
+
+def test_a_sharded_train_step_replicates_no_layer(world_of_8_run):
+    sys.path.insert(0, str(ROOT / "tests"))
+    import _dryrun_worker as w
+    one = world_of_8_run["wide_train_one_device"]["static_flops"]
+    got = world_of_8_run["wide_train"]["static_flops"]
+    ranks = math.prod(w.WIDE_MESH)
+    assert got <= 1.10 * one / ranks, (got, one / ranks)
+
+
+def test_the_sharded_step_counts_the_references_flops(world_of_8_run,
+                                                     tmp_path):
+    sys.path.insert(0, str(ROOT / "tests"))
+    import _dryrun_worker as w
+    shape = w.WIDE_SHAPES["train"]
+    mesh = ",".join(map(str, w.WIDE_MESH))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    p = subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "ref_dryrun.py"), "--smoke",
+         "--cfg-json", json.dumps(w.WIDE), "--arch", "qwen3-1.7b",
+         "--shape", "train_4k", "--batch", str(shape.global_batch),
+         "--seq-len", str(shape.seq_len), "--mesh-shape", mesh,
+         "--json-out", str(tmp_path / "ref.json")],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert p.returncode == 0, p.stdout[-2000:] + p.stderr[-3000:]
+    with open(tmp_path / "ref.json") as f:
+        (ref,) = json.load(f).values()
+    got = world_of_8_run["wide_train"]["static_flops"]
+    assert abs(got - ref["static_flops"]) / ref["static_flops"] < 0.10, \
+        (got, ref["static_flops"])
+
+
+@pytest.mark.parametrize("case", ["moe_prefill", "rwkv_train"])
+def test_the_moe_and_rwkv_steps_trace_ok(case, fake_world_run,
+                                         world_of_8_run):
+    info = {**fake_world_run, **world_of_8_run}[case]
+    assert info["status"] == "ok", info
+    assert info["static_flops"] > 0
+
+
+def test_compare_lists_the_combinations_whose_status_differs(tmp_path,
+                                                             capsys):
+    from repro_torch.roofline import compare
+    num = {"static_flops": 2.0, "static_hbm_bytes": 3.0,
+           "static_collective_total": 4.0, "peak_bytes": 5}
+    ref = {f"qwen3-1.7b|{s}|pod1": dict(num, status="ok")
+           for s in ("train_4k", "prefill_32k", "decode_32k")}
+    port = {"qwen3-1.7b|train_4k|pod1": dict(num, status="ok"),
+            "qwen3-1.7b|prefill_32k|pod1": dict(
+                num, status="resharded",
+                fallback_ops={"aten.view.default": 4}),
+            "qwen3-1.7b|decode_32k|pod1": {"status": "fail",
+                                           "op": "aten.unbind.int"}}
+    for name, res in (("ref", ref), ("port", port)):
+        (tmp_path / f"{name}.json").write_text(json.dumps(res))
+    compare.main([str(tmp_path / "ref.json"), str(tmp_path / "port.json")])
+    out = capsys.readouterr().out
+    assert "| qwen3-1.7b | prefill_32k (resharded) | 1.00 |" in out
+    assert "| qwen3-1.7b | prefill_32k | ok | resharded | " \
+        "aten.view.default x4 |" in out
+    assert "| qwen3-1.7b | decode_32k | ok | fail | aten.unbind.int |" in out
+    assert "status changed: 2; ok: 3 baseline, 1 optimized" in out

@@ -1,14 +1,20 @@
 """The port stands alone: no file of ``src/repro_torch/`` or ``tools/``
 and not ``chip_smoke.py`` imports JAX or anything of the JAX package
-``repro`` (an AST scan, so a lazy import inside a function counts too)."""
+``repro`` (an AST scan, so a lazy import inside a function counts too).
+The one exception is ``tools/ref_dryrun.py``, the reference's own dry run
+on Auto mesh axes, which the port's dry run is compared with on the CPU:
+it imports the JAX package, and nothing of the port imports it."""
 import ast
 from pathlib import Path
 
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
+# harnesses that run the JAX package itself, on the CPU only
+REFERENCE_HARNESSES = (ROOT / "tools" / "ref_dryrun.py",)
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + sorted((ROOT / "tools").glob("*.py")) + [ROOT / "chip_smoke.py"]
+    + sorted(p for p in (ROOT / "tools").glob("*.py")
+             if p not in REFERENCE_HARNESSES) + [ROOT / "chip_smoke.py"]
 BANNED = ("jax", "jaxlib", "repro")
 
 
@@ -47,3 +53,11 @@ def test_scan_sees_the_whole_port():
             "divergence_depth.py", "dryrun.py", "steps.py", "specs.py",
             "pipeline.py", "hlo_analysis.py", "report.py",
             "compare.py"} <= names
+
+
+def test_no_file_of_the_port_imports_a_reference_harness():
+    names = {p.stem for p in REFERENCE_HARNESSES}
+    for harness in REFERENCE_HARNESSES:
+        assert "repro" in set(_imported_roots(harness)), harness
+    for path in FILES:
+        assert not set(_imported_roots(path)) & names, path

@@ -311,11 +311,18 @@ SMALL = ["--device", "cpu", "--smoke", "--local-updates", "2",
          "--batch", "2", "--seq", "16", "--chains", "2"]
 
 
-def test_train_snapshots_and_resumes_bitwise(tmp_path):
+@pytest.fixture(scope="module")
+def three_rounds():
+    """The uninterrupted 3-round driver run both drivers' tests hold their
+    runs against (made once)."""
+    return ttrain.run(ttrain.parse_args(SMALL + ["--rounds", "3"]))
+
+
+def test_train_snapshots_and_resumes_bitwise(tmp_path, three_rounds):
     """``--snapshot-every 1`` for 3 rounds, the newest snapshot deleted,
     ``--resume``: the final chain states are the uninterrupted run's."""
     base = SMALL + ["--rounds", "3"]
-    ref = ttrain.run(ttrain.parse_args(base))
+    ref = three_rounds
     snaps = str(tmp_path / "snaps")
     ttrain.run(ttrain.parse_args(base + ["--snapshot-every", "1",
                                          "--snapshot-dir", snaps]))
@@ -327,13 +334,13 @@ def test_train_snapshots_and_resumes_bitwise(tmp_path):
     assert _equal(ref.finals, b.finals)
 
 
-def test_draw_bank_segments_end_where_one_run_ends(tmp_path):
+def test_draw_bank_segments_end_where_one_run_ends(tmp_path, three_rounds):
     """``--draw-bank --bank-every 1``: one draw per round, each with its
     DrawMeta; the segments continue one generator, so the final states
     are the one-run driver's, bitwise, and the freshest draw is chain 0's
     final state."""
     base = SMALL + ["--rounds", "3"]
-    ref = ttrain.run(ttrain.parse_args(base))
+    ref = three_rounds
     bank = str(tmp_path / "bank")
     tr = ttrain.run(ttrain.parse_args(base + ["--draw-bank", bank]))
     assert _equal(ref.finals, tr.finals)

@@ -94,11 +94,31 @@ def case(request):
                 step_logits=step_logits)
 
 
-def test_prefill_logits_and_cache_match_jax(case):
-    cfg = case["cfg"]
+@pytest.fixture(scope="module")
+def plain_stream(case):
+    """The port's own greedy stream on one draw, made once per arch: the
+    prefill's logits and cache (a copy taken before decoding writes into
+    it) and each step's tokens and logits."""
+    cfg, params, enc = case["cfg"], case["params"], case["enc"]
+    enc_out = TM.encoder_stream(params, cfg, enc)
     logits, cache = TM.prefill_with_cache(
-        case["params"], cfg, torch.from_numpy(case["prompt"]).long(),
-        case["total"], enc_embeds=case["enc"])
+        params, cfg, torch.from_numpy(case["prompt"]).long(), case["total"],
+        enc_embeds=enc)
+    prefilled = tu.tree_map(torch.clone, cache)
+    tokens = [torch.argmax(logits, -1)]
+    step_logits = []
+    for t in range(S, case["total"] - 1):
+        lg, cache = TM.decode_step(params, cfg, cache, tokens[-1][:, None],
+                                   torch.full((B,), t), enc_out=enc_out)
+        step_logits.append(lg)
+        tokens.append(torch.argmax(lg, -1))
+    return dict(logits=logits, cache=prefilled, enc_out=enc_out,
+                tokens=tokens, step_logits=step_logits)
+
+
+def test_prefill_logits_and_cache_match_jax(case, plain_stream):
+    cfg = case["cfg"]
+    logits, cache = plain_stream["logits"], plain_stream["cache"]
     assert logits.dtype == torch.float32
     assert _rel(logits.numpy(), case["logits"]) < REL
     jl, jd = jax.tree.flatten(case["cache"])
@@ -113,14 +133,13 @@ def test_prefill_logits_and_cache_match_jax(case):
             assert _rel(a.float().numpy(), b) < REL
 
 
-def test_teacher_forced_decode_matches_jax(case):
+def test_teacher_forced_decode_matches_jax(case, plain_stream):
     """Decode fed JAX's own greedy stream, so a bf16 argmax tie cannot
-    fork the comparison."""
+    fork the comparison, from the prefill's cache (a copy: decoding
+    writes into it)."""
     cfg, params = case["cfg"], case["params"]
-    enc_out = TM.encoder_stream(params, cfg, case["enc"])
-    _, cache = TM.prefill_with_cache(
-        params, cfg, torch.from_numpy(case["prompt"]).long(), case["total"],
-        enc_out=enc_out)
+    enc_out = plain_stream["enc_out"]
+    cache = tu.tree_map(torch.clone, plain_stream["cache"])
     for i, t in enumerate(range(S, case["total"] - 1)):
         tok = torch.tensor(case["tokens"][i][:, None], dtype=torch.long)
         lg, cache = TM.decode_step(params, cfg, cache, tok,
@@ -144,20 +163,13 @@ def test_predictive_stats_match_jax(K):
         assert torch.all(got.token_var == 0)
 
 
-def test_k1_ensemble_bitwise_matches_plain_loop(case):
+def test_k1_ensemble_bitwise_matches_plain_loop(case, plain_stream):
     cfg, params, enc = case["cfg"], case["params"], case["enc"]
     prompt = torch.from_numpy(case["prompt"]).long()
     total = case["total"]
-    enc_out = TM.encoder_stream(params, cfg, enc)
-    logits, cache = TM.prefill_with_cache(params, cfg, prompt, total,
-                                          enc_embeds=enc)
-    want_tok = [torch.argmax(logits, -1)]
-    want_logits = []
-    for t in range(S, total - 1):
-        lg, cache = TM.decode_step(params, cfg, cache, want_tok[-1][:, None],
-                                   torch.full((B,), t), enc_out=enc_out)
-        want_logits.append(lg)
-        want_tok.append(torch.argmax(lg, -1))
+    enc_out = plain_stream["enc_out"]
+    want_tok = plain_stream["tokens"]
+    want_logits = plain_stream["step_logits"]
 
     draws = tu.tree_map(lambda t: t[None], params)
     logits0, caches = ensemble_prefill(draws, cfg, prompt, total,

@@ -235,11 +235,27 @@ def test_a_plan_that_drifts_is_caught_in_the_round(monkeypatch):
 # bitwise parity: streamed == resident
 # ---------------------------------------------------------------------------
 
+@pytest.fixture(scope="module")
+def resident_runs():
+    """The resident run of ``_problem(0)`` per executor, made once for
+    every (resident, window) it is held against."""
+    runs = {}
+
+    def run(executor):
+        if executor not in runs:
+            data, bank = _problem(0)
+            runs[executor] = _facade(data, bank, executor).sample(
+                gen(), torch.zeros(3))
+        return runs[executor]
+    return run
+
+
 @pytest.mark.parametrize("executor", EXECUTORS)
 @pytest.mark.parametrize("resident,window", [(6, 2), (4, 1)])
-def test_streamed_bitwise_parity_every_executor(executor, resident, window):
+def test_streamed_bitwise_parity_every_executor(executor, resident, window,
+                                                resident_runs):
     data, bank = _problem(0)
-    ref = _facade(data, bank, executor).sample(gen(), torch.zeros(3))
+    ref = resident_runs(executor)
     got = _facade(data, bank, executor,
                   stream=Stream(resident=resident, window=window)).sample(
         gen(), torch.zeros(3))

@@ -226,24 +226,26 @@ def _assert_bank_matches(bank, jbank, store):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6)
 
 
-@pytest.mark.parametrize("store", [None, torch.bfloat16])
-def test_streaming_fit_equals_trace_fit_of_the_reference(store,
-                                                         monkeypatch):
-    """``fit_bank_local_sgld`` streaming (its trace budget set to 0)
-    against a plain loop drawing in the order its docstring states (per
-    client: per step the minibatch rows, then the normals leaf by leaf),
-    whose kept trace goes through the reference's estimator and bank;
-    tolerances as in ``_assert_bank_matches``."""
-    monkeypatch.setattr(api, "FIT_TRACE_BYTES", 0)
+FIT_STEPS, FIT_M, FIT_H = 6, 3, 1e-4
+
+
+def _fit_problem(num_shards):
+    """(log-lik, θ0, token shards of 6 rows) of the tiny qwen3."""
     jcfg, tcfg = _tiny("qwen3-1.7b")
     _, theta0 = _params(jcfg, tcfg)
-    data = token_shards(torch.Generator().manual_seed(0), num_shards=2,
-                        shard_size=6, seq_len=8, vocab_size=128)
-    ll = lambda p, b: TM.log_lik_fn(p, tcfg, b)  # noqa: E731
-    h, m, steps = 1e-4, 3, 6
-    bank = api.fit_bank_local_sgld(
-        ll, data, theta0, torch.Generator().manual_seed(5), fit_steps=steps,
-        minibatch=m, step_size=h, kind="scalar", store_dtype=store)
+    data = token_shards(torch.Generator().manual_seed(0),
+                        num_shards=num_shards, shard_size=6, seq_len=8,
+                        vocab_size=128)
+    return (lambda p, b: TM.log_lik_fn(p, tcfg, b)), theta0, data
+
+
+@pytest.fixture(scope="module")
+def streamed_fit_traces():
+    """The kept traces of a plain loop drawing in the order the streaming
+    fit's docstring states (per client: per step the minibatch rows, then
+    the normals leaf by leaf), made once for every storage dtype."""
+    ll, theta0, data = _fit_problem(2)
+    h, m, steps = FIT_H, FIT_M, FIT_STEPS
     g = torch.Generator().manual_seed(5)
     traces = []
     for s in range(2):
@@ -258,30 +260,52 @@ def test_streaming_fit_equals_trace_fit_of_the_reference(store,
             if t >= steps // 2:
                 kept.append(th)
         traces.append(tu.tree_map(lambda *xs: torch.stack(xs), *kept))
-    _assert_bank_matches(bank, _reference_bank(traces, store), store)
+    return traces
 
 
 @pytest.mark.parametrize("store", [None, torch.bfloat16])
-def test_small_fit_runs_all_clients_at_once(store):
+def test_streaming_fit_equals_trace_fit_of_the_reference(
+        store, monkeypatch, streamed_fit_traces):
+    """``fit_bank_local_sgld`` streaming (its trace budget set to 0)
+    against a plain loop drawing in the order its docstring states,
+    whose kept trace goes through the reference's estimator and bank;
+    tolerances as in ``_assert_bank_matches``."""
+    monkeypatch.setattr(api, "FIT_TRACE_BYTES", 0)
+    ll, theta0, data = _fit_problem(2)
+    bank = api.fit_bank_local_sgld(
+        ll, data, theta0, torch.Generator().manual_seed(5),
+        fit_steps=FIT_STEPS, minibatch=FIT_M, step_size=FIT_H, kind="scalar",
+        store_dtype=store)
+    _assert_bank_matches(bank, _reference_bank(streamed_fit_traces, store),
+                         store)
+
+
+@pytest.fixture(scope="module")
+def batched_fit_traces():
+    """``sample_local_likelihood``'s traces of 3 clients, batched over the
+    clients, made once for every storage dtype."""
+    from repro_torch.core.federated import sample_local_likelihood
+    ll, theta0, data = _fit_problem(3)
+    tr = sample_local_likelihood(ll, data, theta0,
+                                 torch.Generator().manual_seed(5),
+                                 num_steps=FIT_STEPS, burn_in=3, thin=1,
+                                 minibatch=FIT_M, step_size=FIT_H)
+    return [tu.tree_map(lambda t: t[s], tr) for s in range(3)]
+
+
+@pytest.mark.parametrize("store", [None, torch.bfloat16])
+def test_small_fit_runs_all_clients_at_once(store, batched_fit_traces):
     """Under its trace budget ``fit_bank_local_sgld`` runs every client in
     one batch: the same bank as ``sample_local_likelihood`` (batched over
     the clients, on the same generator) through the reference's estimator
     and bank; tolerances as in ``_assert_bank_matches``."""
-    from repro_torch.core.federated import sample_local_likelihood
-    jcfg, tcfg = _tiny("qwen3-1.7b")
-    _, theta0 = _params(jcfg, tcfg)
-    data = token_shards(torch.Generator().manual_seed(0), num_shards=3,
-                        shard_size=6, seq_len=8, vocab_size=128)
-    ll = lambda p, b: TM.log_lik_fn(p, tcfg, b)  # noqa: E731
-    kw = dict(minibatch=3, step_size=1e-4)
+    ll, theta0, data = _fit_problem(3)
     bank = api.fit_bank_local_sgld(
-        ll, data, theta0, torch.Generator().manual_seed(5), fit_steps=6,
-        kind="scalar", store_dtype=store, **kw)
-    tr = sample_local_likelihood(ll, data, theta0,
-                                 torch.Generator().manual_seed(5),
-                                 num_steps=6, burn_in=3, thin=1, **kw)
-    traces = [tu.tree_map(lambda t: t[s], tr) for s in range(3)]
-    _assert_bank_matches(bank, _reference_bank(traces, store), store)
+        ll, data, theta0, torch.Generator().manual_seed(5),
+        fit_steps=FIT_STEPS, kind="scalar", store_dtype=store,
+        minibatch=FIT_M, step_size=FIT_H)
+    _assert_bank_matches(bank, _reference_bank(batched_fit_traces, store),
+                         store)
 
 
 def test_fit_stack_is_the_packed_bank_buffer(monkeypatch):
