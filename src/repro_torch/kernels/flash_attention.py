@@ -425,11 +425,53 @@ def _plain_stats(q, k, v, q_positions, kv_positions, causal, window,
                           window=window, block_k=block_k, stats=True)
 
 
+class _Shards:
+    """The plain scans of DTensor operands (a pod mesh's) on each rank's
+    own shards: q, k and v (B, S, H, hd) placed alike, sharding only the
+    batch or the heads, as ``models.layers.attention_layout`` places
+    them. Every product is independent per (row, head), so the scan runs
+    on local tensors, as XLA runs the reference's, and its outputs are
+    wrapped back. (DTensor would flatten the sharded batch and head dims
+    into one in the scans' einsums, which torch 2.11's view rule
+    refuses.) ``of`` is None for plain tensors and any other layout."""
+
+    def __init__(self, q):
+        from torch.distributed.tensor import Replicate, Shard
+        self.mesh, self.pl = q.device_mesh, list(q.placements)
+        # positions (B, S) and row statistics (B, H, S) on the same shards
+        self.rows = [p if p == Shard(0) else Replicate() for p in self.pl]
+        self.stats = [Shard(1) if p == Shard(2) else p for p in self.pl]
+
+    @staticmethod
+    def of(q, k, v):
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        if not isinstance(q, DTensor):
+            return None
+        pl = list(q.placements)
+        alike = all(isinstance(t, DTensor) and list(t.placements) == pl
+                    for t in (k, v))
+        if not alike or any(p not in (Shard(0), Shard(2), Replicate())
+                            for p in pl):
+            return None
+        return _Shards(q)
+
+    def local(self, t, pl):
+        """t's local shard placed by ``pl`` (None stays None)."""
+        from repro_torch.sharding.rules import local_shard
+        return None if t is None else local_shard(t, self.mesh, pl)
+
+    def wrap(self, t, pl):
+        """Local t wrapped as a DTensor placed by ``pl`` (even shards)."""
+        from torch.distributed.tensor import DTensor
+        return DTensor.from_local(t, self.mesh, pl, run_check=False)
+
+
 class _Attention(torch.autograd.Function):
     """(out, m, l) of attention with the reference's flash backward.
     Positions None: implicit (row = position), and on CUDA tensors the
     forward is one launch of the kernel, whose log-sum-exp stands in for
-    (m, l = 1). Positions given: the plain scan on any device."""
+    (m, l = 1). Positions given: the plain scan on any device. DTensor
+    operands run the plain scans on their local shards (``_Shards``)."""
 
     @staticmethod
     def forward(q, k, v, q_positions, kv_positions, causal, window,
@@ -440,8 +482,16 @@ class _Attention(torch.autograd.Function):
                                            v.contiguous(), causal=causal,
                                            window=window)
             return out, lse, torch.ones_like(lse)
-        return _plain_stats(q, k, v, q_positions, kv_positions, causal,
-                            window, block_k)
+        sh = _Shards.of(q, k, v)
+        if sh is None:
+            return _plain_stats(q, k, v, q_positions, kv_positions, causal,
+                                window, block_k)
+        out, m, l = _plain_stats(
+            *(sh.local(t, sh.pl) for t in (q, k, v)),
+            *(sh.local(t, sh.rows) for t in (q_positions, kv_positions)),
+            causal, window, block_k)
+        return (sh.wrap(out, sh.pl), sh.wrap(m, sh.stats),
+                sh.wrap(l, sh.stats))
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -454,6 +504,12 @@ class _Attention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout, _dm, _dl):
         q, k, v, q_positions, kv_positions, m, l = ctx.saved_tensors
+        sh = _Shards.of(q, k, v)
+        if sh is not None:
+            q, k, v, dout = (sh.local(t, sh.pl) for t in (q, k, v, dout))
+            q_positions, kv_positions = (
+                sh.local(t, sh.rows) for t in (q_positions, kv_positions))
+            m, l = (sh.local(t, sh.stats) for t in (m, l))
         if q_positions is None:
             B, S = q.shape[:2]
             q_positions = kv_positions = torch.arange(
@@ -466,6 +522,8 @@ class _Attention(torch.autograd.Function):
             dq, dk, dv = attention_scan_bwd(
                 q, k, v, q_positions, kv_positions, m, l, dout,
                 causal=ctx.causal, window=ctx.window, block_k=ctx.block_k)
+        if sh is not None:
+            dq, dk, dv = (sh.wrap(t, sh.pl) for t in (dq, dk, dv))
         return dq, dk, dv, None, None, None, None, None
 
     @staticmethod

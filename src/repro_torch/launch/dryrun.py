@@ -24,14 +24,10 @@ on DTensors whose local shards are fake tensors of rank 0's shapes:
 HBM bytes, the collectives DTensor issues) and
 ``torch.distributed._tools.mem_tracker.MemTracker`` their memory.
 Plain tensors the model code makes (positions, masks) are replicated
-(``implicit_replication``). A view DTensor cannot place in the rules'
-layout is placed the way XLA's SPMD partitioner places it (``_Fallbacks``:
-its operand resharded), and the combination is then reported
-``RESHARD`` with those ops named and counted, not ``OK``: its memory
-and collectives are those of a layout that ``sharding.rules`` does not
-give, so it does not count as fitting.
-An op that not even this places fails the combination with the op's
-name. A fake world is process-global: a process that already holds a
+(``implicit_replication``). An op DTensor cannot place in the rules'
+layout fails the combination with the op's name: the model places its
+operands itself on a pod mesh (``models.model``), on torch 2.11 as on
+2.13. A fake world is process-global: a process that already holds a
 process group runs this in a subprocess.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun \\
@@ -42,10 +38,10 @@ Output keys per combination: the analyzer's (``flops``,
 ``static_collective_total``), ``argument_size_bytes`` (the local shards
 of every argument), ``output_size_bytes``, ``peak_bytes`` (the tracked
 high-water mark, arguments included), ``temp_size_bytes`` (peak less
-arguments), ``trace_s`` (the reference's ``compile_s``), ``fallback_ops``
-(op name -> times ``_Fallbacks`` placed it), with ``--breakdown N``
-``breakdown`` (``OpCounter.breakdown(N)``), and ``status`` ('ok',
-'resharded', 'skip' or 'fail'). Exit code 1 if any combination fails.
+arguments), ``trace_s`` (the reference's ``compile_s``), with
+``--breakdown N`` ``breakdown`` (``OpCounter.breakdown(N)``), and
+``status`` ('ok', 'skip' or 'fail'). Exit code 1 if any combination
+fails.
 """
 from __future__ import annotations
 
@@ -59,7 +55,6 @@ import time
 
 import torch
 import torch.distributed as dist
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch import tree as tu
 from repro_torch.configs import (ARCH_NAMES, SHAPES, SamplerConfig,
@@ -252,60 +247,6 @@ def _fake_tolerant(materialize):
     return run
 
 
-_VIEWS = (torch.ops.aten.view.default, torch.ops.aten._unsafe_view.default,
-          torch.ops.aten.reshape.default)
-
-
-class _Fallbacks(TorchDispatchMode):
-    """What DTensor will not place by itself, done the way XLA's SPMD
-    partitioner does it in the reference, and counted (the JSON's
-    ``resharded_ops`` and ``fallback_ops``; the combination's status
-    'resharded'). A dispatch mode on top of the op counter and the memory
-    tracker, so it also acts inside the backward, and the work it adds is
-    counted: a view DTensor refuses (a sharded dim it cannot unflatten)
-    runs again with the mesh dims that shard its input replicated one at
-    a time, from the last. The model places its operands itself on a pod
-    mesh (``models.model``), so on torch 2.13 no combination of the grids
-    needs this; torch 2.11's DTensor still refuses some views (gemma-7b's
-    decode on the (2, 16, 16) mesh)."""
-
-    def __init__(self):
-        super().__init__()
-        self.resharded = 0
-        self.ops = collections.Counter()    # op name -> times placed here
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        from torch.distributed.tensor import DTensor
-        kwargs = kwargs or {}
-        if not any(issubclass(t, DTensor) for t in types):
-            return func(*args, **kwargs)
-        try:
-            return func(*args, **kwargs)
-        except RuntimeError as e:     # NotImplementedError too
-            if func in _VIEWS and "shard" in str(e):
-                return self.reshard(func, args, kwargs, e)
-            raise
-
-    def reshard(self, func, args, kwargs, err):
-        from torch.distributed.tensor import DTensor, Replicate
-        x = args[0]
-        if not isinstance(x, DTensor):
-            raise err
-        pl = list(x.placements)
-        for i in reversed(range(len(pl))):
-            if pl[i].is_shard():
-                pl[i] = Replicate()
-                try:
-                    out = func(x.redistribute(x.device_mesh, pl),
-                               *args[1:], **kwargs)
-                except RuntimeError:
-                    continue
-                self.resharded += 1
-                self.ops[str(func)] += 1
-                return out
-        raise err
-
-
 # ---------------------------------------------------------------------------
 # one combination
 # ---------------------------------------------------------------------------
@@ -430,9 +371,8 @@ def lower_one(arch: str, shape, mesh, sampler: SamplerConfig, *,
                                  else t for t in tu.leaves(args)
                                  if isinstance(t, torch.Tensor)])
         counter = OpCounter()
-        fallbacks = _Fallbacks()
         try:
-            with tracker, counter, fallbacks:
+            with tracker, counter:
                 out = step(*args)
         except Exception as e:
             e.last_op = counter.last
@@ -443,8 +383,6 @@ def lower_one(arch: str, shape, mesh, sampler: SamplerConfig, *,
     info = counter.result()
     info.update(argument_size_bytes=arg_bytes, output_size_bytes=out_bytes,
                 peak_bytes=peak, temp_size_bytes=max(0, peak - arg_bytes),
-                resharded_ops=fallbacks.resharded,
-                fallback_ops=dict(fallbacks.ops),
                 trace_s=round(time.time() - t0, 1))
     if breakdown:
         info["breakdown"] = counter.breakdown(breakdown)
@@ -515,18 +453,16 @@ def main(argv=None):
                           flush=True)
                     results[tag] = {"status": "skip"}
                     continue
-                moved = ",".join(f"{op}:{n}" for op, n in
-                                 sorted(info["fallback_ops"].items()))
-                info["status"] = "resharded" if moved else "ok"
+                info["status"] = "ok"
                 results[tag] = info
-                print(f"{'RESHARD' if moved else 'OK   '} {tag} "
+                print(f"OK    {tag} "
                       f"trace={info['trace_s']}s "
                       f"flops={info['static_flops']:.3e} "
                       f"hbm={info['static_hbm_bytes']:.3e} "
                       f"coll={info['static_collective_total']:.3e} "
                       f"args/dev={info['argument_size_bytes']/2**30:.2f}GiB "
-                      f"peak/dev={info['peak_bytes']/2**30:.2f}GiB"
-                      + (f" ops={moved}" if moved else ""), flush=True)
+                      f"peak/dev={info['peak_bytes']/2**30:.2f}GiB",
+                      flush=True)
                 for kind, rows in info.get("breakdown", {}).items():
                     for amount, calls, op in rows:
                         print(f"  {kind:11s} {amount:.3e} {calls:6d} {op}",
@@ -544,8 +480,8 @@ def main(argv=None):
         with open(args.json_out, "w") as f:
             json.dump(results, f, indent=1)
     n = collections.Counter(r["status"] for r in results.values())
-    print(f"done: {n['ok']} ok, {n['resharded']} resharded, {n['skip']} "
-          f"skip, {fail} fail in {time.time() - t_all:.1f} s")
+    print(f"done: {n['ok']} ok, {n['skip']} skip, {fail} fail in "
+          f"{time.time() - t_all:.1f} s")
     return 1 if fail else 0
 
 

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import NEG_INF, scan_attention
+from repro_torch.sharding.rules import local_shard
 
 
 def cdiv(a: int, b: int) -> int:
@@ -120,6 +121,18 @@ def attend(attention, q, k, v, layout, **kw):
     return placed(attention(q, k, v, **kw), pl_q)
 
 
+def merge_heads(o):
+    """o (B, S, H, hd) -> (B, S, H * hd). A DTensor's merged output is
+    placed as it is (a no-op), so that the backward places the cotangent
+    alike before splitting the heads again: a cotangent sharded along
+    H * hd where the heads do not split that mesh dim (whisper's 20,
+    recurrentgemma's 10 on 16 ranks) cannot be split into (H, hd)
+    without a redistribution, which torch 2.11's view rule refuses."""
+    x = o.reshape(o.shape[0], o.shape[1], -1)
+    return x if _dtensor(x) is None else x.redistribute(x.device_mesh,
+                                                        x.placements)
+
+
 def placed(x, pl):
     """x redistributed to placements ``pl`` (None: x as it is). Where x is
     placed so already, the backward still places x's cotangent as ``pl``
@@ -179,21 +192,19 @@ def fsdp_gathered(w):
         for n, p in zip(names, w.placements)])
 
 
-def _off_sequence(t):
-    """A DTensor (B, S, H, hd) whose sequence dim is whole on every rank:
-    a shard of it moves to the heads where they divide that mesh dim (an
-    all-to-all), else is gathered. The RWKV chunk loop walks the
-    sequence, as the reference's scan over chunks does."""
-    if _dtensor(t) is None:
-        return t
+def _off_sequence(t) -> list:
+    """The placements of a DTensor (B, S, H, hd) whose sequence dim is
+    whole on every rank: a shard of it moves to the heads where they
+    divide that mesh dim (an all-to-all), else is gathered. The RWKV chunk
+    loop walks the sequence, as the reference's scan over chunks does."""
     from torch.distributed.tensor import Replicate, Shard
-    mesh = t.device_mesh
     pl = list(t.placements)
     for i, p in enumerate(pl):
         if p == Shard(1):
-            heads = t.shape[2] % mesh.size(i) == 0 and Shard(2) not in pl
+            heads = t.shape[2] % t.device_mesh.size(i) == 0 \
+                and Shard(2) not in pl
             pl[i] = Shard(2) if heads else Replicate()
-    return t if pl == list(t.placements) else t.redistribute(mesh, pl)
+    return pl
 
 
 # ---------------------------------------------------------------------------
@@ -250,7 +261,14 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      q_position: torch.Tensor) -> torch.Tensor:
     """Single-token attention over a (possibly ring-buffer) cache, in fp32.
     q (B, 1, H, hd); caches (B, S, K, hd); kv_positions (B, S) with -1
-    for empty slots; q_position (B,)."""
+    for empty slots; q_position (B,). A DTensor cache whose slots are
+    whole on every rank is attended on each rank's own shards
+    (``_local_decode``)."""
+    if _dtensor(k_cache) is not None:
+        from torch.distributed.tensor import Shard
+        if Shard(1) not in k_cache.placements:
+            return _local_decode(q, k_cache, v_cache, kv_positions,
+                                 q_position)
     B, _, H, hd = q.shape
     K = k_cache.shape[2]
     G = H // K
@@ -262,6 +280,26 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgs,bskh->bkgh", p, v_cache.to(torch.float32))
     return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def _local_decode(q, k_cache, v_cache, kv_positions, q_position):
+    """``decode_attention`` of DTensors on each rank's own (batch, KV-head)
+    shard, the cache's slots whole on every rank: every product is
+    independent per (row, head), so it runs on local tensors, as XLA runs
+    the reference's, and the output is wrapped back placed as
+    ``decode_layout`` says. (DTensor would flatten the sharded batch and
+    head dims into one in the einsums' batched products, which torch
+    2.11's view rule refuses.)"""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = k_cache.device_mesh
+    pl = decode_layout(k_cache)
+    rows = [p if p == Shard(0) else Replicate() for p in pl]
+    out = decode_attention(*(local_shard(t, mesh, pl)
+                             for t in (q, k_cache, v_cache)),
+                           *(local_shard(t, mesh, rows)
+                             for t in (kv_positions, q_position)))
+    return DTensor.from_local(out, mesh, pl, run_check=False)
+
 
 
 # ---------------------------------------------------------------------------
@@ -444,10 +482,16 @@ def _rglru_gates(xc: torch.Tensor, p: dict):
     return a, gated
 
 
+def pad_front(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x (B, S, ...) with n zero rows in front along dim 1: a cat, since
+    torch 2.11's DTensor rule for ``F.pad`` fails on a pod mesh."""
+    return torch.cat([torch.zeros_like(x[:, :1])] * n + [x], dim=1)
+
+
 def _causal_conv1d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv of width w.shape[0]: x (B, S, D), w (W, D)."""
     W, S = w.shape[0], x.shape[1]
-    xp = F.pad(x, (0, 0, W - 1, 0))
+    xp = pad_front(x, W - 1)
     out = torch.zeros_like(x)
     for t in range(W):
         out = out + xp[:, t:t + S] * w[t]
@@ -585,36 +629,37 @@ class _RwkvScores(torch.autograd.Function):
 class _ChunkShards:
     """The RWKV chunk loop on each rank's own (batch, head) shard, for
     DTensor operands (a pod mesh): every product of the loop is
-    independent per (row, head), so the loop runs on local tensors, as
-    XLA runs the reference's scan body, and its outputs are wrapped back.
-    (DTensor would flatten the sharded (batch, head) dims of each product
-    into strided shards and plan every one of them anew.)"""
+    independent per (row, head), so the chunking, the loop and the
+    unchunking run on local tensors, as XLA runs the reference's scan
+    body, and the outputs are wrapped back. (DTensor would flatten the
+    sharded (batch, head) dims of each product into strided shards and
+    plan every one of them anew; torch 2.11's pad rule fails on a 3-D
+    mesh.)"""
 
-    def __init__(self, mesh, pl):
+    def __init__(self, r):
         from torch.distributed.tensor import Replicate, Shard
-        self.mesh = mesh
-        # the chunks (nb, B, H, C, hd): sharded on the batch or the heads
-        self.chunks = [p if p in (Shard(1), Shard(2)) else Replicate()
-                       for p in pl]
+        self.mesh = r.device_mesh
+        # (B, S, H, hd) off the sequence: sharded on the batch or the heads
+        self.seq = [p if p in (Shard(0), Shard(2)) else Replicate()
+                    for p in _off_sequence(r)]
         # u (H, hd) and the state (B, H, hd, hd) on the same shards
         self.u = [Shard(0) if p == Shard(2) else Replicate()
-                  for p in self.chunks]
-        self.state = [Shard(p.dim - 1) if p.is_shard() else Replicate()
-                      for p in self.chunks]
+                  for p in self.seq]
+        self.state = [Shard(min(p.dim, 1)) if p.is_shard() else Replicate()
+                      for p in self.seq]
 
     def local(self, *ts):
-        """The chunk tensors, u and the state as local tensors."""
-        *chunks, u, state = ts
-        return ([t.redistribute(self.mesh, self.chunks).to_local()
-                 for t in chunks]
-                + [u.redistribute(self.mesh, self.u).to_local(),
-                   state.redistribute(self.mesh, self.state).to_local()])
+        """The (B, S, H, hd) tensors, u and the state as local tensors."""
+        *seq, u, state = ts
+        return ([local_shard(t, self.mesh, self.seq) for t in seq]
+                + [local_shard(u, self.mesh, self.u),
+                   local_shard(state, self.mesh, self.state)])
 
     def placed(self, o, state):
-        """The stacked outputs (nb, B, H, C, hd) and the state, wrapped."""
+        """The outputs (B, S, H, hd) and the state, wrapped."""
         from torch.distributed.tensor import DTensor
         out = []
-        for t, pl in ((o, self.chunks), (state, self.state)):
+        for t, pl in ((o, self.seq), (state, self.state)):
             shape = list(t.shape)
             for i, p in enumerate(pl):
                 if p.is_shard():
@@ -647,21 +692,21 @@ def rwkv_forward(x: torch.Tensor, p: dict, state: Optional[dict] = None,
     x_shift = torch.cat([x_prev0, x[:, :-1]], dim=1)
     r, k, v, log_w = _rwkv_projections(x, p, x_shift)
     u = p["u"].float()
+    S0 = x.new_zeros((B, H, hd, hd), dtype=torch.float32) \
+        if state is None else state["S"].float()
+    shards = None if _dtensor(r) is None else _ChunkShards(r)
+    if shards is not None:
+        r, k, v, log_w, u, S0 = shards.local(r, k, v, log_w, u, S0)
+    Bl, Hl = r.shape[0], r.shape[2]
     nb = cdiv(S, chunk)
     pad = nb * chunk - S
 
     def to_chunks(t):  # (B, S, H, hd) -> (nb, B, H, chunk, hd) fp32
-        t = F.pad(_off_sequence(t).float(), (0, 0, 0, 0, 0, pad))
-        return t.reshape(B, nb, chunk, H, hd).permute(1, 0, 3, 2, 4)
+        t = F.pad(t.float(), (0, 0, 0, 0, 0, pad))
+        return t.reshape(Bl, nb, chunk, Hl, hd).permute(1, 0, 3, 2, 4)
 
     rc, kc, vc, lwc = map(to_chunks, (r, k, v, log_w))
     Lc = torch.cumsum(lwc, dim=3)
-    S0 = x.new_zeros((B, H, hd, hd), dtype=torch.float32) \
-        if state is None else state["S"].float()
-    shards = None if _dtensor(rc) is None else \
-        _ChunkShards(rc.device_mesh, rc.placements)
-    if shards is not None:
-        rc, kc, vc, Lc, lwc, u, S0 = shards.local(rc, kc, vc, Lc, lwc, u, S0)
     outs = []
     for rb, kb, vb, Lb, lwb in zip(rc, kc, vc, Lc, lwc):     # (B, H, C, hd)
         Lq = Lb - lwb
@@ -674,9 +719,9 @@ def rwkv_forward(x: torch.Tensor, p: dict, state: Optional[dict] = None,
         S0 = torch.exp(last).transpose(2, 3) * S0 + kdec.transpose(2, 3) @ vb
         outs.append(o_intra + o_diag + o_inter)
     o = torch.stack(outs)
+    o = o.permute(1, 0, 3, 2, 4).reshape(Bl, nb * chunk, Hl, hd)[:, :S]
     if shards is not None:
         o, S0 = shards.placed(o, S0)
-    o = o.permute(1, 0, 3, 2, 4).reshape(B, nb * chunk, H, hd)[:, :S]
     y = o.reshape(B, S, H * hd).to(x.dtype) @ p["w_o"]
     return y, {"S": S0, "x_prev": x[:, -1]}
 
@@ -692,9 +737,25 @@ def rwkv_decode(x: torch.Tensor, p: dict, state: dict):
     u = p["u"].float()
     S = state["S"].float()
     kv = k[..., :, None] * v[..., None, :]                   # (B, H, hd, hd)
-    o = (r[..., None, :] @ (S + u[None, :, :, None] * kv))[..., 0, :]
+    o = _state_read(r, S + u[None, :, :, None] * kv)
     y = o.reshape(B, 1, H * hd).to(x.dtype) @ p["w_o"]
     return y, {"S": w[..., :, None] * S + kv, "x_prev": x[:, 0]}
+
+
+def _state_read(r: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
+    """r (B, H, hd) read through M (B, H, hd, hd): (r M) per (row, head).
+    DTensors (a pod mesh's decode) run on each rank's own (batch, head)
+    shard of M, r placed alike, and the result is wrapped back: DTensor
+    would flatten the sharded batch and head dims into one for the
+    batched product, which torch 2.11's view rule refuses."""
+    if _dtensor(M) is None:
+        return (r[..., None, :] @ M)[..., 0, :]
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = M.device_mesh
+    pl = [p if p in (Shard(0), Shard(1)) else Replicate()
+          for p in M.placements]
+    o = _state_read(local_shard(r, mesh, pl), local_shard(M, mesh, pl))
+    return DTensor.from_local(o, mesh, pl, run_check=False)
 
 
 def rwkv_init_state(batch: int, num_heads: int, head_dim: int, d: int,

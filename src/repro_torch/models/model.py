@@ -63,6 +63,7 @@ passes through all of this unchanged.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Optional
 
 import torch
@@ -110,14 +111,72 @@ def _embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     dry run's) looked up by batch-sharded tokens goes through
     ``aten.embedding``, whose DTensor rule looks up each rank's vocab
     shard and reduces the masked rows (the vocab-parallel lookup XLA
-    partitions the reference's gather into); DTensor's indexing gathers
-    the whole table first. Replicated tokens (a batch of one) keep the
-    indexing: torch 2.11's rule fails on them."""
-    tok = L._dtensor(tokens)
-    if L._dtensor(table) is None or tok is None or not any(
-            p.is_shard(0) for p in tok.placements):
+    partitions the reference's gather into); replicated tokens (a batch
+    of one) take ``_VocabLookup``, the same lookup written out, since
+    torch 2.11's rule fails on them and DTensor's indexing gathers the
+    whole table."""
+    if L._dtensor(table) is None:
         return table[tokens]
-    return F.embedding(tokens, table)
+    tok = L._dtensor(tokens)
+    if tok is not None and any(p.is_shard() for p in tok.placements):
+        return F.embedding(tokens, table)
+    if tok is not None:
+        tokens = tok.to_local()
+    return _VocabLookup.apply(table, tokens)
+
+
+class _VocabLookup(torch.autograd.Function):
+    """table[tokens] of a DTensor table (V, D) by tokens whole on every
+    rank: each rank looks the ids up in its own shard of the table
+    (``to_local``), zeroes the rows of ids outside its vocab range, and
+    the rows are summed over the mesh dims that shard the vocabulary:
+    reduce-scattered along D where the table keeps D whole and D splits,
+    else all-reduced (the looked-up rows move, not the table). A table
+    sharded along D keeps its shard of D in the rows. The backward adds
+    each rank's cotangent rows into its own vocab shard."""
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+        from torch.distributed.tensor import Shard
+
+        from repro_torch.launch.steps import local_shape_and_offset
+        mesh, pl = table.device_mesh, table.placements
+        local = table.to_local()
+        _, off = local_shape_and_offset(table.shape, mesh, pl)
+        idx = tokens - off[0]
+        miss = (idx < 0) | (idx >= local.shape[0])
+        idx = idx.clamp(0, local.shape[0] - 1)
+        rows = local[idx].masked_fill(miss[..., None], 0)
+        nd = rows.ndim
+        summed = [Partial() if p == Shard(0) else
+                  Shard(nd - 1) if p == Shard(1) else Replicate() for p in pl]
+        d_whole = Shard(1) not in pl
+        out_pl = [(Shard(nd - 1) if d_whole and table.shape[1]
+                   % mesh.size(i) == 0 else Replicate()) if p == Shard(0)
+                  else q for i, (p, q) in enumerate(zip(pl, summed))]
+        shape = (*tokens.shape, table.shape[1])
+        out = DTensor.from_local(
+            rows, mesh, summed, run_check=False, shape=torch.Size(shape),
+            stride=tuple(math.prod(shape[d + 1:]) for d in range(nd)))
+        ctx.save_for_backward(idx, miss)
+        ctx.table = (mesh, pl, table.shape, table.stride(), local.shape)
+        # the cotangent rows whole over the vocab's dims, each rank's D
+        ctx.rows_pl = [Replicate() if p == Shard(0) else q
+                       for p, q in zip(pl, summed)]
+        return out.redistribute(mesh, out_pl)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor
+        idx, miss = ctx.saved_tensors
+        mesh, pl, shape, stride, local_shape = ctx.table
+        g = g.redistribute(mesh, ctx.rows_pl).to_local()
+        g = g.masked_fill(miss[..., None], 0)
+        grad = g.new_zeros(local_shape).index_add_(
+            0, idx.reshape(-1), g.reshape(-1, g.shape[-1]))
+        return DTensor.from_local(grad, mesh, pl, run_check=False,
+                                  shape=shape, stride=stride), None
 
 
 def _layer_params(tree):
@@ -326,7 +385,7 @@ def _self_attn(x, p, cfg: ArchConfig, positions, *, window=None,
     q = L.rope(q, positions, cfg.rope_theta)
     k = L.rope(k, positions, cfg.rope_theta)
     o = L.attend(attention, q, k, v, lay, causal=causal, window=window)
-    return x + o.reshape(B, S, -1) @ a["wo"], k, v
+    return x + L.merge_heads(o) @ a["wo"], k, v
 
 
 def _cross_attn(x, p, cfg: ArchConfig, enc_out, gated: bool):
@@ -352,7 +411,7 @@ def _cross_attn(x, p, cfg: ArchConfig, enc_out, gated: bool):
     kpos = torch.zeros((B, Te), dtype=torch.int32, device=x.device)
     o = L.attend(L.chunked_attention, q, k, v, lay, q_positions=qpos,
                  kv_positions=kpos, causal=False)
-    o = o.reshape(B, S, -1) @ a["wo"]
+    o = L.merge_heads(o) @ a["wo"]
     if gated:
         o = torch.tanh(a["gate"]).to(o.dtype) * o
     return x + o
@@ -762,7 +821,7 @@ def prefill_with_cache(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
         elif kind == "rglru":
             x, h, h_last = _recurrent(kind, x, p)
             W = p["rec"]["conv_w"].shape[0]
-            xin = F.pad(h @ p["rec"]["w_x"], (0, 0, W - 1, 0))
+            xin = L.pad_front(h @ p["rec"]["w_x"], W - 1)
             c["h"].copy_(h_last)
             c["conv"].copy_(xin[:, -(W - 1):])
         else:

@@ -157,6 +157,16 @@ def placements(spec: P, mesh) -> list:
     return out
 
 
+def local_shard(t, mesh, pl):
+    """This rank's shard of tensor ``t`` placed by ``pl`` on ``mesh``: a
+    DTensor redistributed there, a plain tensor taken as replicated."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(t, DTensor):
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    return t.redistribute(mesh, pl).to_local()
+
+
 def param_shardings(params: PyTree, mesh) -> PyTree:
     """``param_specs`` as placements, one list per parameter leaf."""
     specs = [_leaf_spec(n.split("/")[-1], l.shape, mesh_shape(mesh),

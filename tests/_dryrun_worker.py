@@ -6,8 +6,11 @@ own):
 
 On a world of 4 ranks, the (2, 2) ('data', 'model') mesh: qwen3's smoke
 config (d 64, one layer) at small train, prefill and decode shapes and
-the long-context shape's skip, and the MoE smoke config's prefill at
-``MOE_SHAPE``. On a world of 8 ranks: qwen3 at ``WIDE`` (d 256, two
+the long-context shape's skip, the MoE smoke config's prefill at
+``MOE_SHAPE``, and at ``LOOKUP`` (a vocabulary of 96, which no other
+dim of the model has) a decode step of a batch of one, whose token is
+replicated, with every collective's output shape recorded
+(``collectives``). On a world of 8 ranks: qwen3 at ``WIDE`` (d 256, two
 layers, where matrix products dominate the count; 2 KV heads, which do
 not split 4 ways) on the (2, 4) ('data', 'model') mesh at
 ``WIDE_SHAPES``, its train step also on one device (no mesh), with the
@@ -15,8 +18,7 @@ placement of the residual stream at the entry of every attending layer
 recorded (``anchors``); and the RWKV smoke config's train step at
 ``RWKV_SHAPE`` on the (2, 2, 2) ('pod', 'data', 'model') mesh. Writes
 each combination's info (or 'skip', or {'status': 'fail', 'error'}) as
-JSON, with a ``status``: 'ok', or 'resharded' where the dry run's
-fallbacks placed an op."""
+JSON, with a ``status``: 'ok'."""
 from __future__ import annotations
 
 import dataclasses
@@ -53,6 +55,11 @@ MOE_SHAPE = InputShape("prefill", seq_len=1024, global_batch=2,
 # one batch row per (pod, data) rank, eight chunks of 64
 RWKV_SHAPE = InputShape("train", seq_len=512, global_batch=4, kind="train")
 SAMPLER = SamplerConfig(method="fsgld", num_shards=16)
+# a batch of one: its tokens replicated, the embedding looked up by
+# ``model._VocabLookup``
+LOOKUP = dict(CFG, vocab_size=96)
+LOOKUP_SHAPE = InputShape("decode", seq_len=32, global_batch=1,
+                          kind="decode")
 
 
 def _trace(arch, shape, mesh, cfg):
@@ -62,7 +69,7 @@ def _trace(arch, shape, mesh, cfg):
         return {"status": "fail", "op": dryrun._failed_op(e),
                 "error": f"{type(e).__name__}: {str(e)[:500]}"}
     if isinstance(info, dict):
-        info["status"] = "resharded" if info["fallback_ops"] else "ok"
+        info["status"] = "ok"
     return info
 
 
@@ -82,6 +89,25 @@ def _recording_anchors(fn):
         return fn(), seen
     finally:
         M._attending = attending
+
+
+def _recording_collectives(fn):
+    """``fn()`` with every collective the op counter sees recorded:
+    [[op name, output shape], ...]."""
+    from repro_torch.roofline import hlo_analysis as H
+    seen = []
+    count = H.OpCounter._count
+
+    def record(self, func, args, kwargs, out):
+        name = func.overloadpacket.__name__
+        if func.namespace == "_c10d_functional" and name in H._COLLECTIVES:
+            seen.append([name, list(getattr(out, "shape", ()))])
+        return count(self, func, args, kwargs, out)
+    H.OpCounter._count = record
+    try:
+        return fn(), seen
+    finally:
+        H.OpCounter._count = count
 
 
 def world_of_8(out: dict) -> None:
@@ -106,6 +132,9 @@ def world_of_4(out: dict) -> None:
                                      cfg=cfg)
     out["moe_prefill"] = _trace("phi3.5-moe-42b-a6.6b", MOE_SHAPE, mesh,
                                 get_smoke_config("phi3.5-moe-42b-a6.6b"))
+    lookup = dataclasses.replace(get_smoke_config("qwen3-1.7b"), **LOOKUP)
+    out["lookup_decode"], out["collectives"] = _recording_collectives(
+        lambda: _trace("qwen3-1.7b", LOOKUP_SHAPE, mesh, lookup))
 
 
 def main() -> int:

@@ -7,20 +7,23 @@ local-SGLD fits and FSGLD rounds run at the train driver's defaults
 from 20 fit steps stored in bf16, C = 1 chain, 5 rounds x 4 steps,
 ``reassign='permutation'``, the plain 'vmap' executor) from the same
 theta0 (the reference's, converted) and shards (the port's, converted).
-Only the transformer layers and the final norm are sampled; the
-embedding and the head (2 x 311M parameters) stay at theta0, so that the
-reference's fit, which keeps every step of its trace, fits in host
-memory (one client at a time).
+By default the embedding and the head (2 x 311M parameters) stay at
+theta0 and the rest is sampled; ``--sample-all`` samples every leaf, as
+the train driver does. The reference's fit runs through
+``tests/_ref_streamed_fit.py`` (its local-SGLD steps one at a time with
+running moments, one client at a time), the port's through
+``repro_torch.api.fit_bank_local_sgld``, which streams by itself.
 
 Prints per leaf the fitted precision of each client in both packages and
-h * precision; per client the RMS of the first step's conducive move
-(h/2) [lam_g (mu_g - theta0) - (lam_s / f_s) (mu_s - theta0)] against
-the RMS of theta0 and of the step's noise sqrt(h); and ll/token at
-theta0 and after sampling in both packages. The last line is one JSON
-object of these numbers.
+h * precision; per leaf group (embed, head, rest) and client the RMS of
+the first step's conducive move (h/2) [lam_g (mu_g - theta0) - (lam_s /
+f_s) (mu_s - theta0)] and of mu_s - theta0 as stored in the bf16 bank,
+beside the RMS of theta0 and of the step's noise sqrt(h); ll/token at
+theta0 and after sampling in both packages; the peak resident memory and
+the wall time. The last line is one JSON object of these numbers.
 
     PYTHONPATH=src python tests/_fsgld_witness.py [--layers 1]
-                                                  [--step-size 1e-5]
+        [--step-size 1e-5] [--seed 0] [--sample-all]
 """
 from __future__ import annotations
 
@@ -28,6 +31,9 @@ import argparse
 import dataclasses
 import json
 import math
+import os
+import resource
+import sys
 import time
 
 import jax
@@ -35,24 +41,27 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-import repro.api as japi
-import repro.models.model as JM
-from repro.configs import get_config as jax_config
-from repro.core import surrogate as jsur
-from repro_torch import api as tapi
-from repro_torch import tree as tu
-from repro_torch.configs import get_config as torch_config
-from repro_torch.convert import params_from_jax, tree_from_numpy
-from repro_torch.data import token_shards
-from repro_torch.models import model as TM
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+import repro.api as japi  # noqa: E402
+import repro.models.model as JM  # noqa: E402
+from repro.configs import get_config as jax_config  # noqa: E402
+from repro.core import surrogate as jsur  # noqa: E402
+from repro_torch import api as tapi  # noqa: E402
+from repro_torch import tree as tu  # noqa: E402
+from repro_torch.configs import get_config as torch_config  # noqa: E402
+from repro_torch.convert import params_from_jax, tree_from_numpy  # noqa: E402
+from repro_torch.data import token_shards  # noqa: E402
+from repro_torch.models import model as TM  # noqa: E402
+from _ref_streamed_fit import streamed_scalar_fit  # noqa: E402
 
 S, SHARD, SEQ, BATCH, FIT_STEPS, ROUNDS, STEPS = 4, 64, 128, 8, 20, 5, 4
-FIXED = ("embed", "head")
+GROUPS = ("embed", "head", "rest")
 
 
-def _split(tree):
-    return ({k: v for k, v in tree.items() if k not in FIXED},
-            {k: v for k, v in tree.items() if k in FIXED})
+def _split(tree, fixed):
+    return ({k: v for k, v in tree.items() if k not in fixed},
+            {k: v for k, v in tree.items() if k in fixed})
 
 
 def _leaf_names(tree):
@@ -60,24 +69,38 @@ def _leaf_names(tree):
     return ["/".join(str(getattr(k, "key", k)) for k in p) for p, _ in paths]
 
 
-def jax_side(cfg, params, shards, h, seed):
-    sub0, fixed = _split(params)
+def _group(name):
+    top = name.split("/")[0]
+    return top if top in ("embed", "head") else "rest"
+
+
+def jax_side(cfg, params, shards, h, seed, fixed_names):
+    sub0, fixed = _split(params, fixed_names)
     ll = lambda p, b: JM.log_lik_fn({**fixed, **p}, cfg, b)  # noqa: E731
     probe = jax.tree.map(lambda d: d[0][:BATCH], shards)
     ll0 = float(ll(sub0, probe)) / probe["tokens"].size
     t0 = time.perf_counter()
-    fits = []
+    means = jax.tree.map(
+        lambda t: np.empty((S,) + t.shape, np.float32), sub0)
+    precs = jax.tree.map(lambda t: np.empty((S,), np.float32), sub0)
+    # the keys fit_bank_local_sgld hands its clients: split(key, S), and
+    # each call here holds one client, so split(k, 1)[0]
     for s, k in enumerate(jax.random.split(jax.random.PRNGKey(seed), S)):
-        b = japi.fit_bank_local_sgld(
-            ll, jax.tree.map(lambda d: d[s:s + 1], shards), sub0, k,
-            fit_steps=FIT_STEPS, minibatch=BATCH, step_size=h, kind="scalar")
-        fits.append(jax.tree.map(np.asarray, (b.means, b.precs)))
+        mu, lam = streamed_scalar_fit(
+            ll, jax.tree.map(lambda d: d[s], shards), sub0,
+            jax.random.split(k, 1)[0], fit_steps=FIT_STEPS,
+            minibatch=BATCH, step_size=h)
+        for dst, m in zip(jax.tree.leaves(means), jax.tree.leaves(mu)):
+            dst[s] = m
+        for dst, m in zip(jax.tree.leaves(precs), jax.tree.leaves(lam)):
+            dst[s] = m
+        del mu
         print(f"  jax: client {s} fitted, {time.perf_counter() - t0:.0f} s",
               flush=True)
-    cat = lambda *xs: np.concatenate(xs)  # noqa: E731
-    bank = jsur.make_bank(
-        jax.tree.map(cat, *[f[0] for f in fits]),
-        jax.tree.map(cat, *[f[1] for f in fits]), "scalar")
+    # the global product in fp32 before the bf16 cast, as FSGLD's
+    # Execution(dtype=bfloat16) casts the bank (a no-op cast then)
+    bank = jsur.make_bank(means, precs, "scalar", store_dtype=jnp.bfloat16)
+    del means
     s = japi.FSGLD(
         japi.Posterior(ll, prior_precision=1.0), shards, minibatch=BATCH,
         step_size=h, surrogate=japi.SurrogateSpec(kind="scalar", bank=bank),
@@ -88,13 +111,16 @@ def jax_side(cfg, params, shards, h, seed):
     finals = s.sample(jax.random.PRNGKey(seed + 1), sub0)
     ll1 = float(ll(jax.tree.map(lambda t: t[0], finals), probe)) \
         / probe["tokens"].size
+    del finals, s
     print(f"  jax: fit and {ROUNDS} x {STEPS} steps, "
           f"{time.perf_counter() - t0:.0f} s", flush=True)
-    return jax.tree.map(np.asarray, bank), ll0, ll1
+    bank = jax.tree.map(np.asarray, bank)
+    return (bank.means, bank.precs, bank.global_.mean,
+            bank.global_.prec), ll0, ll1
 
 
-def torch_side(cfg, params, shards, h, seed):
-    sub0, fixed = _split(params)
+def torch_side(cfg, params, shards, h, seed, fixed_names):
+    sub0, fixed = _split(params, fixed_names)
     ll = lambda p, b: TM.log_lik_fn({**fixed, **p}, cfg, b)  # noqa: E731
     probe = tu.tree_map(lambda d: d[0][:BATCH], shards)
     n_tok = probe["tokens"].numel()
@@ -115,38 +141,57 @@ def torch_side(cfg, params, shards, h, seed):
     finals = s.sample(torch.Generator().manual_seed(seed + 1), sub0)
     with torch.no_grad():
         ll1 = float(ll(tu.tree_map(lambda t: t[0], finals), probe)) / n_tok
+    del finals, s
     print(f"  torch: fit and {ROUNDS} x {STEPS} steps, "
           f"{time.perf_counter() - t0:.0f} s", flush=True)
-    f32 = lambda t: t.float().numpy()  # noqa: E731
-    return (tu.tree_map(f32, bank.means), tu.tree_map(f32, bank.precs),
-            tu.tree_map(f32, bank.global_.mean),
-            tu.tree_map(f32, bank.global_.prec)), ll0, ll1
+    # bank.means are views of one packed stack: keep them as they are
+    # stored (bf16), read in fp32 leaf by leaf below
+    npy = lambda t: t.float().numpy() if t.ndim <= 1 else t  # noqa: E731
+    return (bank.means, tu.tree_map(npy, bank.precs), bank.global_.mean,
+            tu.tree_map(npy, bank.global_.prec)), ll0, ll1
 
 
-def conducive_rms(means, precs, mean_g, prec_g, theta0, h):
-    """Per client s: RMS over the sampled leaves of the first step's
-    conducive move with f_s = 1/S (the permutation's visiting rate)."""
-    out = []
-    for s in range(S):
-        sq, n = 0.0, 0
-        for mu, lam, mg, lg, th in zip(*(jax.tree.leaves(x) for x in (
-                means, precs, mean_g, prec_g, theta0))):
-            th = np.asarray(th, np.float32)
-            mv = (h / 2) * (lg * (mg.astype(np.float32) - th)
-                            - S * lam[s] * (mu[s].astype(np.float32) - th))
-            sq += float(np.sum(mv.astype(np.float64) ** 2))
-            n += mv.size
-        out.append(math.sqrt(sq / n))
-    return out
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x).astype(np.float32)
+
+
+def group_rms(means, precs, mean_g, prec_g, theta0, names, h):
+    """Per leaf group and client s: the RMS of the first step's conducive
+    move with f_s = 1/S (the permutation's visiting rate), and the RMS of
+    mu_s - theta0 as the bank stores mu_s."""
+    groups = sorted({_group(n) for n in names}, key=GROUPS.index)
+    sq = {g: np.zeros((2, S)) for g in groups}
+    n = dict.fromkeys(groups, 0)
+    for name, mu, lam, mg, lg, th in zip(names, *(
+            jax.tree.leaves(x) for x in (means, precs, mean_g, prec_g,
+                                         theta0))):
+        g = _group(name)
+        th = np.asarray(th, np.float32)
+        pull_g = float(lg) * (_f32(mg) - th)
+        n[g] += th.size
+        for s in range(S):
+            dev = _f32(mu[s]) - th
+            mv = (h / 2) * (pull_g - S * float(lam[s]) * dev)
+            sq[g][0, s] += float(np.sum(np.square(mv, dtype=np.float64)))
+            sq[g][1, s] += float(np.sum(np.square(dev, dtype=np.float64)))
+            del dev, mv
+    return ({g: [math.sqrt(x / n[g]) for x in sq[g][0]] for g in groups},
+            {g: [math.sqrt(x / n[g]) for x in sq[g][1]] for g in groups})
 
 
 def main() -> None:
+    wall = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=1)
     ap.add_argument("--step-size", type=float, default=1e-5)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--sample-all", action="store_true",
+                    help="sample the embedding and the head too")
     args = ap.parse_args()
     h = args.step_size
+    fixed_names = () if args.sample_all else ("embed", "head")
     jcfg = dataclasses.replace(jax_config("qwen3-1.7b"),
                                num_layers=args.layers)
     tcfg = dataclasses.replace(torch_config("qwen3-1.7b"),
@@ -160,40 +205,52 @@ def main() -> None:
             shard_size=SHARD, seq_len=SEQ, vocab_size=jcfg.vocab_size))
     shards = jax.tree.map(jnp.asarray, np_shards)
     np_params = jax.tree.map(np.asarray, params)
-    sub0 = _split(np_params)[0]
+    sub0 = _split(np_params, fixed_names)[0]
     names = _leaf_names(sub0)
     P = sum(x.size for x in jax.tree.leaves(sub0))
-    print(f"qwen3-1.7b at full width, {args.layers} layer(s); sampled "
+    print(f"{jcfg.name} at full width, {args.layers} layer(s); sampled "
           f"{len(names)} leaves, {P} parameters; h {h:g}", flush=True)
 
-    jbank, jll0, jll1 = jax_side(jcfg, params, shards, h, args.seed + 2)
+    jb, jll0, jll1 = jax_side(jcfg, params, shards, h, args.seed + 2,
+                              fixed_names)
     del params, shards
-    jb = (jbank.means, jbank.precs, jbank.global_.mean, jbank.global_.prec)
     tb, tll0, tll1 = torch_side(
         tcfg, params_from_jax(np_params, tcfg), tree_from_numpy(np_shards),
-        h, args.seed + 2)
+        h, args.seed + 2, fixed_names)
 
     rms0 = math.sqrt(sum(float(np.sum(np.square(x, dtype=np.float64)))
                          for x in jax.tree.leaves(sub0)) / P)
     rows = {}
     for name, jl, tl in zip(names, jax.tree.leaves(jb[1]),
                             jax.tree.leaves(tb[1])):
-        rows[name] = {"jax": [float(x) for x in jl],
-                      "torch": [float(x) for x in tl],
-                      "h_lam": [h * float(x) for x in jl]}
+        jl, tl = np.asarray(jl, np.float64), np.asarray(tl, np.float64)
+        rows[name] = {"jax": jl.tolist(), "torch": tl.tolist(),
+                      "h_lam": {"jax": (h * jl).tolist(),
+                                "torch": (h * tl).tolist()}}
         print(f"  {name}: precision per client jax {np.round(jl, 1)} torch "
-              f"{np.round(tl, 1)}; h*precision {np.round(h * jl, 3)}")
-    jmv = conducive_rms(*jb, sub0, h)
-    tmv = conducive_rms(*tb, sub0, h)
-    print(f"  first step's conducive move, RMS per client: jax "
-          f"{np.round(jmv, 5)} torch {np.round(tmv, 5)}; RMS of theta0 "
-          f"{rms0:.5f}, of the step's noise {math.sqrt(h):.5f}")
+              f"{np.round(tl, 1)}; h*precision jax {np.round(h * jl, 3)} "
+              f"torch {np.round(h * tl, 3)}")
+    jmv, jdev = group_rms(*jb, sub0, names, h)
+    tmv, tdev = group_rms(*tb, sub0, names, h)
+    for g in jmv:
+        print(f"  {g}: first step's conducive move, RMS per client: jax "
+              f"{np.round(jmv[g], 6)} torch {np.round(tmv[g], 6)}; RMS of "
+              f"mu_s - theta0 (bf16 bank) jax {np.round(jdev[g], 6)} torch "
+              f"{np.round(tdev[g], 6)}")
+    print(f"  RMS of theta0 {rms0:.5f}, of the step's noise "
+          f"{math.sqrt(h):.5f}")
     print(f"  ll/token: jax {jll0:.4f} -> {jll1:.4f}; torch {tll0:.4f} -> "
           f"{tll1:.4f}")
-    print(json.dumps({"layers": args.layers, "h": h, "precisions": rows,
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    seconds = time.perf_counter() - wall
+    print(f"  peak resident memory {peak:.2f} GiB, wall {seconds:.0f} s")
+    print(json.dumps({"layers": args.layers, "h": h, "seed": args.seed,
+                      "sample_all": args.sample_all, "precisions": rows,
                       "conducive_rms": {"jax": jmv, "torch": tmv},
+                      "mu_dev_rms": {"jax": jdev, "torch": tdev},
                       "theta0_rms": rms0,
-                      "ll": {"jax": [jll0, jll1], "torch": [tll0, tll1]}}))
+                      "ll": {"jax": [jll0, jll1], "torch": [tll0, tll1]},
+                      "peak_rss_gib": peak, "seconds": seconds}))
 
 
 if __name__ == "__main__":

@@ -15,7 +15,12 @@ a bound. Cases:
          resume; Serving(mesh=) at K = 4 (the draws on 'data')
   model  (1, 2): the same six engine runs; refresh_bank_mesh over
          model = 2; a run with refresh_every; Serving(mesh=) at K = 4
-         (replicated)
+         (replicated); the embedding's vocab-parallel lookup of
+         replicated tokens (``models.model._embed`` of a table whose
+         vocab is sharded over 'model') against ``table[tokens]``, its
+         value and its gradient; the attention scan, decode attention
+         and RWKV decode's state read on local head shards against the
+         plain tensors
   train  launch/train.py --multi-pod --smoke on a (2, 1, 1) mesh
          against the driver's run without torchrun's environment
   health (2, 1): recovery and telemetry across the data ranks: a NaN'd
@@ -200,6 +205,78 @@ def case_model(mesh):
 
     check("Serving(mesh=) K=4 over a data axis of 1",
           lambda: serving(mesh, 4, 4))
+
+    for d_on_data in (False, True):
+        check(f"vocab-parallel lookup, D on data: {d_on_data}",
+              lambda d_on_data=d_on_data: vocab_lookup(mesh, d_on_data))
+    check("attention on local shards", lambda: local_shards(mesh))
+
+
+def local_shards(mesh):
+    """What the model runs on each rank's own (batch, head) shards of
+    DTensors (the pod meshes' layout): the plain attention scan with its
+    flash backward (heads over 'model'), decode attention over a cache
+    whose slots are whole, and RWKV decode's state read: each equal to
+    the plain tensors' result, values and gradients, bitwise."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layers as TL
+    g = torch.Generator().manual_seed(6)
+    B, S, H, hd = 2, 12, 4, 8
+    q, k, v, do = (torch.randn(B, S, H, hd, generator=g) for _ in range(4))
+    pos = torch.arange(S).expand(B, S)
+    heads = [Replicate(), Shard(2)]
+    plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want = fa.scan_attention(*plain, pos, pos, block_k=4)
+    want.backward(do)
+    dts = [distribute_tensor(t, mesh, heads).requires_grad_(True)
+           for t in (q, k, v)]
+    got = fa.scan_attention(*dts, pos, pos, block_k=4)
+    got.backward(distribute_tensor(do, mesh, heads))
+    assert got.placements == tuple(heads)
+    assert torch.equal(got.full_tensor(), want.detach())
+    for a, b in zip(dts, plain):
+        assert torch.equal(a.grad.full_tensor(), b.grad)
+    kc, vc = (torch.randn(B, S, H, hd, generator=g) for _ in range(2))
+    q1 = torch.randn(B, 1, H, hd, generator=g)
+    kv_pos = torch.arange(S).expand(B, S)
+    qp = torch.tensor([S - 1, S // 2])
+    want = TL.decode_attention(q1, kc, vc, kv_pos, qp)
+    got = TL.decode_attention(*(distribute_tensor(t, mesh, heads)
+                                for t in (q1, kc, vc)), kv_pos, qp)
+    assert torch.equal(got.full_tensor(), want)
+    r = torch.randn(B, H, hd, generator=g)
+    M = torch.randn(B, H, hd, hd, generator=g)
+    on = [Replicate(), Shard(1)]
+    got = TL._state_read(distribute_tensor(r, mesh, on),
+                         distribute_tensor(M, mesh, on))
+    assert torch.equal(got.full_tensor(), TL._state_read(r, M))
+    return "scan, decode attention and the state read on 'model' shards"
+
+
+def vocab_lookup(mesh, d_on_data):
+    """The table (V, D) sharded by vocabulary over 'model' (and along D
+    over 'data', as the train layout shards it), looked up by replicated
+    tokens that fall in both vocab shards, some twice: the rows equal
+    table[tokens] and the table's gradient the plain one, bitwise."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.models import model as TM
+    g = torch.Generator().manual_seed(5)
+    table = torch.randn(12, 8, generator=g)
+    tokens = torch.tensor([[0, 11, 5, 6], [6, 3, 11, 9]])
+    w = torch.randn(2, 4, 8, generator=g)
+    plain = table.clone().requires_grad_(True)
+    want = plain[tokens]
+    (want * w).sum().backward()
+    dt = distribute_tensor(table, mesh, [Shard(1) if d_on_data
+                                         else Replicate(), Shard(0)])
+    dt.requires_grad_(True)
+    got = TM._embed(dt, tokens)
+    (got.full_tensor() * w).sum().backward()
+    assert torch.equal(got.full_tensor(), want.detach())
+    assert dt.grad.placements == dt.placements
+    assert torch.equal(dt.grad.full_tensor(), plain.grad)
+    return f"rows {tuple(got.shape)} placed {got.placements}"
 
 
 def case_health(mesh):

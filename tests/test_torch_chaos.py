@@ -37,6 +37,7 @@ from repro_torch.core.surrogate import (analytic_gaussian_likelihood_surrogate,
                                         make_bank)
 from repro_torch.fed import CommSchedule, Compression, Federation
 from repro_torch.testing import ChaosSpec
+import _torch_threads  # noqa: F401  (the cores each xdist worker uses)
 
 S, N, D = 4, 12, 3
 EXECUTORS = {"vmap": dict(use_kernel=False),

@@ -34,6 +34,7 @@ from repro_torch.models import init_params
 from repro_torch.serve import EnsembleServer
 from repro_torch.serve.server import skeleton
 from repro_torch.testing import corrupt_draw, flaky_io, truncate_file
+import _torch_threads  # noqa: F401  (the cores each xdist worker uses)
 
 ARCH = "h2o-danube-1.8b"
 

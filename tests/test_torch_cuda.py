@@ -19,6 +19,7 @@ from repro_torch import tree as tu
 from repro_torch.kernels import fsgld_update as fk
 from repro_torch.kernels import ops as kops
 from repro_torch.workloads import mlp_log_lik, mlp_problem
+import _torch_threads  # noqa: F401  (the cores each xdist worker uses)
 
 pytestmark = pytest.mark.cuda
 

@@ -54,6 +54,7 @@ from repro_torch.kernels.ops import fused_update_flat
 from repro_torch.launch.steps import shard_runs, update_shard
 from repro_torch.roofline import report as treport
 from repro_torch.roofline.hlo_analysis import OpCounter, analyze
+import _torch_threads  # noqa: F401  (the cores each xdist worker uses)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -280,6 +281,26 @@ def test_the_sharded_step_counts_the_references_flops(world_of_8_run,
     got = world_of_8_run["wide_train"]["static_flops"]
     assert abs(got - ref["static_flops"]) / ref["static_flops"] < 0.10, \
         (got, ref["static_flops"])
+
+
+def test_a_replicated_token_looks_up_its_vocab_shard(fake_world_run):
+    """A decode step of a batch of one (its token replicated) on the
+    (2, 2) world: the embedding is looked up on each rank's vocab shard
+    and the rows reduced over 'model' (``model._VocabLookup``): no
+    all-gather brings the whole vocabulary (96 rows, a size no other dim
+    of the model has) to a rank. (Its values and gradient:
+    ``test_torch_mesh.py``, on two gloo ranks.)"""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import _dryrun_worker as w
+    info = fake_world_run["lookup_decode"]
+    assert info["status"] == "ok", info
+    seen = fake_world_run["collectives"]
+    vocab = w.LOOKUP["vocab_size"]
+    whole = [s for name, s in seen
+             if name == "all_gather_into_tensor" and vocab in s]
+    assert not whole, whole
+    assert any(name in ("all_reduce", "reduce_scatter_tensor")
+               for name, _ in seen)
 
 
 @pytest.mark.parametrize("case", ["moe_prefill", "rwkv_train"])

@@ -36,6 +36,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.workloads import (TABLE1_OFFS, TABLE1_P, TABLE1_SIZES,
                                    avg_loglik, mlp_log_lik, mlp_problem,
                                    table1_log_lik)
+import _torch_threads  # noqa: F401  (the cores each xdist worker uses)
 
 CPU = api.Execution(device="cpu")
 

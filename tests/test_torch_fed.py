@@ -41,6 +41,7 @@ from repro_torch.fed import (SCENARIOS, CommSchedule, Compression,
                              scenario_names)
 from repro_torch.fed import schedule as fsched
 from repro_torch.workloads import mlp_log_lik, mlp_problem
+import _torch_threads  # noqa: F401  (the cores each xdist worker uses)
 
 CPU = api.Execution(device="cpu")
 ENGINE_SCENARIOS = [n for n in scenario_names()

@@ -23,6 +23,7 @@ from repro.kernels.flash_attention import flash_attention as pallas_flash
 from repro.models import layers as JL
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.models import layers as TL
+import _torch_threads  # noqa: F401  (the cores each xdist worker uses)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}

@@ -23,6 +23,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import fsgld_update as tk
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+import _torch_threads  # noqa: F401  (the cores each xdist worker uses)
 
 CELLS = [(v, d) for v in ("plain", "scalar", "diag")
          for d in ("langevin", "sghmc")]

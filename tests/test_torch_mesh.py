@@ -10,7 +10,11 @@ holds its mesh run against the same run without a mesh, bitwise:
   ``Serving(mesh=)`` at K = 4 with its draws on 'data';
 * (1, 2): the six engine runs, ``refresh_bank_mesh`` with the clients
   over 'model', a run with ``refresh_every``, ``Serving(mesh=)``
-  replicated;
+  replicated, the embedding's vocab-parallel lookup of replicated tokens
+  against ``table[tokens]`` in value and gradient, and what the model
+  runs on local (batch, head) shards (the attention scan and its
+  backward, decode attention, RWKV decode's state read) against the
+  plain tensors';
 * ``launch/train.py --multi-pod --smoke`` on a (2, 1, 1) mesh against
   the driver's one-device run;
 * (2, 1) again: recovery (a respawn whose donor is on the other rank, a
@@ -47,6 +51,7 @@ from repro_torch.core.engine import ChainBlock
 from repro_torch.launch import mesh as lmesh
 from repro_torch.models import model as TM
 from repro_torch.sharding import rules as trules
+import _torch_threads  # noqa: F401  (the cores each xdist worker uses)
 
 ROOT = Path(__file__).resolve().parents[1]
 WORKER = ROOT / "tests" / "_mesh_worker.py"
@@ -109,7 +114,10 @@ def test_the_refresh_over_the_model_axis_equals_one_device(tmp_path):
     _assert_all_ok(_ranks("model", tmp_path), ENGINE + [
         "refresh_bank_mesh over model=2",
         "engine run with refresh_every=2",
-        "Serving(mesh=) K=4 over a data axis of 1"])
+        "Serving(mesh=) K=4 over a data axis of 1",
+        "vocab-parallel lookup, D on data: False",
+        "vocab-parallel lookup, D on data: True",
+        "attention on local shards"])
 
 
 def test_recovery_and_telemetry_across_data_ranks_equal_one_device(

@@ -55,6 +55,7 @@ from repro_torch.convert import params_from_jax
 from repro_torch.data import make_batch, token_shards
 from repro_torch.launch import train as ttrain
 from repro_torch.models import layers as TL
+import _torch_threads  # noqa: F401  (the cores each xdist worker uses)
 
 TOL = 1e-5
 

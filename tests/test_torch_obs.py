@@ -19,6 +19,7 @@ import pytest
 from repro import obs as jobs
 from repro_torch import obs as tobs
 from repro_torch.launch import serve as serve_cli
+import _torch_threads  # noqa: F401  (the cores each xdist worker uses)
 
 
 def _rows(rounds=6, chains=3, seed=0, probe=True):

@@ -16,6 +16,7 @@ from repro.kernels import ops as jops
 from repro_torch import tree as tu
 from repro_torch.core.surrogate import make_bank
 from repro_torch.kernels import ops as tops
+import _torch_threads  # noqa: F401  (the cores each xdist worker uses)
 
 TREE = {"w1": np.zeros((9, 33), np.float32), "b1": np.zeros(33, np.float32),
         "blk": {"w2": np.zeros((33, 5), np.float32),

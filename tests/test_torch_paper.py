@@ -52,6 +52,7 @@ from repro_torch.core.sghmc import SGHMCConfig
 from repro_torch.data import (LINREG_SPECS, linreg_datasets, metric_pairs,
                               metric_test_pairs, split_shards)
 from repro_torch.eval import calibration as tcal
+import _torch_threads  # noqa: F401  (the cores each xdist worker uses)
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from benchmarks import fig5_metric_learning as jfig5  # noqa: E402

@@ -8,6 +8,7 @@ import torch
 
 from repro.data import pipeline as jp
 from repro_torch.data import pipeline as tp
+import _torch_threads  # noqa: F401  (the cores each xdist worker uses)
 
 
 def test_client_dataset_epochs_cover_all_as_the_reference():

@@ -44,6 +44,7 @@ from repro_torch.core import surrogate as tsur
 from repro_torch.fed import Federation, Stream
 from repro_torch.fed.schedule import CommSchedule
 from repro_torch.obs import trace as obs_trace
+import _torch_threads  # noqa: F401  (the cores each xdist worker uses)
 
 S, N, D, C, T, M, H = 3, 24, 5, 3, 3, 4, 1e-3
 PROBS = (0.5, 0.2, 0.3)

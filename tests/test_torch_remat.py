@@ -35,6 +35,7 @@ import repro_torch.models.model as TM
 from repro_torch import tree as tu
 from repro_torch.configs import ARCH_NAMES
 from repro_torch.configs import get_smoke_config as torch_smoke
+import _torch_threads  # noqa: F401  (the cores each xdist worker uses)
 
 ARCHS = sorted(ARCH_NAMES)
 # the families whose leaves all agree bitwise in bf16 too (whisper's

@@ -33,6 +33,7 @@ from repro_torch.fed import CommSchedule, Compression, Federation
 from repro_torch.launch import serve as serve_cli
 from repro_torch.launch import train as ttrain
 from repro_torch.testing import ChaosSpec, corrupt_draw
+import _torch_threads  # noqa: F401  (the cores each xdist worker uses)
 
 S, n, d = 5, 40, 3
 EXECUTORS = {"vmap": dict(use_kernel=False),

@@ -25,6 +25,7 @@ from repro_torch.rivals import METHODS, fald_run_vmap, get_method
 from repro_torch.rivals import fald as tfald
 from repro_torch.rivals.methods import method_names
 from repro_torch.workloads import gaussian_log_lik
+import _torch_threads  # noqa: F401  (the cores each xdist worker uses)
 
 S, N, D = 5, 24, 3
 

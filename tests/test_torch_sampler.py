@@ -27,6 +27,7 @@ from repro_torch.core import federated as tfed
 from repro_torch.core import sampler as tsam
 from repro_torch.core import surrogate as tsur
 from repro_torch.core.engine import pad_shards
+import _torch_threads  # noqa: F401  (the cores each xdist worker uses)
 
 S = 4
 

@@ -39,6 +39,7 @@ from repro_torch.serve import (EnsembleServer, ensemble_prefill,
                                predictive_stats)
 from test_torch_models import _enc_embeds, _enc_out_jax, _open_gates
 from _torch_train_common import fp32_activations  # noqa: F401 (fixture)
+import _torch_threads  # noqa: F401  (the cores each xdist worker uses)
 
 ARCHS = ["qwen3-1.7b", "h2o-danube-1.8b", "phi3.5-moe-42b-a6.6b",
          "grok-1-314b", "recurrentgemma-2b", "rwkv6-7b",

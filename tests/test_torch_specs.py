@@ -15,6 +15,7 @@ from repro_torch import tree as tu
 from repro_torch.configs import ARCH_NAMES, SHAPES
 from repro_torch.configs import get_config as torch_config
 from repro_torch.launch import specs as tspecs
+import _torch_threads  # noqa: F401  (the cores each xdist worker uses)
 
 
 def _same(t_tree, j_tree):

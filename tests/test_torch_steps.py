@@ -35,6 +35,7 @@ from repro_torch.convert import params_from_jax
 from repro_torch.core.surrogate import make_bank
 from repro_torch.launch import steps as tsteps
 from repro_torch.models import model as TM
+import _torch_threads  # noqa: F401  (the cores each xdist worker uses)
 
 ARCH = "qwen3-1.7b"
 H = 1e-2

@@ -40,6 +40,7 @@ from repro_torch.fed import (CommSchedule, Compression, Federation,
 from repro_torch.fed import hierarchy as thier
 from repro_torch.launch import train as ttrain
 from repro_torch.obs import trace as obs_trace
+import _torch_threads  # noqa: F401  (the cores each xdist worker uses)
 
 EXECUTORS = ("vmap", "per_leaf", "packed")
 # the module (``repro.fed`` re-exports its ``partition`` function)

@@ -35,6 +35,7 @@ from repro_torch.core.surrogate import (analytic_gaussian_likelihood_surrogate,
 from repro_torch.fed import replay_sids
 from repro_torch.obs import TELEMETRY_PROBE_SALT, MetricsFrame, Telemetry
 from repro_torch.obs import trace as obs_trace
+import _torch_threads  # noqa: F401  (the cores each xdist worker uses)
 
 EXECUTORS = ("vmap", "per_leaf", "packed")
 

@@ -37,6 +37,7 @@ from repro_torch.data import token_shards
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
 from repro_torch.models import layers as TL
+import _torch_threads  # noqa: F401  (the cores each xdist worker uses)
 
 
 # ---------------------------------------------------------------------------

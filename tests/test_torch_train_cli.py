@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from repro_torch.launch import train as ttrain
+import _torch_threads  # noqa: F401  (the cores each xdist worker uses)
 
 
 # ---------------------------------------------------------------------------

@@ -22,6 +22,7 @@ from _torch_train_common import (ARCHS, _batch, _jax_value_and_grad,
 from repro.configs import get_smoke_config as jax_smoke
 from repro_torch import tree as tu
 from repro_torch.configs import get_smoke_config as torch_smoke
+import _torch_threads  # noqa: F401  (the cores each xdist worker uses)
 
 
 # ---------------------------------------------------------------------------

@@ -29,6 +29,7 @@ from repro_torch.core import engine as teng
 from repro_torch.core.sampler import ShardScheme
 from repro_torch.data import token_shards
 from repro_torch.kernels import ops as tops
+import _torch_threads  # noqa: F401  (the cores each xdist worker uses)
 
 
 # ---------------------------------------------------------------------------
