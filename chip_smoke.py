@@ -89,12 +89,15 @@ nvcc per source, in parallel) and drives its two paths through the
   launch per step, flash launches per self-attention per pass, the
   divergence guard with telemetry's conducive and gradient norms, the
   MoE's aux loss finite, packed == per_leaf over one round, bitwise;
-* the production dry run (``launch.dryrun``): five combinations of the
+* the production dry run (``launch.dryrun``): seven combinations of the
   pods' grids traced on fake worlds of 256 and 512 ranks, each required
-  to be OK (qwen3-1.7b's train_4k, the long_500k decodes of
-  h2o-danube-1.8b and recurrentgemma-2b, whose replicated tokens look
-  the embedding up on each rank's vocab shard, gemma-7b's decode_32k and
-  rwkv6-7b's train_4k on the (2, 16, 16) pod), and the one-card
+  to be OK and its collective bytes printed (qwen3-1.7b's train_4k, the
+  long_500k decodes of h2o-danube-1.8b and recurrentgemma-2b, whose
+  replicated tokens look the embedding up on each rank's vocab shard,
+  gemma-7b's decode_32k and rwkv6-7b's train_4k on the (2, 16, 16) pod,
+  qwen3-1.7b's decode_32k, whose softmax is reduced across the cache's
+  slot shards, and recurrentgemma-2b's prefill_32k, whose RG-LRU runs on
+  sequence shards), and the one-card
   prediction of
   ``launch.steps.make_train_step`` at (4, 2,048), held against that
   step on the card at full width and depth, fed by
@@ -217,16 +220,21 @@ PREFILL_REL = 0.05
 # behaviour at h = 1e-5, not the port's.
 TRAIN_H = 1e-7
 # [dryrun]: the production step at one card's shape, its prediction from
-# a fake one-rank world, and five combinations of the pods' grids: two
-# replicated-token lookups (long_500k, a batch of one), and the two that
+# a fake one-rank world, and seven combinations of the pods' grids: two
+# replicated-token lookups (long_500k, a batch of one), the two that
 # torch 2.11's DTensor once refused (gemma-7b's decode views on the
-# (2, 16, 16) pod, RWKV's chunked train step on a 3-D mesh)
+# (2, 16, 16) pod, RWKV's chunked train step on a 3-D mesh), a decode
+# whose cache's slots are sharded (its softmax reduced across the slot
+# shards) and recurrentgemma's prefill, whose RG-LRU runs on sequence
+# shards (the conv's halo, the scan's carries)
 DRY_B, DRY_S, DRY_STEPS, DRY_CLIENTS = 4, 2048, 4, 4
 DRY_GRID = (("qwen3-1.7b", "train_4k", "pod1"),
             ("h2o-danube-1.8b", "long_500k", "pod1"),
             ("recurrentgemma-2b", "long_500k", "pod1"),
             ("gemma-7b", "decode_32k", "pod2"),
-            ("rwkv6-7b", "train_4k", "pod2"))
+            ("rwkv6-7b", "train_4k", "pod2"),
+            ("qwen3-1.7b", "decode_32k", "pod1"),
+            ("recurrentgemma-2b", "prefill_32k", "pod1"))
 DRY_FLOPS_REL = 1e-3
 DRY_PEAK = (0.8, 1.25)
 TRAIN_GUARD = 1.0
@@ -837,6 +845,10 @@ def phase_dryrun(dev, runs):
         info = _dryrun_result(what, proc, path)
         if info.get("status") != "ok":
             raise AssertionError(f"[dryrun] {what}: {info}")
+        log(f"  {what}: collective bytes per device "
+            f"{info['static_collective_total']:.4e} "
+            + json.dumps({k: float(v) for k, v in sorted(
+                info["static_collective_bytes"].items())}))
     pred = _dryrun_result("card prediction", pproc, ppath)
     if pred.get("status") != "ok":
         raise AssertionError(f"[dryrun] card prediction: {pred}")

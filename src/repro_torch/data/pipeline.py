@@ -46,7 +46,8 @@ class FederatedPipeline:
     """Client-scheduled, prefetching batch stream.
 
     ``schedule`` yields client ids (the server's Categorical(f) draws);
-    ``prefetch`` batches are staged on ``device`` ahead of use. ``mesh``
+    ``prefetch`` batches are staged on ``device`` ahead of use (None:
+    'cuda', which must be available; no quiet CPU run). ``mesh``
     (a DeviceMesh) places every batch as a DTensor by ``spec`` (a
     ``sharding.rules.P``; default the batch specs of the batch's
     leaves). ``next(pipe)`` returns (client id, {name: tensor})."""
@@ -57,9 +58,10 @@ class FederatedPipeline:
         self.clients = clients
         self.m = batch_size
         self.schedule = schedule
-        self.device = torch.device(
-            device if device is not None else
-            ("cuda" if torch.cuda.is_available() else "cpu"))
+        if device is None and not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available; pass device='cpu' to run on the CPU")
+        self.device = torch.device("cuda" if device is None else device)
         self.mesh, self.spec = mesh, spec
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)

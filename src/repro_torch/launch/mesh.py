@@ -28,9 +28,13 @@ POD_AXES = ("pod", "data", "model")
 
 
 def _device_type(device_type: Optional[str]) -> str:
+    """None -> 'cuda', which must be available (no quiet CPU world)."""
     if device_type is not None:
         return device_type
-    return "cuda" if torch.cuda.is_available() else "cpu"
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device_type='cpu' "
+                           "to run on the CPU")
+    return "cuda"
 
 
 def backend_for(device_type: str) -> str:

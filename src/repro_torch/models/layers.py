@@ -75,6 +75,20 @@ def shard_batch(x, batch: Optional[int] = None):
                                  for n in names])
 
 
+def summed(x, layout):
+    """An attention's input x reduced where it holds a pending sum
+    (``Partial``) on a mesh dim the attention shards (``layout``, of
+    ``attention_layout``), placed as ``shard_batch`` places it; else x as
+    it is. A matrix product of a partial operand is computed whole on
+    every rank of that mesh dim (DTensor gathers the weight rather than
+    reduce the activation): the projections then run replicated for an
+    attention that is not. The reference's XLA reduces the sum first."""
+    if layout is None or not any(p.is_partial() and q.is_shard()
+                                 for p, q in zip(x.placements, layout[0])):
+        return x
+    return shard_batch(x)
+
+
 def attention_layout(x, H: int, K: int):
     """How one attention's operands are placed on a pod mesh, so that the
     attention and its backward run on each rank's shard with no
@@ -261,14 +275,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      q_position: torch.Tensor) -> torch.Tensor:
     """Single-token attention over a (possibly ring-buffer) cache, in fp32.
     q (B, 1, H, hd); caches (B, S, K, hd); kv_positions (B, S) with -1
-    for empty slots; q_position (B,). A DTensor cache whose slots are
-    whole on every rank is attended on each rank's own shards
-    (``_local_decode``)."""
+    for empty slots; q_position (B,). A DTensor cache is attended on each
+    rank's own shards (``_local_decode``)."""
     if _dtensor(k_cache) is not None:
-        from torch.distributed.tensor import Shard
-        if Shard(1) not in k_cache.placements:
-            return _local_decode(q, k_cache, v_cache, kv_positions,
-                                 q_position)
+        return _local_decode(q, k_cache, v_cache, kv_positions, q_position)
     B, _, H, hd = q.shape
     K = k_cache.shape[2]
     G = H // K
@@ -283,23 +293,66 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 def _local_decode(q, k_cache, v_cache, kv_positions, q_position):
-    """``decode_attention`` of DTensors on each rank's own (batch, KV-head)
-    shard, the cache's slots whole on every rank: every product is
-    independent per (row, head), so it runs on local tensors, as XLA runs
-    the reference's, and the output is wrapped back placed as
-    ``decode_layout`` says. (DTensor would flatten the sharded batch and
-    head dims into one in the einsums' batched products, which torch
-    2.11's view rule refuses.)"""
+    """``decode_attention`` of DTensors on each rank's own shards of the
+    cache: every product is independent per (row, head), so it runs on
+    local tensors, as XLA runs the reference's, and the output is wrapped
+    back placed as ``decode_layout`` says. (DTensor would flatten the
+    sharded batch and head dims into one in the einsums' batched
+    products, which torch 2.11's view rule refuses.)
+
+    Where the cache's slots are sharded, the softmax is split across the
+    slot shards instead of gathering the scores: each rank takes its
+    shard's row max, all-reduced (max) over the mesh dims that shard the
+    slots, then exp(s - m), its sum and the unnormalised p @ v, both
+    all-reduced (sum), and divides. A row with no valid slot on a rank
+    contributes exp(NEG_INF - m) = 0 there; one with none anywhere has m
+    = NEG_INF, every exp(0) = 1, and gives the plain softmax's uniform
+    weights."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
     mesh = k_cache.device_mesh
     pl = decode_layout(k_cache)
-    rows = [p if p == Shard(0) else Replicate() for p in pl]
-    out = decode_attention(*(local_shard(t, mesh, pl)
-                             for t in (q, k_cache, v_cache)),
-                           *(local_shard(t, mesh, rows)
-                             for t in (kv_positions, q_position)))
-    return DTensor.from_local(out, mesh, pl, run_check=False)
+    cache_pl = [p if p in (Shard(0), Shard(1), Shard(2)) else Replicate()
+                for p in k_cache.placements]
+    q_l = local_shard(q, mesh, pl)
+    k_l, v_l = (local_shard(t, mesh, cache_pl) for t in (k_cache, v_cache))
+    pos_l = local_shard(kv_positions, mesh, [
+        p if p in (Shard(0), Shard(1)) else Replicate() for p in cache_pl])
+    qp_l = local_shard(q_position, mesh, [
+        p if p == Shard(0) else Replicate() for p in pl])
+    slots = [i for i, p in enumerate(cache_pl) if p == Shard(1)]
+    if not slots:
+        out = decode_attention(q_l, k_l, v_l, pos_l, qp_l)
+    else:
+        out = _split_softmax_decode(q_l, k_l, v_l, pos_l, qp_l, mesh, slots)
+    return DTensor.from_local(out, mesh, pl, run_check=False, shape=q.shape,
+                              stride=tuple(math.prod(q.shape[d + 1:])
+                                           for d in range(q.ndim)))
 
+
+def _split_softmax_decode(q, k_cache, v_cache, kv_positions, q_position,
+                          mesh, slots):
+    """Local tensors' ``decode_attention`` with the softmax over the slots
+    reduced across the mesh dims ``slots`` (``_local_decode``). The sum
+    and the output travel in one all-reduce per mesh dim."""
+    import torch.distributed._functional_collectives as funcol
+    B, _, H, hd = q.shape
+    K = k_cache.shape[2]
+    qg = q.reshape(B, K, H // K, hd).to(torch.float32)
+    s = torch.einsum("bkgh,bskh->bkgs", qg,
+                     k_cache.to(torch.float32)) * hd ** -0.5
+    valid = (kv_positions >= 0) & (kv_positions <= q_position[:, None])
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    m = s.amax(-1, keepdim=True)                              # (B, K, G, 1)
+    for i in slots:
+        m = funcol.all_reduce(m, "max", (mesh, i))
+    e = torch.exp(s - m)
+    o = torch.cat([torch.einsum("bkgs,bskh->bkgh", e,
+                                v_cache.to(torch.float32)),
+                   e.sum(-1, keepdim=True)], dim=-1)          # (B, K, G, hd+1)
+    for i in slots:
+        o = funcol.all_reduce(o, "sum", (mesh, i))
+    out = o[..., :-1] / o[..., -1:]
+    return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -489,39 +542,197 @@ def pad_front(x: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def _causal_conv1d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv of width w.shape[0]: x (B, S, D), w (W, D)."""
-    W, S = w.shape[0], x.shape[1]
-    xp = pad_front(x, W - 1)
+    """Depthwise causal conv of width w.shape[0]: x (B, S, D), w (W, D)
+    (on sequence shards: ``_SeqShards.conv``)."""
+    return _conv_taps(pad_front(x, w.shape[0] - 1), w, x)
+
+
+def _conv_taps(xp: torch.Tensor, w: torch.Tensor,
+               x: torch.Tensor) -> torch.Tensor:
+    """The conv of x from xp, x led by its W - 1 rows before."""
+    S = x.shape[1]
     out = torch.zeros_like(x)
-    for t in range(W):
+    for t in range(w.shape[0]):
         out = out + xp[:, t:t + S] * w[t]
     return out
 
 
-def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """h_t = a_t * h_{t-1} + b_t along dim 1 from h_{-1} = 0, as a
-    Hillis-Steele scan: ceil(log2 S) rounds of elementwise products, each
+def _hillis_steele(a: torch.Tensor, b: torch.Tensor):
+    """(prod_{s<=t} a_s, h_t) along dim 1, h_t = a_t h_{t-1} + b_t from
+    h_{-1} = 0: ceil(log2 S) rounds of elementwise products, each
     composing every position with the one ``d`` earlier ((a_l, b_l) then
-    (a_r, b_r) is (a_l a_r, b_l a_r + b_r)). No closed form through
-    cumsum(log a): that underflows within tens of tokens."""
+    (a_r, b_r) is (a_l a_r, b_l a_r + b_r))."""
     S, d = a.shape[1], 1
     while d < S:
         a_prev = torch.cat([torch.ones_like(a[:, :d]), a[:, :-d]], dim=1)
         b_prev = torch.cat([torch.zeros_like(b[:, :d]), b[:, :-d]], dim=1)
         a, b = a_prev * a, b_prev * a + b
         d *= 2
-    return b
+    return a, b
+
+
+def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + b_t along dim 1 from h_{-1} = 0, as a
+    Hillis-Steele scan (``_hillis_steele``). No closed form through
+    cumsum(log a): that underflows within tens of tokens."""
+    return _hillis_steele(a, b)[1]
+
+
+class _SeqShards:
+    """RG-LRU on each rank's own shard of a DTensor (B, S, D) whose
+    sequence is sharded (DTensor's placement of the pod meshes' prefill
+    and training): the conv, the scan and the channel-wise ops run on
+    local tensors, and only what crosses a shard boundary travels: the
+    W - 1 rows before each shard (the conv's halo) and each shard's
+    (prod a, h) at its end (the scan's carry), each all-gathered over the
+    mesh dims that shard the sequence, (n_shards, B, ., D) where a
+    gather of the sequence or an all-to-all would move (B, S, D). The
+    reference's ``associative_scan`` is channel-wise alike."""
+
+    def __init__(self, t):
+        from torch.distributed.tensor import Replicate, Shard
+        self.mesh = t.device_mesh
+        self.pl = [p if p in (Shard(0), Shard(1), Shard(2)) else Replicate()
+                   for p in t.placements]
+        self.seq = [i for i, p in enumerate(self.pl) if p == Shard(1)]
+        self.channels_whole = Shard(2) not in self.pl
+        n, c = 1, 0
+        for i in self.seq:        # the shard's place along the sequence
+            n *= self.mesh.size(i)
+            c = c * self.mesh.size(i) + self.mesh.get_local_rank(i)
+        self.n, self.index = n, c
+
+    @classmethod
+    def of(cls, t):
+        """The sequence shards of DTensor t, or None (a plain tensor, or a
+        sequence whole on every rank)."""
+        if _dtensor(t) is None:
+            return None
+        from torch.distributed.tensor import Shard
+        return cls(t) if Shard(1) in t.placements else None
+
+    def channels(self, dim: int, rows: bool = False) -> list:
+        """The placements of a tensor whose dim ``dim`` is the channels
+        (D), sharded where the (B, S, D) tensors shard theirs; with
+        ``rows`` its dim 0 is the batch, sharded alike (a state (B, D))."""
+        from torch.distributed.tensor import Replicate, Shard
+        return [Shard(dim) if p == Shard(2) else
+                p if rows and p == Shard(0) else Replicate()
+                for p in self.pl]
+
+    def local(self, t):
+        return local_shard(t, self.mesh, self.pl)
+
+    def operand(self, t, pl):
+        """This rank's shard of t placed by ``pl``, an operand of the
+        local (B, S, D) shards: replicated where those are sharded, so
+        its gradient is partial there."""
+        return local_shard(t, self.mesh, pl, partial=[
+            i for i, (p, q) in enumerate(zip(self.pl, pl))
+            if p.is_shard() and not q.is_shard()])
+
+    def placed(self, t):
+        """Local (B, S_l, D_l) shards as the global DTensor."""
+        from torch.distributed.tensor import DTensor
+        return DTensor.from_local(t, self.mesh, self.pl, run_check=False)
+
+    def gathered(self, t):
+        """Local (B_l, ..., D_l) from every sequence shard: (n, B_l, ...,
+        D_l) in sequence order (the sequence's mesh dims in mesh order,
+        as DTensor nests them). Each rank reads its own part of it, so
+        the gradient is partial there: the backward reduce-scatters."""
+        from torch.distributed.tensor import (DTensor, Partial, Replicate,
+                                              Shard)
+        lead = [Shard(0) if p == Shard(1) else
+                Shard(1) if p == Shard(0) else
+                Shard(t.ndim) if p == Shard(2) else Replicate()
+                for p in self.pl]
+        dt = DTensor.from_local(t[None], self.mesh, lead, run_check=False)
+        return dt.redistribute(self.mesh, [
+            Replicate() if i in self.seq else p
+            for i, p in enumerate(lead)]).to_local(grad_placements=[
+                Partial() if i in self.seq else p
+                for i, p in enumerate(lead)])
+
+    def conv(self, x, w):
+        """``_causal_conv1d`` of local shards x (B_l, S_l, D_l), w (W,
+        D_l), each shard led by the W - 1 rows before it."""
+        xp = torch.cat([self.halo(x[:, -(w.shape[0] - 1):]), x], dim=1)
+        return _conv_taps(xp, w, x)
+
+    def halo(self, tail):
+        """tail (B_l, W - 1, D_l), each shard's last rows: the rows before
+        this rank's shard (zeros before the first)."""
+        tails = self.gathered(tail)
+        return torch.cat([torch.zeros_like(tails[:1]), tails[:-1]])[
+            self.index]
+
+    def scan(self, a, b, h0):
+        """The scan of local shards a, b (B_l, S_l, D_l) from h0 (B_l,
+        D_l) or None: h (B_l, S_l, D_l). Each shard scans its own rows;
+        the carry of the shards before it enters as prod a * carry. Every
+        rank computes every shard's carry and selects its own, so that
+        all run the same ops, forward and backward (a collective in the
+        backward runs only where the gradient reaches it)."""
+        a_cum, h = _hillis_steele(a, b)
+        ends = self.gathered(torch.stack([a_cum[:, -1], h[:, -1]], 1))
+        carries = [torch.zeros_like(h[:, 0]) if h0 is None else h0.float()]
+        for j in range(self.n - 1):
+            carries.append(ends[j, :, 0] * carries[-1] + ends[j, :, 1])
+        return h + a_cum * torch.stack(carries)[self.index][:, None]
+
+    def last(self, h, pl):
+        """The sequence's last row of local h (B_l, S_l, D_l), a DTensor
+        (B, D) placed by ``pl``: the last shard's row, summed over the
+        sequence's mesh dims (zeros on every other shard)."""
+        from torch.distributed.tensor import DTensor, Partial
+        row = h[:, -1] * float(self.index == self.n - 1)
+        return DTensor.from_local(row, self.mesh, [
+            Partial() if i in self.seq else p for i, p in enumerate(pl)],
+            run_check=False).redistribute(self.mesh, pl)
+
+    def block(self, x, p, h0):
+        """``rglru_forward`` of DTensor x (B, S, D) whose sequence is
+        sharded and whose channels are whole, on the local shards: the
+        projections are per token, so each rank runs them on its own rows
+        with the weights whole (gathered over the mesh dims that shard
+        them), and only the conv's halo and the scan's carries cross the
+        shards. (torch 2.11's DTensor refuses the view a matrix product
+        of such an x makes.)"""
+        from torch.distributed.tensor import Replicate
+        whole = [Replicate()] * self.mesh.ndim
+        w = {k: self.operand(v, whole) for k, v in p.items()}
+        state = self.channels(1, rows=True)
+        x = self.local(x)
+        xin = x @ w["w_x"]
+        gate = _gelu(x @ w["w_gate"])
+        a, b = _rglru_gates(self.conv(xin, w["conv_w"]).float(), w)
+        h = self.scan(a, b, None if h0 is None else self.operand(h0, state))
+        y = (h.to(x.dtype) * gate) @ w["w_out"]
+        return self.placed(y), self.last(h, state)
 
 
 def rglru_forward(x: torch.Tensor, p: dict,
                   h0: Optional[torch.Tensor] = None):
     """Griffin recurrent block over a full sequence. x (B, S, D); h0
     (B, D) a carried state or None. Returns (y (B, S, D), h_last (B, D)
-    fp32)."""
+    fp32). A DTensor x whose sequence is sharded runs on its local shards
+    (``_SeqShards.block``); where only a and b come out so, the scan does
+    (``_SeqShards.scan``)."""
+    seq = _SeqShards.of(x)
+    if seq is not None and seq.channels_whole:
+        return seq.block(x, p, h0)
     xin = x @ p["w_x"]
     gate = _gelu(x @ p["w_gate"])
     xc = _causal_conv1d(xin, p["conv_w"])
     a, b = _rglru_gates(xc.float(), p)
+    seq = _SeqShards.of(a)
+    if seq is not None:
+        state = seq.channels(1, rows=True)
+        h = seq.scan(seq.local(a), seq.local(b),
+                     None if h0 is None else seq.operand(h0, state))
+        y = (seq.placed(h).to(x.dtype) * gate) @ p["w_out"]
+        return y, seq.last(h, state)
     if h0 is not None:
         b = torch.cat([b[:, :1] + a[:, :1] * h0.float()[:, None], b[:, 1:]],
                       dim=1)
@@ -651,8 +862,12 @@ class _ChunkShards:
     def local(self, *ts):
         """The (B, S, H, hd) tensors, u and the state as local tensors."""
         *seq, u, state = ts
+        # u is replicated over the batch's mesh dims, each rank using it
+        # on its own rows: its gradient is partial there
+        rows = [i for i, p in enumerate(self.seq) if p.is_shard()
+                and p.dim == 0]
         return ([local_shard(t, self.mesh, self.seq) for t in seq]
-                + [local_shard(u, self.mesh, self.u),
+                + [local_shard(u, self.mesh, self.u, partial=rows),
                    local_shard(state, self.mesh, self.state)])
 
     def placed(self, o, state):

@@ -52,7 +52,8 @@ dry run) the activations are anchored as the reference anchors them
 over ('pod', 'data') at each period boundary, replicated on 'model'),
 and the ops DTensor would otherwise replicate or gather are placed as
 XLA partitions the reference: each attention's operands
-(``layers.attention_layout``), each layer's weights gathered over the
+(``layers.attention_layout``; its input reduced first where it holds a
+pending sum, ``layers.summed``), each layer's weights gathered over the
 batch axes at their point of use (FSDP), the FFN's input, the head's
 logits reduced shard-wise over the vocabulary (``_VocabSum``), the
 embedding as a vocab-parallel lookup, the decode cache written slot-wise
@@ -371,8 +372,8 @@ def _self_attn(x, p, cfg: ArchConfig, positions, *, window=None,
     (its plain version for CPU tensors)."""
     B, S, _ = x.shape
     a = p["attn"]
-    h = L.rms_norm(x, p["norm"])
     lay = L.attention_layout(x, cfg.num_heads, cfg.num_kv_heads)
+    h = L.summed(L.rms_norm(x, p["norm"]), lay)
     pq, pkv = lay[:2] if lay else (None, None)
     q = L.placed(h @ a["wq"], pq).reshape(B, S, cfg.num_heads, cfg.head_dim)
     k = L.placed(h @ a["wk"], pkv).reshape(B, S, cfg.num_kv_heads,
@@ -399,8 +400,8 @@ def _cross_attn(x, p, cfg: ArchConfig, enc_out, gated: bool):
     B, S, _ = x.shape
     Te = enc_out.shape[1]
     a = p["xattn"]
-    h = L.rms_norm(x, p["xnorm"])
     lay = L.attention_layout(x, cfg.num_heads, cfg.num_kv_heads)
+    h = L.summed(L.rms_norm(x, p["xnorm"]), lay)
     pq, pkv = lay[:2] if lay else (None, None)
     q = L.placed(h @ a["wq"], pq).reshape(B, S, cfg.num_heads, cfg.head_dim)
     k = L.placed(enc_out @ a["wk"], pkv).reshape(B, Te, cfg.num_kv_heads,

@@ -157,14 +157,21 @@ def placements(spec: P, mesh) -> list:
     return out
 
 
-def local_shard(t, mesh, pl):
+def local_shard(t, mesh, pl, partial=()):
     """This rank's shard of tensor ``t`` placed by ``pl`` on ``mesh``: a
-    DTensor redistributed there, a plain tensor taken as replicated."""
-    from torch.distributed.tensor import DTensor, Replicate
+    DTensor redistributed there, a plain tensor taken as replicated. Over
+    the mesh dims ``partial`` (where ``pl`` replicates t but each rank
+    uses it on its own shard of another tensor) the gradient is partial:
+    the backward sums it over those dims."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
     if not isinstance(t, DTensor):
         t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
                                run_check=False)
-    return t.redistribute(mesh, pl).to_local()
+    t = t.redistribute(mesh, pl)
+    if not partial:
+        return t.to_local()
+    return t.to_local(grad_placements=[
+        Partial() if i in partial else p for i, p in enumerate(pl)])
 
 
 def param_shardings(params: PyTree, mesh) -> PyTree:

@@ -10,7 +10,13 @@ the long-context shape's skip, the MoE smoke config's prefill at
 ``MOE_SHAPE``, and at ``LOOKUP`` (a vocabulary of 96, which no other
 dim of the model has) a decode step of a batch of one, whose token is
 replicated, with every collective's output shape recorded
-(``collectives``). On a world of 8 ranks: qwen3 at ``WIDE`` (d 256, two
+(``collectives``); at ``SLOT`` (one KV head, which does not split 2
+ways, so the cache's ``SLOT_SHAPE.seq_len`` slots are sharded over
+'model') a decode step, its collectives recorded (``slot_collectives``);
+and the recurrentgemma smoke config cut to two RG-LRU layers
+(``RG_LAYERS``) at ``RG_SHAPES`` (one row per data rank, so that DTensor
+shards the sequence over 'model'), the collectives issued inside
+``rglru_forward`` recorded (``rg_collectives``). On a world of 8 ranks: qwen3 at ``WIDE`` (d 256, two
 layers, where matrix products dominate the count; 2 KV heads, which do
 not split 4 ways) on the (2, 4) ('data', 'model') mesh at
 ``WIDE_SHAPES``, its train step also on one device (no mesh), with the
@@ -60,6 +66,15 @@ SAMPLER = SamplerConfig(method="fsgld", num_shards=16)
 LOOKUP = dict(CFG, vocab_size=96)
 LOOKUP_SHAPE = InputShape("decode", seq_len=32, global_batch=1,
                           kind="decode")
+# one KV head on a model axis of 2: the cache's 4,096 slots (2,048 per
+# rank, a size no other dim of the model has) sharded over 'model'
+SLOT = dict(CFG, num_kv_heads=1)
+SLOT_SHAPE = InputShape("decode", seq_len=4096, global_batch=4,
+                        kind="decode")
+# two RG-LRU layers; 96 positions (48 per rank), a size no other dim has
+RG_LAYERS = dict(layer_pattern=("rglru", "rglru"), num_layers=2)
+RG_SHAPES = {kind: InputShape(kind, seq_len=96, global_batch=2, kind=kind)
+             for kind in ("prefill", "train")}
 
 
 def _trace(arch, shape, mesh, cfg):
@@ -91,23 +106,39 @@ def _recording_anchors(fn):
         M._attending = attending
 
 
-def _recording_collectives(fn):
+def _recording_collectives(fn, inside=None):
     """``fn()`` with every collective the op counter sees recorded:
-    [[op name, output shape], ...]."""
+    [[op name, output shape], ...]; with ``inside`` (a function of
+    ``models.layers``, by name) only those issued while it runs."""
+    from repro_torch.models import layers as L
     from repro_torch.roofline import hlo_analysis as H
     seen = []
     count = H.OpCounter._count
+    depth = [0 if inside else 1]
 
     def record(self, func, args, kwargs, out):
         name = func.overloadpacket.__name__
-        if func.namespace == "_c10d_functional" and name in H._COLLECTIVES:
+        if depth[0] and func.namespace == "_c10d_functional" \
+                and name in H._COLLECTIVES:
             seen.append([name, list(getattr(out, "shape", ()))])
         return count(self, func, args, kwargs, out)
     H.OpCounter._count = record
+    if inside:
+        block = getattr(L, inside)
+
+        def within(*args, **kwargs):
+            depth[0] += 1
+            try:
+                return block(*args, **kwargs)
+            finally:
+                depth[0] -= 1
+        setattr(L, inside, within)
     try:
         return fn(), seen
     finally:
         H.OpCounter._count = count
+        if inside:
+            setattr(L, inside, block)
 
 
 def world_of_8(out: dict) -> None:
@@ -135,6 +166,17 @@ def world_of_4(out: dict) -> None:
     lookup = dataclasses.replace(get_smoke_config("qwen3-1.7b"), **LOOKUP)
     out["lookup_decode"], out["collectives"] = _recording_collectives(
         lambda: _trace("qwen3-1.7b", LOOKUP_SHAPE, mesh, lookup))
+    slot = dataclasses.replace(get_smoke_config("qwen3-1.7b"), **SLOT)
+    out["slot_decode"], out["slot_collectives"] = _recording_collectives(
+        lambda: _trace("qwen3-1.7b", SLOT_SHAPE, mesh, slot))
+    rg = dataclasses.replace(get_smoke_config("recurrentgemma-2b"),
+                             **RG_LAYERS)
+    out["rg_collectives"] = {}
+    for kind, shape in RG_SHAPES.items():
+        out[f"rg_{kind}"], out["rg_collectives"][kind] = \
+            _recording_collectives(
+                lambda: _trace("recurrentgemma-2b", shape, mesh, rg),
+                inside="rglru_forward")
 
 
 def main() -> int:

@@ -23,6 +23,20 @@ a bound. Cases:
          plain tensors
   train  launch/train.py --multi-pod --smoke on a (2, 1, 1) mesh
          against the driver's run without torchrun's environment
+  shards (1, 2): what the model runs on each rank's shard of a sequence
+         or of a cache's slots: decode attention over a cache whose
+         slots ``sharding.rules.cache_specs`` shards over 'model' (a
+         smoke qwen3 with one KV head), the softmax split across the
+         slot shards, against the plain tensors' within 1e-6 (fp32),
+         with a ring buffer holding -1 slots, a row whose slots on one
+         rank are all empty and a row with none valid anywhere; and
+         ``rglru_forward`` with the sequence sharded over 'model' (the
+         conv's halo, the scan's carries) against the plain one within
+         1e-6 (its value and h_last; its gradients within 1e-6 (1 + max
+         |ref|)), with and without a carried state, and its conv and
+         scan alone (the path where only the gates come out sharded); and
+         ``rwkv_forward`` with its rows sharded over 'model' (u's
+         gradient summed over the rows' ranks)
   health (2, 1): recovery and telemetry across the data ranks: a NaN'd
          chain respawned from a donor on the other rank, and a
          quarantine under a federation schedule, with telemetry's probe
@@ -279,6 +293,218 @@ def vocab_lookup(mesh, d_on_data):
     return f"rows {tuple(got.shape)} placed {got.placements}"
 
 
+def slot_decode(mesh):
+    """Decode attention over a cache placed as ``cache_specs`` places a
+    smoke qwen3's with one KV head on a model axis of 2 (its slots over
+    'model'): each rank attends its own slots and the softmax is reduced
+    across them. Rows: 0 a ring buffer that has wrapped (slot positions
+    12..15 then 4..11), 1 slots 0..3 filled and the rest -1 (every slot
+    on rank 1 empty), 2 slots 6..9 filled with positions above its query
+    (no valid slot anywhere: the plain softmax's uniform weights)."""
+    import dataclasses
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import layers as TL
+    from repro_torch.models import model as TM
+    from repro_torch.sharding import rules
+    cfg = dataclasses.replace(get_smoke_config("qwen3-1.7b"),
+                              num_kv_heads=1)
+    B, S, H, K, hd = 3, 12, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    cache = TM.init_cache(cfg, B, S, dtype=torch.float32)["blocks"]["l0"]
+    specs = rules.cache_specs({"blocks": {"l0": cache}},
+                              {"data": 1, "model": 2})["blocks"]["l0"]
+    # (periods, B, S, K, hd): the slots over 'model', K = 1 not split
+    assert tuple(specs["k"])[2:4] == ("model", None), specs["k"]
+    pl, pl_pos = (rules.placements(rules.P(*tuple(specs[n])[1:]), mesh)
+                  for n in ("k", "pos"))
+    assert pl == [Shard(0), Shard(1)] and pl_pos == [Shard(0), Replicate()]
+    g = torch.Generator().manual_seed(11)
+    q = torch.randn(B, 1, H, hd, generator=g)
+    kc, vc = (torch.randn(B, S, K, hd, generator=g) for _ in range(2))
+    kv_pos = torch.full((B, S), -1, dtype=torch.int32)
+    kv_pos[0] = torch.tensor([12, 13, 14, 15] + list(range(4, 12)))
+    kv_pos[1, :4] = torch.arange(4)
+    kv_pos[2, 6:10] = torch.arange(20, 24)
+    qp = torch.tensor([15, 3, 9])
+    want = TL.decode_attention(q, kc, vc, kv_pos, qp)
+    got = TL.decode_attention(
+        distribute_tensor(q, mesh, pl_pos),
+        *(distribute_tensor(t, mesh, pl) for t in (kc, vc)),
+        distribute_tensor(kv_pos, mesh, pl_pos), qp)
+    err = float((got.full_tensor() - want).abs().max())
+    assert err <= 1e-6, err
+    # row 2: no valid slot, the mean of its values for every head
+    assert torch.allclose(want[2, 0], vc[2, :, 0].mean(0).expand(H, hd),
+                          atol=1e-6)
+    return f"max |err| {err:.3g}"
+
+
+def seq_rglru(mesh, carried):
+    """``rglru_forward`` of x (B, S, D) sharded along the sequence over
+    'model' (as DTensor places the pod meshes' prefill), its parameters
+    replicated: y and h_last against the plain tensors' within 1e-6, the
+    gradients of every input within 1e-6 (1 + max |ref|)."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.models import layers as TL
+    g = torch.Generator().manual_seed(12)
+    B, S, D = 2, 16, 8
+    p = {"w_x": torch.randn(D, D, generator=g) / D ** 0.5,
+         "w_gate": torch.randn(D, D, generator=g) / D ** 0.5,
+         "w_rec": torch.randn(D, D, generator=g) / D ** 0.5,
+         "w_inp": torch.randn(D, D, generator=g) / D ** 0.5,
+         "w_out": torch.randn(D, D, generator=g) / D ** 0.5,
+         "conv_w": torch.randn(TL.RGLRU_CONV, D, generator=g) * 0.5,
+         "lam": torch.randn(D, generator=g)}
+    x = torch.randn(B, S, D, generator=g)
+    h0 = torch.randn(B, D, generator=g) if carried else None
+    w = torch.randn(B, S, D, generator=g)
+    wl = torch.randn(B, D, generator=g)
+    # the pod meshes' layout: the rows over 'data' (here of size 1), the
+    # sequence over 'model'
+    rep, rows = [Replicate(), Replicate()], [Shard(0), Replicate()]
+    seq = [Shard(0), Shard(1)]
+
+    def run(x, p, h0):
+        y, h_last = TL.rglru_forward(x, p, h0)
+        return y, h_last
+
+    plain = [x.clone().requires_grad_(True)] + [
+        t.clone().requires_grad_(True) for t in p.values()]
+    yp, hp = run(plain[0], dict(zip(p, plain[1:])), h0)
+    ((yp * w).sum() + (hp * wl).sum()).backward()
+    dts = [distribute_tensor(x, mesh, seq).requires_grad_(True)] + [
+        distribute_tensor(t, mesh, rep).requires_grad_(True)
+        for t in p.values()]
+    yd, hd = run(dts[0], dict(zip(p, dts[1:])), None if h0 is None
+                 else distribute_tensor(h0, mesh, rows))
+    assert yd.placements == tuple(seq), yd.placements
+    ((yd * distribute_tensor(w, mesh, seq)).sum()
+     + (hd * distribute_tensor(wl, mesh, rows)).sum()).backward()
+    errs = {"y": float((yd.full_tensor() - yp).abs().max()),
+            "h_last": float((hd.full_tensor() - hp).abs().max())}
+    bad = {k: e for k, e in errs.items() if not e <= 1e-6}
+    bad.update(_grad_errors(["x"] + list(p), dts, plain))
+    assert not bad, bad
+    return f"max |err| {max(errs.values()):.3g}"
+
+
+def _grad_errors(names, dts, plain) -> dict:
+    """{'d' + name: (max |err|, max |ref|)} of the gradients off by more
+    than 1e-6 (1 + max |ref|): a weight's gradient sums over the rows in
+    another order (each shard's, then across the ranks), so it is held
+    at the scale of the tensor, not of each element."""
+    bad = {}
+    for name, a, b in zip(names, dts, plain):
+        err, ref = (float((a.grad.full_tensor() - b.grad).abs().max()),
+                    float(b.grad.abs().max()))
+        if not err <= 1e-6 * (1 + ref):
+            bad["d" + name] = (err, ref)
+    return bad
+
+
+def rwkv_rows(mesh):
+    """``rwkv_forward`` of x (B, S, D) with its rows sharded over 'model'
+    (the chunk loop on each rank's rows, ``_ChunkShards``), its parameters
+    replicated: y, the state and the gradients of every input against the
+    plain tensors' (u's gradient summed over the rows' ranks)."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.models import layers as TL
+    g = torch.Generator().manual_seed(13)
+    B, S, H, hd = 2, 20, 2, 4
+    D = H * hd
+    p = {k: torch.randn(D, D, generator=g) / D ** 0.5
+         for k in ("w_r", "w_k", "w_v", "w_o")}
+    p.update({k: torch.rand(D, generator=g)
+              for k in ("mu_r", "mu_k", "mu_v", "mu_w")})
+    p.update(w0=torch.randn(D, generator=g) - 1.0,
+             w_lora_a=torch.randn(D, TL.RWKV_LORA, generator=g) * 0.1,
+             w_lora_b=torch.randn(TL.RWKV_LORA, D, generator=g) * 0.1,
+             u=torch.randn(H, hd, generator=g))
+    x = torch.randn(B, S, D, generator=g)
+    w = torch.randn(B, S, D, generator=g)
+    rep, rows = [Replicate(), Replicate()], [Replicate(), Shard(0)]
+    plain = [x.clone().requires_grad_(True)] + [
+        t.clone().requires_grad_(True) for t in p.values()]
+    yp, sp = TL.rwkv_forward(plain[0], dict(zip(p, plain[1:])), chunk=8)
+    ((yp * w).sum() + sp["S"].sum()).backward()
+    dts = [distribute_tensor(x, mesh, rows).requires_grad_(True)] + [
+        distribute_tensor(t, mesh, rep).requires_grad_(True)
+        for t in p.values()]
+    yd, sd = TL.rwkv_forward(dts[0], dict(zip(p, dts[1:])), chunk=8)
+    ((yd * distribute_tensor(w, mesh, rows)).sum()
+     + sd["S"].sum()).backward()
+    bad = {}
+    for name, a, b in [("y", yd, yp), ("S", sd["S"], sp["S"])]:
+        d = (a.full_tensor() - b.detach()).abs()
+        if not bool((d <= 1e-6 + 1e-6 * b.detach().abs()).all()):
+            bad[name] = float(d.max())
+    bad.update(_grad_errors(["x"] + list(p), dts, plain))
+    assert not bad, bad
+    return "y, S within 1e-6 + 1e-6 |ref|, gradients 1e-6 (1 + max |ref|)"
+
+
+def seq_pieces(mesh):
+    """The conv of a DTensor x (B, S, D) whose rows and sequence are
+    sharded (``_SeqShards.conv``: each shard led by its halo) and the
+    scan of a and b so sharded with a carried state (``_SeqShards.scan``
+    / ``last``, the path where only the gates come out sequence-sharded):
+    against ``_causal_conv1d`` and ``linear_scan`` of the plain tensors
+    within 1e-6, and their gradients within 1e-6 (1 + max |ref|)."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.models import layers as TL
+    g = torch.Generator().manual_seed(14)
+    B, S, D = 2, 16, 8
+    x, wx = (torch.randn(B, S, D, generator=g) for _ in range(2))
+    w = torch.randn(TL.RGLRU_CONV, D, generator=g)
+    a = torch.rand(B, S, D, generator=g)
+    b, wh = (torch.randn(B, S, D, generator=g) for _ in range(2))
+    h0, wl = (torch.randn(B, D, generator=g) for _ in range(2))
+    seq, rows = [Shard(0), Shard(1)], [Shard(0), Replicate()]
+    pl = [seq, [Replicate(), Replicate()], seq, seq, rows]
+    plain = [t.clone().requires_grad_(True) for t in (x, w, a, b, h0)]
+    dts = [distribute_tensor(t, mesh, q).requires_grad_(True)
+           for t, q in zip((x, w, a, b, h0), pl)]
+
+    def run(x, w, a, b, h0, shards=None):
+        if shards is None:
+            h = TL.linear_scan(a, torch.cat([b[:, :1] + a[:, :1]
+                                             * h0[:, None], b[:, 1:]], 1))
+            return TL._causal_conv1d(x, w), h, h[:, -1]
+        conv = shards.placed(shards.conv(shards.local(x), shards.operand(
+            w, shards.channels(1))))
+        state = shards.channels(1, rows=True)
+        h = shards.scan(shards.local(a), shards.local(b),
+                        shards.operand(h0, state))
+        return conv, shards.placed(h), shards.last(h, state)
+
+    want = run(*plain)
+    got = run(*dts, shards=TL._SeqShards.of(dts[2]))
+    loss = [(want[0] * wx).sum() + (want[1] * wh).sum()
+            + (want[2] * wl).sum(),
+            (got[0] * distribute_tensor(wx, mesh, seq)).sum()
+            + (got[1] * distribute_tensor(wh, mesh, seq)).sum()
+            + (got[2] * distribute_tensor(wl, mesh, rows)).sum()]
+    for t in loss:
+        t.backward()
+    bad = {n: e for n, e in (
+        (n, float((gt.full_tensor() - wt.detach()).abs().max()))
+        for n, gt, wt in zip(("conv", "h", "h_last"), got, want))
+        if not e <= 1e-6}
+    bad.update(_grad_errors(["x", "conv_w", "a", "b", "h0"], dts, plain))
+    assert not bad, bad
+    return "conv, h and h_last within 1e-6"
+
+
+def case_shards(mesh):
+    check("decode attention over slot shards", lambda: slot_decode(mesh))
+    for carried in (False, True):
+        check(f"RG-LRU over sequence shards, carried: {carried}",
+              lambda carried=carried: seq_rglru(mesh, carried))
+    check("RG-LRU's conv and scan over sequence shards",
+          lambda: seq_pieces(mesh))
+    check("RWKV chunk loop over row shards", lambda: rwkv_rows(mesh))
+
+
 def case_health(mesh):
     from repro_torch.core.health import Recovery
     from repro_torch.obs.telemetry import Telemetry
@@ -355,6 +581,8 @@ def main() -> int:
         case_data(lmesh.make_sim_mesh(2, 1, "cpu"))
     elif case == "model":
         case_model(lmesh.make_sim_mesh(1, 2, "cpu"))
+    elif case == "shards":
+        case_shards(lmesh.make_sim_mesh(1, 2, "cpu"))
     elif case == "health":
         case_health(lmesh.make_sim_mesh(2, 1, "cpu"))
     else:

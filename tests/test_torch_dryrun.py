@@ -303,6 +303,67 @@ def test_a_replicated_token_looks_up_its_vocab_shard(fake_world_run):
                for name, _ in seen)
 
 
+def test_decode_over_slot_shards_gathers_no_scores(fake_world_run):
+    """A decode step whose cache's slots are sharded over 'model' (one KV
+    head on the (2, 2) world): the softmax is reduced across the slot
+    shards (its max, its sum and the unnormalised output all-reduced),
+    so no all-gather carries the slot count, whole or per rank."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import _dryrun_worker as w
+    info = fake_world_run["slot_decode"]
+    assert info["status"] == "ok", info
+    seen = fake_world_run["slot_collectives"]
+    S = w.SLOT_SHAPE.seq_len
+    slots = [s for name, s in seen
+             if name == "all_gather_into_tensor" and (S in s or S // 2 in s)]
+    assert not slots, slots
+    assert sum(name == "all_reduce" for name, _ in seen) >= 2
+
+
+def test_decode_over_slot_shards_moves_the_references_bytes(
+        fake_world_run, tmp_path):
+    """The slot-sharded decode step's collective bytes within 1.5x of the
+    reference's compiled step (``tools/ref_dryrun.py --smoke`` on the same
+    (2, 2) mesh and config, in a process of its own)."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import _dryrun_worker as w
+    shape = w.SLOT_SHAPE
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    p = subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "ref_dryrun.py"), "--smoke",
+         "--cfg-json", json.dumps(w.SLOT), "--arch", "qwen3-1.7b",
+         "--shape", "decode_32k", "--batch", str(shape.global_batch),
+         "--seq-len", str(shape.seq_len), "--mesh-shape", "2,2",
+         "--json-out", str(tmp_path / "ref.json")],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert p.returncode == 0, p.stdout[-2000:] + p.stderr[-3000:]
+    with open(tmp_path / "ref.json") as f:
+        (ref,) = json.load(f).values()
+    got = fake_world_run["slot_decode"]["static_collective_total"]
+    want = ref["static_collective_total"]
+    assert got <= 1.5 * want, (got, want)
+
+
+@pytest.mark.parametrize("kind", ["prefill", "train"])
+def test_the_rglru_block_gathers_no_sequence(kind, fake_world_run):
+    """Two RG-LRU layers at one row per data rank on the (2, 2) world,
+    where DTensor shards the sequence over 'model': inside
+    ``rglru_forward`` (train: the forward and its recompute) no all-gather
+    carries the sequence length, whole or per rank. The conv's halo and
+    the scan's carries cross the shards (``layers._SeqShards``), not the
+    sequence."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import _dryrun_worker as w
+    info = fake_world_run[f"rg_{kind}"]
+    assert info["status"] == "ok", info
+    S = w.RG_SHAPES[kind].seq_len
+    seen = fake_world_run["rg_collectives"][kind]
+    assert seen, "no collective inside rglru_forward: no shard crossed"
+    whole = [s for name, s in seen
+             if name == "all_gather_into_tensor" and (S in s or S // 2 in s)]
+    assert not whole, whole
+
+
 @pytest.mark.parametrize("case", ["moe_prefill", "rwkv_train"])
 def test_the_moe_and_rwkv_steps_trace_ok(case, fake_world_run,
                                          world_of_8_run):

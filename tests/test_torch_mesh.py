@@ -267,3 +267,76 @@ def test_meshes_refuse_what_they_cannot_build(monkeypatch):
     assert not torch.distributed.is_initialized()
     assert lmesh.axis_size(None, "data") == 1
     assert lmesh.axis_rank(None, "model") == 0
+
+
+# ---------------------------------------------------------------------------
+# a sequence's or a cache's slots sharded over 'model' (two gloo ranks)
+# ---------------------------------------------------------------------------
+
+SHARDS = ["decode attention over slot shards",
+          "RG-LRU over sequence shards, carried: False",
+          "RG-LRU over sequence shards, carried: True",
+          "RG-LRU's conv and scan over sequence shards",
+          "RWKV chunk loop over row shards"]
+
+
+@pytest.fixture(scope="module")
+def shard_checks(tmp_path_factory):
+    """The 'shards' case on a (1, 2) mesh, run once: {name: [rank 0's
+    (ok, detail), rank 1's]}."""
+    checks = _ranks("shards", tmp_path_factory.mktemp("shards"))
+    for rows in checks:
+        assert [n for n, _, _ in rows] == SHARDS, rows
+    return {n: [rows[i][1:] for rows in checks]
+            for i, n in enumerate(SHARDS)}
+
+
+@pytest.mark.parametrize("name", SHARDS)
+def test_sharded_slots_and_sequence_equal_the_plain_tensors(shard_checks,
+                                                            name):
+    """Decode attention over a cache whose slots are sharded (the softmax
+    reduced across the shards, not the scores gathered) and the RG-LRU
+    block over a sharded sequence (the conv's halo and the scan's
+    carries) against the plain tensors, within 1e-6 in fp32 on each rank
+    (gradients within 1e-6 (1 + max |ref|)); RWKV's chunk loop over row
+    shards, its gradients too."""
+    for r, (ok, detail) in enumerate(shard_checks[name]):
+        assert ok, f"rank {r}: {detail}"
+
+
+# ---------------------------------------------------------------------------
+# no quiet CPU world
+# ---------------------------------------------------------------------------
+
+MESH_ENTRIES = {
+    "_device_type": lambda dt: lmesh._device_type(dt),
+    "make_host_mesh": lambda dt: lmesh.make_host_mesh(dt),
+    "make_sim_mesh": lambda dt: lmesh.make_sim_mesh(1, 1, dt),
+    "make_production_mesh": lambda dt: lmesh.make_production_mesh(
+        device_type=dt),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(MESH_ENTRIES))
+def test_mesh_entry_points_refuse_a_quiet_cpu_world(entry, monkeypatch):
+    """Without CUDA and without a device type, each entry point raises
+    before starting a process group; with 'cpu' it builds a gloo world
+    (a 1 x 1 mesh)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    monkeypatch.delenv("RANK", raising=False)
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(RuntimeError, match="device_type='cpu'"):
+        MESH_ENTRIES[entry](None)
+    assert not torch.distributed.is_initialized()
+    try:
+        out = MESH_ENTRIES[entry]("cpu")
+        if entry == "_device_type":
+            assert out == "cpu"
+        else:
+            assert out.device_type == "cpu"
+            assert tuple(out.mesh.shape) == (1, 1)
+            assert torch.distributed.get_backend() == "gloo"
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()

@@ -2,8 +2,11 @@
 the JAX package's (``repro.data.pipeline``): the reference's three
 pipeline tests (``tests/test_pipeline_sharding.py``), each run on both
 packages with the same seeds and held bitwise: the epoch batches, the
-scheduled client ids and their batches, the categorical draws."""
+scheduled client ids and their batches, the categorical draws; and
+that without CUDA the pipeline refuses to stage on a device it was not
+given."""
 import numpy as np
+import pytest
 import torch
 
 from repro.data import pipeline as jp
@@ -58,3 +61,16 @@ def test_categorical_schedule_draws_as_the_reference():
     assert a == b
     freq = np.bincount(b, minlength=3) / 2000
     np.testing.assert_allclose(freq, [0.7, 0.2, 0.1], atol=0.03)
+
+
+def test_pipeline_refuses_a_quiet_cpu_device(monkeypatch):
+    """device=None means 'cuda': without it the pipeline raises, naming
+    device='cpu', before it stages a batch; with 'cpu' it runs there."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    clients = [tp.ClientDataset({"x": np.arange(8)[:, None] + 10 * i},
+                                seed=i) for i in range(2)]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tp.FederatedPipeline(clients, 2, tp.round_robin(2))
+    pipe = tp.FederatedPipeline(clients, 2, tp.round_robin(2), device="cpu")
+    cid, batch = next(pipe)
+    assert cid == 0 and batch["x"].device.type == "cpu"
